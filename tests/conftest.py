@@ -41,6 +41,12 @@ def rng(request):
     return np.random.RandomState(zlib.crc32(request.node.nodeid.encode()) & 0x7FFFFFFF)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA device (skips without one)"
+    )
+
+
 @pytest.fixture(scope="session", autouse=True)
 def _check_cpu_mesh():
     assert jax.devices()[0].platform == "cpu"
