@@ -8,26 +8,49 @@ order; any failure raises and the script exits non-zero:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile haconvdr_torch/csrc/*.cu with nvcc into
-   build/haconvdr_torch/ (first use) and print the build time;
+   build/haconvdr_torch/ (first use; one nvcc per source, run at once)
+   and print the build time;
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card at
-   the serving path's shapes, with the max error and both times;
+   the serving path's shapes (Q = 256, N = 2,500,000 with n_valid =
+   N - 1,000, D = 768, k = 100), with the max error and both times:
+   attention; the v3 top-k in f32, bf16 and its int8 mode, unseeded and
+   seeded; the v4 window and rescore kernels; the select kernel in both
+   layouts, cold at the path's pool [W + 8 sw, Q] and warm (a floor from
+   warm_floor) at the wider pool of a 1.7M-row search, where it must also
+   equal the cold answer; the whole v4 search in f32, bf16 and int8, and a
+   forced fallback to v3 (planted duplicate rows);
 4. main path: a full-width ANCE RoBERTa-base query tower (random weights
    from the seed) over a resident 2,500,000 x 768 float32 index made on
-   the card; a BatchingRetriever(max_batch=64) answers concurrent
-   conversational requests and Retriever.retrieve a few single ones.
-   Every answer is held against the plain twins' answer for the same
-   queries, and each kernel must have launched on this path while no
-   plain twin ran.
+   the card, searched by the v4 kernels; a BatchingRetriever(max_batch=64)
+   answers concurrent conversational requests and Retriever.retrieve a
+   few single ones.  Answers are held against the plain twins;
+5. int8 resident path: the same tower, Retriever(store_dtype="int8") over
+   the same rows quantized on the card; 64 concurrent requests and a few
+   single ones.  Every search's answer equals the plain int8 scoring of
+   the same query embeddings: ids at every position, scores bit for bit;
+6. streaming path: BlockSearcher over the same rows as four 625,000-row
+   device blocks: per block (unseeded v3 first, then seeded v3), and as
+   super-blocks of 2,500,000 rows (one v4 search per fill) in float32 and
+   with the int8 accumulator.  Answers are held against the plain twins.
+Each of phases 4-6 zeroes every launch count just before it and reads
+them just after: each kernel of that path must have launched, and no
+plain twin may have run.
 
 Tolerances (kernel vs plain twin on the same inputs):
   attention float32  max |diff| <= 1e-4
   attention bfloat16 |diff| <= 2**-6 + 2**-8 |ref| (one bf16 ulp: both
                      round P and the output to bf16)
-  top-k scores       |diff| <= 1e-4 |ref| (float32 and bfloat16: both
-                     accumulate exact products in float32)
+  float scores       |diff| <= 1e-4 |ref| (top-k, window maxima; both
+                     sides accumulate exact products in float32, in
+                     another order); rescored rows, near 0 as often as
+                     not, <= 1e-4 |ref| + 1e-4
   top-k ids          identical wherever the adjacent scores differ by
                      more than 1e-5 |s| (below that a summation-order
-                     difference may swap two near-equal rows)
+                     difference may swap two near-equal rows); window
+                     rows (a1) identical where v1 - v2 > 1e-5 |v1|
+  int8 x int8        exact: scores equal, ids identical at every position
+  select, rescore    bit-identical to the twin's values and rows / to the
+                     window kernel's own v1, v2
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last line is {"ok": true, "device": {...}}.
@@ -52,7 +75,10 @@ TOP_K = 100
 Q_KERNEL = 256
 ATTN_B, ATTN_L = 8, 512
 N_BATCHED = 128  # two full max_batch=64 dispatches
+N_BATCHED_INT8 = 64
 N_SINGLE = 4
+N_BLOCKS = 4  # phase 6: 625,000-row blocks
+WARM_POOL = 13_282 + 4 * 128  # the v4 pool of 1.7M float32 rows (sw 128)
 WORDS = [f"w{i}" for i in range(5000)]
 
 
@@ -104,16 +130,58 @@ def compare_topk(s, i, rs, ri, what: str) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def phase_kernels(seed: int, dev, passages_f32):
+def compare_exact(s, i, rs, ri, what: str) -> float:
+    """int8 x int8: ids identical at every position, scores bit for bit."""
+    check(torch.equal(i.cpu(), ri.cpu()), f"{what}: ids differ")
+    check(torch.equal(s.cpu(), rs.cpu()), f"{what}: scores differ")
+    return 0.0
+
+
+def zero_counts():
+    from haconvdr_torch.ops import fused_attention, fused_topk, topk_v4
+
+    for mod in (fused_attention, fused_topk, topk_v4):
+        for key in mod.COUNTS:
+            mod.COUNTS[key] = 0
+
+
+def read_counts():
+    from haconvdr_torch.ops import fused_attention, fused_topk, topk_v4
+
+    return {"fused_attention": dict(fused_attention.COUNTS),
+            "fused_topk": dict(fused_topk.COUNTS), "topk_v4": dict(topk_v4.COUNTS)}
+
+
+def check_counts(counts, need, what: str) -> None:
+    """Every (module, key) in ``need`` launched; no plain twin ran."""
+    for mod, key in need:
+        check(counts[mod][key] > 0, f"{what}: {mod} {key} never launched")
+    for mod, c in counts.items():
+        check(c["plain"] == 0, f"{what}: a plain twin of {mod} ran")
+
+
+def int8_plain(q_folded, codes, n_valid):
+    """Plain int8 x int8 scoring: the per-query codes of the folded
+    queries, exact integer scores, dequantized once."""
+    from haconvdr_torch.index.quantize import quantize_queries_int8
+    from haconvdr_torch.ops.fused_topk import fused_topk_block_plain
+
+    q8, q_scale = quantize_queries_int8(q_folded)
+    s, i = fused_topk_block_plain(q8, codes, n_valid, TOP_K)
+    return s * (q_scale[:, None] / 127.0), i
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain twin
+# ---------------------------------------------------------------------------
+
+def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
     from haconvdr_torch.ops.fused_attention import (
         fused_attention_qkv,
         fused_attention_qkv_plain,
     )
     from haconvdr_torch.ops.fused_topk import fused_topk_block, fused_topk_block_plain
 
-    g = torch.Generator(device=dev).manual_seed(seed + 1)
-    rng = np.random.default_rng(seed + 1)
-    rows = []
     # -- attention at B=8, L=512, H=768, 12 heads, random padding lengths
     lengths = rng.integers(1, ATTN_L + 1, ATTN_B)
     lengths[0] = ATTN_L
@@ -138,34 +206,191 @@ def phase_kernels(seed: int, dev, passages_f32):
         rows.append(dict(kernel="fused_attention", config=name, max_abs_err=float(diff.max()),
                          ms=ms, plain_ms=pms, shape=[ATTN_B, ATTN_L, 3 * DIM]))
         del qkv, out, ref
-    # -- fused top-k at Q=256, N=2.5M (n_valid = N - 1000), D=768, k=100
+    # -- v3 top-k: f32, bf16, and the int8 mode (folded float queries)
     q = torch.randn(Q_KERNEL, DIM, device=dev, generator=g)
     extra = torch.randn(100_000, DIM, device=dev, generator=g)
-    seed_scores = torch.topk(q @ extra.T, TOP_K, dim=1).values.contiguous()
-    del extra
     n_valid = N_ROWS - N_PAD
-    for name in ("float32", "bfloat16"):
-        p = passages_f32 if name == "float32" else passages_f32.to(torch.bfloat16)
+    q_fold = q * scale
+    for name in ("float32", "bfloat16", "int8"):
+        p = {"float32": passages_f32, "bfloat16": None, "int8": codes}[name]
+        if p is None:
+            p = passages_f32.to(torch.bfloat16)
+        qq = q_fold if name == "int8" else q
+        # a running best from other rows: q_fold . codes approximates q . p
+        seed_scores = torch.topk(q @ extra.T, TOP_K, dim=1).values.contiguous()
         for seeded in (False, True):
             init = seed_scores if seeded else None
-            s, i = fused_topk_block(q, p, n_valid, TOP_K, init_scores=init)
+            s, i = fused_topk_block(qq, p, n_valid, TOP_K, init_scores=init)
             torch.cuda.synchronize()
-            rs, ri = fused_topk_block_plain(q, p, n_valid, TOP_K, init_scores=init)
+            rs, ri = fused_topk_block_plain(qq, p, n_valid, TOP_K, init_scores=init)
             tag = f"top-k {name}{' seeded' if seeded else ''}"
             err = compare_topk(s, i, rs, ri, tag)
             check(int(i.max()) < n_valid, f"{tag}: a row past n_valid surfaced")
             if seeded:
                 check(bool((i == -1).any()), f"{tag}: no seed survivor")
-            ms = cuda_ms(lambda: fused_topk_block(q, p, n_valid, TOP_K, init_scores=init), 3)
+            ms = cuda_ms(lambda: fused_topk_block(qq, p, n_valid, TOP_K, init_scores=init), 3)
             pms = cuda_ms(
-                lambda: fused_topk_block_plain(q, p, n_valid, TOP_K, init_scores=init), 3
+                lambda: fused_topk_block_plain(qq, p, n_valid, TOP_K, init_scores=init), 3
             )
             rows.append(dict(kernel="fused_topk", config=tag[6:], max_abs_err=err, ms=ms,
                              plain_ms=pms, shape=[Q_KERNEL, N_ROWS, DIM, TOP_K]))
         del p
+    del extra
     torch.cuda.empty_cache()
+
+
+def v4_operands(dev, g, passages_f32, codes, scale):
+    """Per dtype: (queries in the kernels' dtype, passages, folded float
+    queries for topk_block_v4)."""
+    from haconvdr_torch.index.quantize import quantize_queries_int8
+
+    q = torch.randn(Q_KERNEL, DIM, device=dev, generator=g)
+    q_fold = q * scale
+    yield "float32", q, passages_f32, q
+    bf = passages_f32.to(torch.bfloat16)
+    yield "bfloat16", q.to(torch.bfloat16), bf, q
+    del bf
+    torch.cuda.empty_cache()
+    yield "int8", quantize_queries_int8(q_fold)[0], codes, q_fold
+
+
+def kernels_v4(dev, g, passages_f32, codes, scale, rows):
+    from haconvdr_torch.ops import topk_v4 as v4
+    from haconvdr_torch.ops.fused_topk import fused_topk_block_plain
+
+    n_valid = N_ROWS - N_PAD
+    sw, _ = v4.resolve_select_geometry(N_ROWS, torch.float32)
+    shape = [Q_KERNEL, N_ROWS, DIM, TOP_K]
+    panels = None
+    for name, q, p, qf in v4_operands(dev, g, passages_f32, codes, scale):
+        exact = name == "int8"
+        budget = v4.resolve_select_geometry(N_ROWS, p.dtype)[1]
+        # -- window top-2
+        v1, a1, v2 = v4.window_top2(q, p, n_valid, sw)
+        torch.cuda.synchronize()
+        r1, ra, r2 = v4.window_top2_plain(q, p, n_valid, sw)
+        err = 0.0
+        for got, ref, what in ((v1, r1, "v1"), (v2, r2, "v2")):
+            fin = torch.isfinite(ref)
+            check(torch.equal(fin, torch.isfinite(got)), f"window {name}: {what} -inf differs")
+            d = (got[fin] - ref[fin]).abs()
+            check(bool((d <= (0.0 if exact else 1e-4) * ref[fin].abs()).all()),
+                  f"window {name}: {what} beyond tolerance ({float(d.max())})")
+            err = max(err, float(d.max()))
+        gap = torch.isfinite(r1) & ((r1 - r2) > (0.0 if exact else 1e-5) * r1.abs())
+        check(torch.equal(a1[gap], ra[gap]), f"window {name}: a1 differs at separated v1/v2")
+        rows.append(dict(kernel="window_top2", config=name, max_abs_err=err,
+                         ms=cuda_ms(lambda: v4.window_top2(q, p, n_valid, sw), 3),
+                         plain_ms=cuda_ms(lambda: v4.window_top2_plain(q, p, n_valid, sw), 3),
+                         shape=[Q_KERNEL, N_ROWS, DIM, sw]))
+        # -- rescore: budget 8 random windows, bit for bit against the window kernel
+        W = v1.shape[0]
+        win = torch.randint(0, W, (Q_KERNEL, 8), device=dev, generator=g, dtype=torch.int32)
+        win[:, -1] = -1  # an empty slot
+        resc = v4.rescore_windows(p, q, win, sw, n_valid)
+        torch.cuda.synchronize()
+        ref = v4.rescore_windows_plain(p, q, win, sw, n_valid)
+        fin = torch.isfinite(ref)
+        check(torch.equal(fin, torch.isfinite(resc)), f"rescore {name}: -inf differs")
+        d = (resc[fin] - ref[fin]).abs()
+        check(bool((d <= (0.0 if exact else 1e-4) * ref[fin].abs() + (0 if exact else 1e-4)).all()),
+              f"rescore {name}: beyond tolerance ({float(d.max())})")
+        r3 = resc.view(Q_KERNEL, 8, sw)[:, :7]
+        qi = torch.arange(Q_KERNEL, device=dev)[:, None].expand(-1, 7)
+        w = win[:, :7].long()
+        check(torch.equal(r3.amax(2), v1[w, qi]), f"rescore {name}: max != window v1")
+        pos = a1[w, qi].long() - w * sw
+        check(torch.equal(r3.scatter(2, pos[..., None], float("-inf")).amax(2), v2[w, qi]),
+              f"rescore {name}: second max != window v2")
+        check(bool(torch.isneginf(resc.view(Q_KERNEL, 8, sw)[:, -1]).all()),
+              f"rescore {name}: empty slot not -inf")
+        rows.append(dict(kernel="rescore_windows", config=name, max_abs_err=float(d.max()),
+                         ms=cuda_ms(lambda: v4.rescore_windows(p, q, win, sw, n_valid), 3),
+                         plain_ms=cuda_ms(
+                             lambda: v4.rescore_windows_plain(p, q, win, sw, n_valid), 3),
+                         shape=[Q_KERNEL, 8, sw, DIM]))
+        if name == "float32":  # select panels from real window scores
+            panels = {
+                # the path's pool [W + 8 sw, Q]: 93 segments of 128 rows,
+                # fewer than k, so the path's selects run cold
+                "cold": torch.cat([v1, r2[: 8 * sw]]).contiguous(),
+                # the pool of a 1.7M-row float32 search (sw 128, budget 4):
+                # [13,282 + 4 * 128, Q], 108 segments, so a floor applies
+                "warm": torch.cat([v1, r2[: WARM_POOL - W]]).contiguous(),
+            }
+        del v1, a1, v2, r1, ra, r2, resc, ref
+        # -- the whole v4 search against the plain exact top-k
+        s, i = v4.topk_block_v4(qf, p, n_valid, TOP_K)
+        torch.cuda.synchronize()
+        if exact:
+            rs, ri = int8_plain(qf, p, n_valid)
+            err = compare_exact(s, i, rs, ri, "v4 int8")
+        else:
+            rs, ri = fused_topk_block_plain(qf, p, n_valid, TOP_K)
+            err = compare_topk(s, i, rs, ri, f"v4 {name}")
+        check(int(i.max()) < n_valid, f"v4 {name}: a row past n_valid surfaced")
+        rows.append(dict(kernel="topk_block_v4", config=name, max_abs_err=err,
+                         ms=cuda_ms(lambda: v4.topk_block_v4(qf, p, n_valid, TOP_K), 3),
+                         plain_ms=cuda_ms(
+                             lambda: fused_topk_block_plain(qf, p, n_valid, TOP_K), 3),
+                         shape=shape + [budget]))
+        if name == "bfloat16":  # -- forced fallback: one row planted 4096 times
+            saved = p[:4096].clone()
+            p[:4096] = p[:1] * 4
+            before = v4.COUNTS["v3_fallback"]
+            s, i = v4.topk_block_v4(qf, p, n_valid, TOP_K)
+            torch.cuda.synchronize()
+            check(v4.COUNTS["v3_fallback"] == before + 1, "forced fallback did not fall back")
+            rs, ri = fused_topk_block_plain(qf, p, n_valid, TOP_K)
+            compare_topk(s, i, rs, ri, "v4 forced fallback")
+            print(f"v4 forced fallback: v3_fallback {before} -> {v4.COUNTS['v3_fallback']}, exact")
+            p[:4096] = saved
+    # -- select: both layouts, cold at the path's pool, warm (with a floor)
+    # at a pool wide enough for warm_floor; a floor must change no answer
+    k = TOP_K
+    for temp, panel in panels.items():
+        fl = v4.warm_floor(panel, k) if temp == "warm" else None
+        if temp == "warm":
+            check(fl is not None, "warm select: warm_floor gave no floor")
+            admitted = float((panel > fl[None, :]).sum(0).double().mean())
+            print(f"warm select: the floor admits {admitted:.1f} of {panel.shape[0]} "
+                  "entries per query")
+        ids = torch.randperm(panel.shape[0], device=dev, generator=g).to(torch.int32)
+        ids_t = ids[:, None].expand(-1, Q_KERNEL).contiguous()
+        rowmajor, rowmajor_ids = panel.T.contiguous(), ids_t.T.contiguous()
+        cases = (  # (name, kernel(floor), plain twin(floor))
+            ("select_topk_t", lambda f: v4.select_topk_t(panel, k, floor=f),
+             lambda f: v4.select_plain(panel.T, k, f)),
+            ("select_topk", lambda f: v4.select_topk(rowmajor, k, floor=f, ids=rowmajor_ids),
+             lambda f: v4.select_plain(rowmajor, k, f, rowmajor_ids)),
+        )
+        for kname, run, plain in cases:
+            got, ref, ref_cold = run(fl), plain(fl), plain(None)
+            torch.cuda.synchronize()
+            for want, what in ((ref, "the plain twin"), (ref_cold, "the cold plain twin")):
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"{kname} {temp}: differs from {what}")
+            row = dict(kernel=kname, config=temp, max_abs_err=0.0,
+                       ms=cuda_ms(lambda: run(fl), 5), plain_ms=cuda_ms(lambda: plain(fl), 5),
+                       shape=list(panel.shape) + [k])
+            if temp == "warm":  # the same panel without the floor
+                row["cold_ms"] = cuda_ms(lambda: run(None), 5)
+            rows.append(row)
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(seed: int, dev, passages_f32, codes, scale):
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    rng = np.random.default_rng(seed + 1)
+    rows = []
+    kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows)
+    kernels_v4(dev, g, passages_f32, codes, scale, rows)
     return rows
 
+
+# ---------------------------------------------------------------------------
+# phases 4-6: the paths
+# ---------------------------------------------------------------------------
 
 def make_requests(seed: int, n: int):
     """Conversational requests with 0-4 history turns, drawn from the seed."""
@@ -183,39 +408,15 @@ def make_requests(seed: int, n: int):
     return reqs
 
 
-def phase_main_path(seed: int, dev, passages_f32, card: str):
-    from haconvdr_tpu.config import DataConfig, ModelConfig, SearchConfig
-    from haconvdr_tpu.data.loader import batch_iter
-    from haconvdr_torch.models.convert import init_params_numpy
-    from haconvdr_torch.models.encoder import AnceEncoder
-    from haconvdr_torch.ops import fused_attention, fused_topk
-    from haconvdr_torch.parallel.sharded_encode import encode_batches
-    from haconvdr_torch.serve import BatchingRetriever, Retriever
-    from haconvdr_torch.utils.testing import HashTokenizer
+def serve(retriever, batched_reqs, single_reqs):
+    """Warm-up, concurrent requests through BatchingRetriever(max_batch=64),
+    then single Retriever.retrieve calls: (answers, metrics)."""
+    from haconvdr_torch.serve import BatchingRetriever
 
-    cfg = ModelConfig()  # ANCE RoBERTa-base: 12 x 768, 12 heads, 3072, 50265
-    t0 = time.perf_counter()
-    params = init_params_numpy(cfg, seed)
-    offset2pid = np.arange(N_ROWS, dtype=np.int64) * 7 + 11
-    retriever = Retriever(
-        HashTokenizer(cfg.vocab_size), params, cfg, passages_f32,
-        offset2pid=offset2pid,
-        data_cfg=DataConfig(is_train=False, use_PRL=False),  # max_concat_length 512
-        search_cfg=SearchConfig(top_k=TOP_K, per_device_test_batch_size=64),
-        device=dev,
-    )
-    print(f"main path: set up in {time.perf_counter() - t0:.1f} s "
-          f"(params {cfg.num_hidden_layers}x{cfg.hidden_size}, index {N_ROWS}x{DIM} f32)")
-    reqs = make_requests(seed, N_BATCHED + N_SINGLE)
-    batched_reqs, single_reqs = reqs[:N_BATCHED], reqs[N_BATCHED:]
-
-    for mod in (fused_attention, fused_topk):
-        for key in mod.COUNTS:
-            mod.COUNTS[key] = 0
-    # ---- the main path: warm-up, concurrent batched requests, singles
     retriever.retrieve(*single_reqs[0])
-    answers = [None] * N_BATCHED
-    latency = [0.0] * N_BATCHED
+    n = len(batched_reqs)
+    answers = [None] * n
+    latency = [0.0] * n
     with BatchingRetriever(retriever, max_batch=64, max_wait_ms=50.0) as batcher:
 
         def client(idx):
@@ -223,7 +424,7 @@ def phase_main_path(seed: int, dev, passages_f32, card: str):
             answers[idx] = batcher.submit(*batched_reqs[idx]).result(timeout=600)
             latency[idx] = time.perf_counter() - t
 
-        threads = [threading.Thread(target=client, args=(j,)) for j in range(N_BATCHED)]
+        threads = [threading.Thread(target=client, args=(j,)) for j in range(n)]
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -238,25 +439,54 @@ def phase_main_path(seed: int, dev, passages_f32, card: str):
         t = time.perf_counter()
         singles.append(retriever.retrieve(*req))
         single_lat.append(time.perf_counter() - t)
-    counts = {"fused_attention": dict(fused_attention.COUNTS),
-              "fused_topk": dict(fused_topk.COUNTS)}
-    # ---- end of the main path
+    metrics = dict(batched_qps=n / wall, batched_p50_ms=float(np.median(latency)) * 1e3,
+                   batched_max_ms=max(latency) * 1e3, dispatches=stats["dispatches"],
+                   batch_histogram=stats["batch_histogram"],
+                   single_ms=[x * 1e3 for x in single_lat])
+    return answers + singles, metrics
+
+
+def build_retriever(params, cfg, dev, store, offset2pid, store_dtype="float32"):
+    from haconvdr_torch.config import DataConfig, SearchConfig
+    from haconvdr_torch.serve import Retriever
+    from haconvdr_torch.utils.testing import HashTokenizer
+
+    return Retriever(
+        HashTokenizer(cfg.vocab_size), params, cfg, store,
+        offset2pid=offset2pid,
+        data_cfg=DataConfig(is_train=False, use_PRL=False),  # max_concat_length 512
+        search_cfg=SearchConfig(top_k=TOP_K, per_device_test_batch_size=64),
+        device=dev, store_dtype=store_dtype,
+    )
+
+
+def phase_main_path(seed: int, dev, passages_f32, params, cfg, card: str):
+    from haconvdr_torch.models.encoder import AnceEncoder
+    from haconvdr_torch.ops import fused_attention, fused_topk
+    from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
+
+    t0 = time.perf_counter()
+    offset2pid = np.arange(N_ROWS, dtype=np.int64) * 7 + 11
+    retriever = build_retriever(params, cfg, dev, passages_f32, offset2pid)
+    print(f"main path: set up in {time.perf_counter() - t0:.1f} s "
+          f"(params {cfg.num_hidden_layers}x{cfg.hidden_size}, index {N_ROWS}x{DIM} f32, "
+          f"kernel {retriever.index.kernel})")
+    reqs = make_requests(seed, N_BATCHED + N_SINGLE)
+    zero_counts()
+    got, metrics = serve(retriever, reqs[:N_BATCHED], reqs[N_BATCHED:])
+    counts = read_counts()
     print("main path launch counts:", json.dumps(counts))
-    for name, c in counts.items():
-        check(c["kernel"] > 0, f"{name}: kernel never launched on the main path")
-        check(c["plain"] == 0, f"{name}: plain twin ran on the main path")
-    print(f"batched: {N_BATCHED} requests in {wall * 1e3:.1f} ms -> "
-          f"{N_BATCHED / wall:.2f} QPS; latency p50 {np.median(latency) * 1e3:.1f} ms, "
-          f"max {max(latency) * 1e3:.1f} ms; dispatches {stats['dispatches']} "
-          f"{stats['batch_histogram']} [{card}]")
-    print(f"single Retriever.retrieve latency ms: "
-          f"{[round(x * 1e3, 2) for x in single_lat]} [{card}]")
+    check_counts(counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
+                          ("topk_v4", "select_t"), ("topk_v4", "select")], "main path")
+    print(f"main path: rescore launches {counts['topk_v4']['rescore']}, "
+          f"v3_fallback {counts['topk_v4']['v3_fallback']}")
+    print("main path e2e:", json.dumps(metrics), f"[{card}]")
 
     # ---- plain-twin reference for the same queries, on the card
     ref_enc = AnceEncoder.from_jax_params(
         params, cfg, dev, attention=fused_attention.fused_attention_qkv_plain
     )
-    examples = [retriever.build_query(*r) for r in batched_reqs + single_reqs]
+    examples = [retriever.build_query(*r) for r in reqs]
     ref_q, _ = encode_batches(ref_enc, batch_iter(examples, 64), "conv_qp", "conv_qp_mask")
     got_q = retriever.embed(examples)  # per_device_test_batch_size 64
     emb_err = float(np.abs(ref_q - got_q).max())
@@ -267,7 +497,6 @@ def phase_main_path(seed: int, dev, passages_f32, card: str):
         torch.from_numpy(ref_q).to(dev), passages_f32, N_ROWS, TOP_K
     )
     ri_pid = torch.from_numpy(offset2pid[ri.cpu().numpy()])
-    got = answers + singles
     for j, ans in enumerate(got):
         check(ans is not None and len(ans) == TOP_K, f"request {j}: {len(ans or [])} hits")
         s = torch.tensor([[x[1] for x in ans]])
@@ -275,8 +504,96 @@ def phase_main_path(seed: int, dev, passages_f32, card: str):
         compare_topk(s, i, rs[j : j + 1].cpu(), ri_pid[j : j + 1], f"request {j}")
     print(f"main path answers match the plain twins for {len(got)} requests "
           f"(query embedding max |diff| {emb_err:.3g})")
-    return counts, dict(batched_qps=N_BATCHED / wall, batched_p50_ms=np.median(latency) * 1e3,
-                        single_ms=[x * 1e3 for x in single_lat])
+    del retriever, ref_enc
+    torch.cuda.empty_cache()
+    return counts, metrics, got_q
+
+
+def phase_int8_path(seed: int, dev, passages_f32, params, cfg, card: str):
+    t0 = time.perf_counter()
+    retriever = build_retriever(params, cfg, dev, passages_f32, None, store_dtype="int8")
+    index = retriever.index
+    print(f"int8 path: set up in {time.perf_counter() - t0:.1f} s (index {N_ROWS}x{DIM} int8, "
+          f"{index.passages.numel() / 2**30:.2f} GiB quantized on the card)")
+    calls = []  # (query embeddings, answer) of every index search
+    search = index.search
+
+    def recording_search(queries, k):
+        out = search(queries, k)
+        calls.append((np.array(queries, copy=True), out))
+        return out
+
+    index.search = recording_search
+    reqs = make_requests(seed + 10, N_BATCHED_INT8 + N_SINGLE)
+    zero_counts()
+    got, metrics = serve(retriever, reqs[:N_BATCHED_INT8], reqs[N_BATCHED_INT8:])
+    counts = read_counts()
+    print("int8 path launch counts:", json.dumps(counts))
+    check_counts(counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
+                          ("topk_v4", "select_t"), ("topk_v4", "select"),
+                          ("topk_v4", "rescore")], "int8 path")
+    print("int8 path e2e:", json.dumps(metrics), f"[{card}]")
+    check(all(a is not None and len(a) == TOP_K for a in got), "int8 path: short answers")
+    n_q = 0
+    for q, (s, i) in calls:
+        qt = torch.from_numpy(q).to(dev)
+        rs, ri = int8_plain(qt.to(torch.float32) * index.scale, index.passages, N_ROWS)
+        compare_exact(torch.from_numpy(s), torch.from_numpy(i), rs, ri, "int8 path search")
+        n_q += q.shape[0]
+    print(f"int8 path: {len(calls)} searches ({n_q} query rows) equal the plain int8 "
+          "scoring: ids at every position, scores bit for bit")
+    scale = index.scale
+    del retriever, index, calls
+    torch.cuda.empty_cache()
+    return counts, metrics, scale
+
+
+def phase_streaming(dev, passages_f32, scale, queries):
+    from haconvdr_torch.index.quantize import encode_int8_torch
+    from haconvdr_torch.ops.fused_topk import fused_topk_block_plain
+    from haconvdr_torch.ops.topk import BlockSearcher
+
+    per = N_ROWS // N_BLOCKS
+    gid = torch.arange(N_ROWS, device=dev, dtype=torch.int32) * 7 + 11
+    blocks = [(passages_f32[b * per : (b + 1) * per], gid[b * per : (b + 1) * per])
+              for b in range(N_BLOCKS)]
+    q = torch.from_numpy(queries).to(dev)
+    runs = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    for name, kw in (
+        ("per-block", {}),
+        ("superblock f32", dict(superblock_rows=N_ROWS)),
+        ("superblock int8", dict(superblock_rows=N_ROWS, superblock_dtype="int8",
+                                 superblock_scale=scale)),
+    ):
+        t = time.perf_counter()
+        runs[name] = BlockSearcher(top_k=TOP_K, device=dev, **kw).search(
+            q, blocks, return_device=True
+        )
+        torch.cuda.synchronize()
+        runs[name] = runs[name] + (time.perf_counter() - t,)
+    counts = read_counts()
+    print("streaming path launch counts:", json.dumps(counts))
+    check_counts(counts, [("fused_topk", "kernel"), ("topk_v4", "window"),
+                          ("topk_v4", "select_t"), ("topk_v4", "select")], "streaming path")
+    print(f"streaming path: {time.perf_counter() - t0:.2f} s for three passes, "
+          + ", ".join(f"{k} {v[2] * 1e3:.1f} ms" for k, v in runs.items()))
+    rs, ri = fused_topk_block_plain(q, passages_f32, N_ROWS, TOP_K)
+    rpid = torch.where(ri >= 0, gid[ri.clamp(min=0).long()], -1)
+    for name in ("per-block", "superblock f32"):
+        s, i, _ = runs[name]
+        compare_topk(s, i, rs, rpid, f"streaming {name}")
+    codes = encode_int8_torch(passages_f32, 1.0 / scale)  # the accumulator's codes
+    rs8, ri8 = int8_plain(q.to(torch.float32) * scale, codes, N_ROWS)
+    s, i, _ = runs["superblock int8"]
+    compare_exact(s, i, rs8, torch.where(ri8 >= 0, gid[ri8.clamp(min=0).long()], -1),
+                  "streaming superblock int8")
+    print(f"streaming path answers match the plain twins ({q.shape[0]} queries; int8 "
+          "accumulator exact)")
+    del codes, blocks
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main(argv=None) -> int:
@@ -288,7 +605,10 @@ def main(argv=None) -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 2
 
+    from haconvdr_torch.config import ModelConfig
     from haconvdr_torch.device import resolve_device
+    from haconvdr_torch.index.quantize import quantize_int8_torch
+    from haconvdr_torch.models.convert import init_params_numpy
     from haconvdr_torch.ops import _build
 
     t_start = time.perf_counter()
@@ -299,30 +619,47 @@ def main(argv=None) -> int:
 
     _build.library()
     print(f"build: {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s "
-          f"nvcc (0 = loaded from build/haconvdr_torch/)")
+          f"nvcc (0 = loaded from build/haconvdr_torch/) [{card}]")
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     passages = torch.randn(N_ROWS, DIM, device=dev, generator=g)
-    rows = phase_kernels(args.seed, dev, passages)
+    codes, scale = quantize_int8_torch(passages)
+    rows = phase_kernels(args.seed, dev, passages, codes, scale)
+    del codes
+    torch.cuda.empty_cache()
     for r in rows:
         print("kernel vs plain:", json.dumps(r), f"[{card}]")
 
-    counts, e2e = phase_main_path(args.seed, dev, passages, card)
-    print("e2e:", json.dumps(e2e), f"[{card}]")
+    cfg = ModelConfig()  # ANCE RoBERTa-base: 12 x 768, 12 heads, 3072, 50265
+    params = init_params_numpy(cfg, args.seed)
+    c4, e2e, queries = phase_main_path(args.seed, dev, passages, params, cfg, card)
+    c5, e2e8, scale8 = phase_int8_path(args.seed, dev, passages, params, cfg, card)
+    check(torch.equal(scale8, scale), "int8 path: index scale differs from quantize_int8_torch")
+    c6 = phase_streaming(dev, passages, scale, queries)
+    print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
-    def entry(name, source, replaces):
+    def launches(mod, key):
+        return sum(c[mod][key] for c in (c4, c5, c6))
+
+    def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]
-        main_row = mine[0]  # float32, unseeded: the main path's configuration
+        main_row = next(r for r in mine if r["config"] == main_config)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": counts[name]["kernel"],
+                "launches": launches(mod, key),
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}
 
+    v4src = "haconvdr_torch/csrc/topk_v4.cu"
+    v4py = "haconvdr_tpu/ops/pallas_topk_v4.py"
     print(json.dumps({"kernels": [
         entry("fused_attention", "haconvdr_torch/csrc/fused_attention.cu",
-              "haconvdr_tpu/ops/fused_attention.py:30"),
+              "haconvdr_tpu/ops/fused_attention.py:30", "fused_attention", "kernel"),
         entry("fused_topk", "haconvdr_torch/csrc/fused_topk.cu",
-              "haconvdr_tpu/ops/pallas_topk.py:63"),
+              "haconvdr_tpu/ops/pallas_topk.py:63", "fused_topk", "kernel"),
+        entry("window_top2", v4src, f"{v4py}:98", "topk_v4", "window"),
+        entry("select_topk_t", v4src, f"{v4py}:612", "topk_v4", "select_t", "cold"),
+        entry("rescore_windows", v4src, f"{v4py}:522", "topk_v4", "rescore"),
+        entry("select_topk", v4src, f"{v4py}:386", "topk_v4", "select", "cold"),
     ]}))
     print(f"total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card_line())

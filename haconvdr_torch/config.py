@@ -1,0 +1,7 @@
+"""Configuration dataclasses of the port: the JAX package's framework-free
+``haconvdr_tpu.config`` (plain dataclasses, no jax import), shared so both
+packages read one configuration, not copied.  Import them from here."""
+
+from haconvdr_tpu.config import DataConfig, ModelConfig, SearchConfig
+
+__all__ = ["DataConfig", "ModelConfig", "SearchConfig"]

@@ -3,7 +3,8 @@
 // Replaces: haconvdr_tpu/ops/pallas_topk.py:63 _topk_kernel (Pallas v3,
 // reached through pallas_topk_block).  Contract (pallas_topk.py:178-199,
 // 325-331): scores = q . p in f32 accumulation (bf16 operands when the
-// passages are bf16); rows at or past n_valid never surface; an optional
+// passages are bf16; int8 passages with bf16 queries in the int8 mode,
+// pallas_topk.py:126-131,203-207); rows at or past n_valid never surface; an optional
 // per-query seed acts as a strict threshold and its values come back with
 // id -1 where they survive; empty slots are (-inf, -1).
 //
@@ -27,6 +28,13 @@
 //     compare and ties always resolve to the lower id.  The seed is NOT
 //     copied into the split buffers: S copies of it would crowd real rows
 //     out of the merged top-k.
+//     Every score is one fmaf chain over d = 0, 1, ..., D-1 (zero-padded
+//     to a multiple of DK) from 0.0f: the v4 window and rescore kernels
+//     (topk_v4.cu) use the same chain, so all three give the same float
+//     for the same row.  In the int8 mode each int8 passage value and
+//     each bf16 query value converts to float exactly; with int8 codes
+//     as queries (v4's fallback) every product and partial sum is an
+//     integer below 2^24, so the scores are exact.
 //  2. topk_merge_kernel, one block per query: radix-selects the k-th
 //     largest key among the S * k split keys plus the seed entries (id -1),
 //     keeps the k keys at or above it and bitonic-sorts them, so the
@@ -37,40 +45,28 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "topk_keys.cuh"
+
 namespace {
+
+using hc::KMAX;
+using hc::key_id;
+using hc::key_score;
+using hc::make_key;
 
 constexpr int QT = 64;   // queries per block
 constexpr int PT = 64;   // passage rows per tile
 constexpr int DK = 32;   // depth per shared-memory stage
 constexpr int NT = 256;  // threads per split block (16 x 16)
-constexpr int KMAX = 128;
 constexpr int MERGE_NT = 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
-// order-preserving map of a float to uint32 (-0 folded onto +0)
-__device__ __forceinline__ uint32_t ordered_bits(float f) {
-  const uint32_t b = __float_as_uint(f + 0.0f);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-__device__ __forceinline__ float unordered_bits(uint32_t o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-// larger key = better: higher score, then lower id (id in [-1, 2^31))
-__device__ __forceinline__ uint64_t make_key(float s, int id) {
-  return ((uint64_t)ordered_bits(s) << 32) | (uint32_t)(0x7fffffffu - (uint32_t)id);
-}
-__device__ __forceinline__ float key_score(uint64_t key) {
-  return unordered_bits((uint32_t)(key >> 32));
-}
-__device__ __forceinline__ int key_id(uint64_t key) {
-  return (int)(0x7fffffffu - (uint32_t)key);
-}
-
-template <typename T>
+template <typename TQ, typename TP>
 __global__ void __launch_bounds__(NT) topk_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ p, int Q, int D, int row_end, int k,
+    const TQ* __restrict__ q, const TP* __restrict__ p, int Q, int D, int row_end, int k,
     const float* __restrict__ thr, int rows_per_split, uint64_t* __restrict__ cand) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* buf = reinterpret_cast<uint64_t*>(smem_raw);  // [QT][k] keys
@@ -190,14 +186,8 @@ __global__ void __launch_bounds__(NT) topk_split_kernel(
 __global__ void __launch_bounds__(MERGE_NT) topk_merge_kernel(
     const uint64_t* __restrict__ cand, int S, int Q, int k, const float* __restrict__ seed,
     int ks, float* __restrict__ out_s, int* __restrict__ out_i) {
-  __shared__ unsigned int hist[256];
-  __shared__ uint64_t sel[KMAX];
-  __shared__ uint64_t prefix_s;
-  __shared__ int krem_s;
-  __shared__ int n_sel;
-
+  __shared__ hc::SelectScratch scratch;
   const int q = blockIdx.x;
-  const int tid = threadIdx.x;
   const int C = S * k;
   const int total = C + (seed != nullptr ? ks : 0);
   auto key_at = [&](int e) -> uint64_t {
@@ -207,62 +197,10 @@ __global__ void __launch_bounds__(MERGE_NT) topk_merge_kernel(
     }
     return make_key(seed[(size_t)q * ks + (e - C)], -1);
   };
-
-  // radix select of the k-th largest key, 8 bits at a time from the top
-  uint64_t prefix = 0, mask = 0;
-  int krem = k;  // rank of the wanted key among keys matching the prefix
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += MERGE_NT) hist[i] = 0;
-    __syncthreads();
-    for (int e = tid; e < total; e += MERGE_NT) {
-      const uint64_t key = key_at(e);
-      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255], 1u);
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int cum = 0, b = 255;
-      for (; b > 0; --b) {
-        if (cum + (int)hist[b] >= krem) break;
-        cum += hist[b];
-      }
-      krem_s = krem - cum;
-      prefix_s = prefix | ((uint64_t)b << shift);
-      n_sel = 0;
-    }
-    __syncthreads();
-    prefix = prefix_s;
-    krem = krem_s;
-    mask |= 0xffull << shift;
-  }
-  const uint64_t kth = prefix;  // krem copies of kth complete the top k
-  for (int e = tid; e < total; e += MERGE_NT) {
-    const uint64_t key = key_at(e);
-    if (key > kth) sel[atomicAdd(&n_sel, 1)] = key;
-  }
-  __syncthreads();
-  // keys equal to kth are the same (score, id) pair: fill with copies
-  for (int j = k - krem + tid; j < KMAX; j += MERGE_NT) sel[j] = j < k ? kth : 0ull;
-  __syncthreads();
-  // bitonic sort, descending
-  for (int size = 2; size <= KMAX; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (tid < KMAX) {
-        const int j = tid ^ stride;
-        if (j > tid) {
-          const uint64_t a = sel[tid], b = sel[j];
-          const bool desc = (tid & size) == 0;
-          if (desc ? (a < b) : (a > b)) {
-            sel[tid] = b;
-            sel[j] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int j = tid; j < k; j += MERGE_NT) {
-    out_s[(size_t)q * k + j] = key_score(sel[j]);
-    out_i[(size_t)q * k + j] = key_id(sel[j]);
+  hc::top_keys<MERGE_NT>(key_at, total, k, scratch);
+  for (int j = threadIdx.x; j < k; j += MERGE_NT) {
+    out_s[(size_t)q * k + j] = key_score(scratch.sel[j]);
+    out_i[(size_t)q * k + j] = key_id(scratch.sel[j]);
   }
 }
 
@@ -271,24 +209,25 @@ size_t split_smem_bytes(int k) {
          sizeof(float) * ((size_t)QT * (PT + 1) + DK * (QT + 1) + DK * (PT + 1));
 }
 
-template <typename T>
+template <typename TQ, typename TP>
 cudaError_t launch_split(const void* q, const void* p, int Q, int D, int row_end, int k,
                          const float* thr, int rows_per_split, int n_splits, void* cand,
                          cudaStream_t stream) {
   const size_t smem = split_smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
-      topk_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      topk_split_kernel<TQ, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Q + QT - 1) / QT, n_splits);
-  topk_split_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(p), Q, D, row_end, k, thr,
+  topk_split_kernel<TQ, TP><<<grid, NT, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TP*>(p), Q, D, row_end, k, thr,
       rows_per_split, static_cast<uint64_t*>(cand));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Pass 1.  q [Q, D], p [N, D], both float32 (dtype 0) or bfloat16 (1);
+// Pass 1.  q [Q, D], p [N, D], both float32 (dtype 0) or bfloat16 (1), or
+// bfloat16 q with int8 p (2);
 // rows >= min(n_valid, N) are skipped; thr is float [Q] or NULL; cand is
 // uint64 [n_splits, Q, k] with n_splits * rows_per_split >= min(n_valid, N).
 extern "C" int hc_topk_split(const void* q, const void* p, int Q, int N, int D, int n_valid,
@@ -302,11 +241,14 @@ extern "C" int hc_topk_split(const void* q, const void* p, int Q, int N, int D, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* t = static_cast<const float*>(thr);
   if (dtype == 0)
-    return (int)launch_split<float>(q, p, Q, D, row_end, k, t, rows_per_split, n_splits,
+    return (int)launch_split<float, float>(q, p, Q, D, row_end, k, t, rows_per_split, n_splits,
                                     cand, s);
   if (dtype == 1)
-    return (int)launch_split<__nv_bfloat16>(q, p, Q, D, row_end, k, t, rows_per_split,
-                                            n_splits, cand, s);
+    return (int)launch_split<__nv_bfloat16, __nv_bfloat16>(q, p, Q, D, row_end, k, t,
+                                                           rows_per_split, n_splits, cand, s);
+  if (dtype == 2)
+    return (int)launch_split<__nv_bfloat16, int8_t>(q, p, Q, D, row_end, k, t,
+                                                    rows_per_split, n_splits, cand, s);
   return (int)cudaErrorInvalidValue;
 }
 

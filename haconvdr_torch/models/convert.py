@@ -17,7 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from haconvdr_tpu.config import ModelConfig
+from haconvdr_torch.config import ModelConfig
 
 
 def _t(a) -> torch.Tensor:

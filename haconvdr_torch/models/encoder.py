@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from haconvdr_tpu.config import ModelConfig
+from haconvdr_torch.config import ModelConfig
 from haconvdr_torch.device import DeviceLike, resolve_device, torch_dtype
 from haconvdr_torch.models.convert import params_from_jax
 from haconvdr_torch.ops.fused_attention import fused_attention_qkv

@@ -1,10 +1,11 @@
 """Build ``haconvdr_torch/csrc/*.cu`` with nvcc at first use and load it.
 
-The sources expose a plain C interface (no torch headers), so one nvcc
-call builds every kernel in seconds.  The shared library goes to
-``build/haconvdr_torch/<hash>/`` under the checkout root, keyed on a hash
-of the sources and flags: an edited kernel rebuilds, an unchanged one
-loads.  Any failure (no nvcc, a compile error, a load error) raises.
+The sources expose a plain C interface (no torch headers), so each builds
+in seconds: one nvcc per source, all started together, then one link.
+The shared library goes to ``build/haconvdr_torch/<hash>/`` under the
+checkout root, keyed on a hash of the sources, their headers and the
+flags: an edited kernel rebuilds, an unchanged one loads.  Any failure
+(no nvcc, a compile error, a load error) raises.
 """
 
 from __future__ import annotations
@@ -23,11 +24,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "haconvdr_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
     # qkv, mask(int32), out, B, L, H, num_heads, dtype(0 f32 / 1 bf16), stream
@@ -38,6 +40,15 @@ SIGNATURES = {
     # cand_keys, n_splits, Q, k, seed(float [Q, ks] or NULL), ks,
     # out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
     "hc_topk_merge": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
+    # q, p, Q, N, D, n_valid, sw, W, win_per_split, n_splits,
+    # v1(float [W, Q]), a1(int32 [W, Q]), v2(float [W, Q]), mode, stream
+    "hc_window_top2": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # q, p, Q, N, D, n_valid, sw, B, win_ids(int32 [Q, B]),
+    # out(float [Q, B * sw]), mode, stream
+    "hc_rescore_windows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    # scores, ids(int32 or NULL), floor(float [Q] or NULL), Q, C, stride_q,
+    # stride_c, k, out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
+    "hc_select_topk": [_P, _P, _P, _I, _I, _L, _L, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -71,6 +82,44 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(nvcc: str, sources, out_dir: Path, so: Path) -> None:
+    """One nvcc per source, run at once, then one link into ``so``
+    (written under a temporary name and renamed into place)."""
+    tag = f"{os.getpid()}-{threading.get_ident()}"
+    objs = [out_dir / f".{src.stem}-{tag}.o" for src in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objs)
+    ]
+    logs = []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        logs.append((src, proc.returncode, out))
+    tmp = out_dir / f".tmp-{tag}.so"
+    try:
+        failed = [(src, rc, log) for src, rc, log in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{src.name} (rc {rc}):\n{log[-6000:]}" for src, rc, log in failed
+            ))
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (rc {proc.returncode}):\n{(proc.stdout + proc.stderr)[-6000:]}"
+            )
+        os.replace(tmp, so)
+    finally:
+        tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call.  Thread-safe; a
     concurrent build by another process is tolerated (atomic rename)."""
@@ -81,21 +130,13 @@ def library() -> ctypes.CDLL:
         sources = _sources()
         if not sources:
             raise RuntimeError(f"no CUDA sources under {CSRC}")
-        out_dir = BUILD_ROOT / _digest(sources)
+        out_dir = BUILD_ROOT / _digest(sources + sorted(CSRC.glob("*.cuh")))
         so = out_dir / "libhaconvdr_kernels.so"
         if not so.exists():
-            nvcc = _nvcc()
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f".tmp-{os.getpid()}-{threading.get_ident()}.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _compile_and_link(_nvcc(), sources, out_dir, so)
             build_seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                log = proc.stdout + proc.stderr
-                raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log[-8000:]}")
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

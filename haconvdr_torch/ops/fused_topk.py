@@ -5,8 +5,12 @@
 CUDA tensors and runs the plain twin ``fused_topk_block_plain`` for CPU
 tensors; there is no other route.  Contract of both:
 
-* scores are ``q . p`` accumulated in float32; bfloat16 passages score
-  bfloat16-rounded queries (the products are exact in float32);
+* scores are ``q . p`` accumulated in float32; bfloat16 and int8
+  passages score bfloat16-rounded queries (the products are exact in
+  float32).  int8 is the int8 index's mode (pallas_topk.py:126-131,
+  203-207): the per-dim scale is folded into float queries by the caller,
+  or the queries are int8 codes already (v4's fallback), which bfloat16
+  holds exactly;
 * rows at or past ``n_valid`` never surface;
 * ``init_scores`` [Q, ks] seeds the search with a running best: its k-th
   largest value per query (its row minimum when ks == k) is a strict
@@ -31,10 +35,16 @@ from haconvdr_torch.ops import _build
 # launches of the CUDA kernels (split + merge count once) / plain-twin calls
 COUNTS = {"kernel": 0, "plain": 0}
 MAX_K = 128
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ID_BASE = 0x7FFFFFFF
 _MIN_SPLIT_ROWS = 2048
 _PLAIN_CHUNK = 65536  # rows per [Q, chunk] score tile of the plain twin
+
+
+def query_dtype(passage_dtype: torch.dtype) -> torch.dtype:
+    """The dtype queries are rounded to before scoring ``passage_dtype``
+    rows: the passages' own float dtype, bfloat16 for int8 passages."""
+    return torch.bfloat16 if passage_dtype == torch.int8 else passage_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +107,7 @@ def scan_topk_keys(
     are padded with empty keys."""
     Q = queries.shape[0]
     dev = queries.device
-    qf = queries.to(passages.dtype).to(torch.float32)
+    qf = queries.to(query_dtype(passages.dtype)).to(torch.float32)
     best = empty_keys(Q, k, dev)
     for c0 in range(0, min(int(n_valid), passages.shape[0]), chunk):
         c1 = min(int(n_valid), passages.shape[0], c0 + chunk)
@@ -166,8 +176,8 @@ def _check(queries, passages, k, init_scores):
         )
     if passages.dtype not in _DTYPE_CODE:
         raise ValueError(
-            f"fused top-k kernel takes float32/bfloat16 passages, got "
-            f"{passages.dtype} (int8 waits for the index/quantize.py port)"
+            f"fused top-k kernel takes float32/bfloat16/int8 passages, got "
+            f"{passages.dtype}"
         )
     if not 0 < k <= MAX_K:
         raise ValueError(f"fused top-k kernel takes 0 < k <= {MAX_K}, got {k}")
@@ -202,7 +212,7 @@ def fused_topk_block(
     _check(queries, passages, k, init_scores)
     lib = _build.library()
     dev = passages.device
-    q = queries.to(passages.dtype).contiguous()
+    q = queries.to(query_dtype(passages.dtype)).contiguous()
     Q, D = q.shape
     N = passages.shape[0]
     rows = max(0, min(int(n_valid), N))

@@ -2,8 +2,8 @@
 haconvdr_tpu/parallel/sharded_encode.py:encode_batches).
 
 Batches come from the shared ``haconvdr_tpu.data.loader`` (``batch_iter``
-/ ``collate(pad_to=...)``): fixed-size int32 arrays plus a ``valid`` row
-mask; padded rows are dropped from the output.
+/ ``collate(pad_to=...)``, re-exported here): fixed-size int32 arrays plus
+a ``valid`` row mask; padded rows are dropped from the output.
 """
 
 from __future__ import annotations
@@ -13,7 +13,10 @@ from typing import Iterable, List, Tuple
 import numpy as np
 import torch
 
+from haconvdr_tpu.data.loader import batch_iter
 from haconvdr_torch.device import to_numpy, to_torch
+
+__all__ = ["batch_iter", "encode_batches"]
 
 
 def encode_batches(

@@ -1,11 +1,20 @@
 """Device-resident flat inner-product index on one device (counterpart of
-haconvdr_tpu/parallel/sharded_search.py:ShardedIndex).
+haconvdr_tpu/parallel/sharded_search.py:ShardedIndex and sharded_topk).
 
-The embeddings live on the device as one [N, D] float32 or bfloat16
+The embeddings live on the device as one [N, D] float32, bfloat16 or int8
 tensor, searched many times.  Unlike the TPU version nothing is padded:
-the kernel masks the ragged tail by ``n_valid`` itself.  k <= 128 runs the
-fused top-k kernel; larger k (rescore-oversampled first stages) runs the
-plain matmul + selection path (sharded_search.py:158-174).
+the kernels mask the ragged tail by ``n_valid`` themselves.
+
+* k <= 128 runs the v4 search (``kernel="v4"``, the JAX default:
+  ops/topk_v4.py, with its v3 fallback) or the fused v3 kernel
+  (``kernel="v3"``); larger k (rescore-oversampled first stages) runs the
+  plain matmul + selection path (sharded_search.py:158-174).
+* int8: per-dimension codes and one [D] scale for the whole index (one
+  shard); ``search`` folds the scale into float32 queries
+  (sharded_search.py:60-61,298-301).  Two scoring models follow, as in
+  the JAX package: k <= 128 scores int8 x int8 (the v4 search quantizes
+  the folded queries per query), k > 128 scores the bfloat16-rounded
+  folded queries against the codes.
 """
 
 from __future__ import annotations
@@ -16,15 +25,10 @@ import numpy as np
 import torch
 
 from haconvdr_torch.device import DeviceLike, resolve_device, to_numpy, to_torch, torch_dtype
+from haconvdr_torch.index.quantize import dequantize_int8, quantize_int8, quantize_int8_torch
 from haconvdr_torch.ops.topk import block_topk
 
-_INT8_TODO = "int8 residency is not ported yet; it lands with the index/quantize.py port"
-
-
-def _float_dtype(dtype: str) -> torch.dtype:
-    if dtype == "int8":
-        raise NotImplementedError(_INT8_TODO)
-    return torch_dtype(dtype)
+KERNELS = ("v4", "v3")
 
 
 class ShardedIndex:
@@ -35,17 +39,27 @@ class ShardedIndex:
         passages: torch.Tensor,  # [N, D] on the device
         ids: Optional[np.ndarray] = None,  # [N] global ids, else row offsets
         chunk: int = 65536,
+        scale: Optional[torch.Tensor] = None,  # [D] float32, int8 passages only
+        kernel: str = "v4",
     ):
-        if passages.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"passages must be float32/bfloat16, got {passages.dtype}")
+        if passages.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+            raise ValueError(f"passages must be float32/bfloat16/int8, got {passages.dtype}")
+        if (passages.dtype == torch.int8) != (scale is not None):
+            raise ValueError("int8 passages need their [D] scale, and only they take one")
         if passages.shape[0] >= 2**31:
             raise ValueError("passage rows exceed int32 ids")
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
         self.passages = passages.contiguous()
+        self.scale = None if scale is None else scale.to(
+            device=passages.device, dtype=torch.float32
+        )
         self.n_valid = passages.shape[0]
         self.ids = None if ids is None else np.asarray(ids)
         if self.ids is not None and len(self.ids) != self.n_valid:
             raise ValueError(f"{len(self.ids)} ids for {self.n_valid} rows")
         self.chunk = chunk
+        self.kernel = kernel
 
     @classmethod
     def from_tensor(
@@ -53,11 +67,16 @@ class ShardedIndex:
         passages: torch.Tensor,
         ids: Optional[np.ndarray] = None,
         dtype: Optional[str] = None,
+        kernel: str = "v4",
     ) -> "ShardedIndex":
-        """Wrap embeddings already on the device (cast to ``dtype``)."""
+        """Wrap embeddings already on the device (cast to ``dtype``; "int8"
+        quantizes them on the device)."""
+        if dtype == "int8":
+            codes, scale = quantize_int8_torch(passages)
+            return cls(codes, ids, scale=scale, kernel=kernel)
         if dtype is not None:
-            passages = passages.to(_float_dtype(dtype))
-        return cls(passages, ids)
+            passages = passages.to(torch_dtype(dtype))
+        return cls(passages, ids, kernel=kernel)
 
     @classmethod
     def from_store(
@@ -67,37 +86,58 @@ class ShardedIndex:
         device: DeviceLike = None,
         num_blocks: int = -1,
         chunk: int = 65536,
+        kernel: str = "v4",
     ) -> "ShardedIndex":
-        """Load an EmbeddingBlockStore's blocks into one device tensor,
-        block by block (sizes read from the headers first, so the corpus
-        streams from disk once and is never assembled on the host)."""
-        tdt = _float_dtype(dtype)
+        """Load an EmbeddingBlockStore's blocks into one device tensor.
+        Float dtypes fill it block by block (sizes read from the headers
+        first, so the corpus streams from disk once).  int8 quantizes the
+        whole index with the shared numpy ``quantize_int8``, as the JAX
+        package quantizes a shard, so it assembles the float rows on the
+        host first.  int8 store blocks are dequantized as they are read
+        (sharded_search.py:239-243)."""
         dev = resolve_device(device)
+        is_int8 = dtype == "int8"
+        tdt = None if is_int8 else torch_dtype(dtype)
         nb = store.num_blocks() if num_blocks < 0 else num_blocks
         sizes = [store.block_size(b) for b in range(nb)]
         n = int(sum(sizes))
         ids_all = np.empty((n,), np.int64)
-        passages = None
+        rows = None
         row = 0
         for b in range(nb):
-            if store.block_scale(b) is not None:
-                raise NotImplementedError(_INT8_TODO)
             emb, ids = store.read_block(b)
-            if passages is None:
-                passages = torch.empty((n, emb.shape[1]), dtype=tdt, device=dev)
-            passages[row : row + emb.shape[0]] = to_torch(emb, dev, tdt)
+            blk_scale = store.block_scale(b)
+            if blk_scale is not None:
+                emb = dequantize_int8(np.asarray(emb), blk_scale)
+            if rows is None:
+                shape = (n, emb.shape[1])
+                rows = np.empty(shape, np.float32) if is_int8 else torch.empty(
+                    shape, dtype=tdt, device=dev
+                )
+            if is_int8:
+                rows[row : row + emb.shape[0]] = np.asarray(emb, np.float32)
+            else:
+                rows[row : row + emb.shape[0]] = to_torch(emb, dev, tdt)
             ids_all[row : row + emb.shape[0]] = ids
             row += emb.shape[0]
-        if passages is None:
+        if rows is None:
             raise ValueError("empty store: no blocks to index")
-        return cls(passages, ids_all, chunk)
+        if is_int8:
+            codes, scale = quantize_int8(rows)
+            return cls(to_torch(codes, dev), ids_all, chunk,
+                       scale=to_torch(scale, dev), kernel=kernel)
+        return cls(rows, ids_all, chunk, kernel=kernel)
 
     def search_device(
         self, queries: torch.Tensor, k: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(scores [Q, k], row offsets [Q, k]) as device tensors."""
-        q = queries.to(device=self.passages.device, dtype=self.passages.dtype)
-        return block_topk(q, self.passages, self.n_valid, k, self.chunk)
+        p = self.passages
+        if self.scale is not None:
+            q = queries.to(device=p.device, dtype=torch.float32) * self.scale
+        else:
+            q = queries.to(device=p.device, dtype=p.dtype)
+        return block_topk(q, p, self.n_valid, k, self.chunk, v4=self.kernel == "v4")
 
     def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Returns numpy (scores [Q, k], ids [Q, k]): global ids when an id

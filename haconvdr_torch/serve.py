@@ -21,14 +21,13 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from haconvdr_tpu.config import DataConfig, ModelConfig, SearchConfig
-from haconvdr_tpu.data.loader import batch_iter
 from haconvdr_tpu.data.sequence import ConcatBuilder, encode_no_trunc
 from haconvdr_tpu.index.store import EmbeddingBlockStore
+from haconvdr_torch.config import DataConfig, ModelConfig, SearchConfig
 from haconvdr_torch.device import DeviceLike, resolve_device
 from haconvdr_torch.models.encoder import AnceEncoder
 from haconvdr_torch.ops.topk import BlockSearcher
-from haconvdr_torch.parallel.sharded_encode import encode_batches
+from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
 from haconvdr_torch.parallel.sharded_search import ShardedIndex
 
 logger = logging.getLogger(__name__)
@@ -40,7 +39,9 @@ class Retriever:
     ``store`` is an EmbeddingBlockStore, or a [N, D] tensor of embeddings
     already on the device (no disk copy: the rescore stage is then
     unavailable).  ``resident=True`` loads the store into device memory as
-    a ``ShardedIndex``; ``resident=False`` streams its blocks per search.
+    a ``ShardedIndex`` of ``store_dtype`` (float32, bfloat16 or int8; the
+    float disk store stays the exact rescore stage, serve.py:109-113);
+    ``resident=False`` streams its blocks per search.
     ``params`` are the JAX package's nested-dict params (numpy leaves).
     """
 
@@ -63,11 +64,6 @@ class Retriever:
             raise NotImplementedError("IVF serving (index/ivf.py) is not ported yet")
         if encoder_int8:
             raise NotImplementedError("the int8 query tower is not ported yet")
-        if store_dtype == "int8":
-            raise NotImplementedError(
-                "int8 residency is not ported yet; it lands with the "
-                "index/quantize.py port"
-            )
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.model_cfg = model_cfg
@@ -91,13 +87,21 @@ class Retriever:
         else:
             self._rescore_store = store
             self.store = store
+            # streamed blocks score in float32 whatever store_dtype is,
+            # as the JAX package's streaming searcher does (serve.py:214-226)
+            cfg = self.search_cfg
+            sb_scale = (
+                store.global_scale()
+                if cfg.superblock_dtype == "int8" and cfg.superblock_rows
+                else None
+            )
             self.searcher = BlockSearcher(
-                top_k=self.search_cfg.top_k,
-                passage_chunk=self.search_cfg.passage_chunk,
-                compute_dtype=store_dtype,
+                top_k=cfg.top_k,
+                passage_chunk=cfg.passage_chunk,
                 device=self.device,
-                superblock_rows=self.search_cfg.superblock_rows,
-                superblock_dtype=self.search_cfg.superblock_dtype,
+                superblock_rows=cfg.superblock_rows,
+                superblock_dtype=cfg.superblock_dtype,
+                superblock_scale=sb_scale,
             )
 
     # -- query construction -------------------------------------------------

@@ -8,7 +8,9 @@ JAX, run them without the JAX-side conftest:
 
 Tolerances as in chip_smoke.py: attention float32 within 1e-4, bfloat16
 within one bf16 ulp; top-k scores within 1e-4 relative and ids identical
-(the inputs here have no near-ties).
+(the inputs here have no near-ties).  int8 x int8 scores are exact
+integers: equal, and ids identical at every position.  The rescore
+kernel equals the window kernel bit for bit (one arithmetic for both).
 """
 
 import pytest
@@ -107,3 +109,158 @@ def test_topk_kernel_small_and_tied(dev):
         assert row == sorted(row)
     s, i = _topk_pair(q, p, 7, 20)  # fewer rows than k
     assert bool((i[:, 7:] == -1).all()) and bool(torch.isneginf(s[:, 7:]).all())
+
+
+# --- the v3 kernel's int8 mode and the v4 kernels (ops/topk_v4.py) --------
+
+def _int8_index(gen, dev, N, D):
+    from haconvdr_torch.index.quantize import quantize_int8_torch
+
+    return quantize_int8_torch(torch.randn(N, D, device=dev, generator=gen))
+
+
+@pytest.mark.parametrize("queries", ["folded", "codes"])
+def test_topk_kernel_int8_mode(dev, gen, queries):
+    from haconvdr_torch.index.quantize import quantize_queries_int8
+
+    codes, scale = _int8_index(gen, dev, 30_000, 768)
+    q = torch.randn(40, 768, device=dev, generator=gen) * scale
+    if queries == "codes":  # v4's fallback: int8 codes, exact integer scores
+        q = quantize_queries_int8(q)[0]
+    _topk_pair(q, codes, 29_000, 100)
+    extra = torch.randn(500, 768, device=dev, generator=gen)
+    init = torch.topk(q.float() @ extra.T, 100, dim=1).values
+    _topk_pair(q, codes, 29_000, 100, init=init)
+
+
+def _v4_inputs(gen, dev, dtype, Q=70, N=50_000, D=768):
+    from haconvdr_torch.index.quantize import quantize_queries_int8
+
+    q = torch.randn(Q, D, device=dev, generator=gen)
+    if dtype == torch.int8:
+        p, scale = _int8_index(gen, dev, N, D)
+        return quantize_queries_int8(q * scale)[0], p
+    return q.to(dtype), torch.randn(N, D, device=dev, generator=gen).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_window_top2_matches_plain(dev, gen, dtype):
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    q, p = _v4_inputs(gen, dev, dtype)
+    before = v4.COUNTS["window"]
+    v1, a1, v2 = v4.window_top2(q, p, 49_000, 256)
+    torch.cuda.synchronize()
+    assert v4.COUNTS["window"] == before + 1
+    r1, ra, r2 = v4.window_top2_plain(q, p, 49_000, 256)
+    assert torch.equal(torch.isfinite(v1), torch.isfinite(r1))
+    assert torch.equal(torch.isfinite(v2), torch.isfinite(r2))
+    fin = torch.isfinite(r1)
+    tol = 0.0 if dtype == torch.int8 else 1e-4
+    for got, ref in ((v1, r1), (v2, r2)):
+        f = torch.isfinite(ref)
+        assert bool(((got[f] - ref[f]).abs() <= tol * ref[f].abs()).all())
+    gap = (r1 - r2) > (0.0 if dtype == torch.int8 else 1e-5) * r1.abs()
+    assert torch.equal(a1[fin & gap], ra[fin & gap])
+    assert bool(torch.isneginf(v1[49_000 // 256 + 1 :]).all())  # past n_valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_rescore_equals_window_kernel_bit_for_bit(dev, gen, dtype):
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    q, p = _v4_inputs(gen, dev, dtype)
+    sw, B = 256, 8
+    v1, a1, v2 = v4.window_top2(q, p, 49_000, sw)
+    W = v1.shape[0]
+    win = torch.randint(0, W, (q.shape[0], B), device=dev, generator=gen, dtype=torch.int32)
+    win[:, -1] = -1  # an empty slot
+    resc = v4.rescore_windows(p, q, win, sw, 49_000).view(q.shape[0], B, sw)
+    ref = v4.rescore_windows_plain(p, q, win, sw, 49_000).view(q.shape[0], B, sw)
+    assert bool(torch.isneginf(resc[:, -1]).all())
+    f = torch.isfinite(ref)
+    assert torch.equal(f, torch.isfinite(resc))
+    # summation order only: rows score near 0 as often as not, hence the atol
+    assert bool(((resc[f] - ref[f]).abs() <= 1e-4 * ref[f].abs() + 1e-4).all())
+    qi = torch.arange(q.shape[0], device=dev)[:, None].expand(-1, B - 1)
+    w = win[:, : B - 1].long()
+    assert torch.equal(resc[:, : B - 1].amax(2), v1[w, qi])
+    pos = a1[w, qi].long() - w * sw
+    masked = resc[:, : B - 1].scatter(2, pos[..., None], float("-inf"))
+    assert torch.equal(masked.amax(2), v2[w, qi])
+
+
+@pytest.mark.parametrize("layout", ["t", "rows"])
+@pytest.mark.parametrize("warm", [False, True])
+def test_select_kernel_matches_plain(dev, gen, layout, warm):
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    # cold: the 2.5M-row pool [W + 8 sw, Q] (93 segments < k: no floor);
+    # warm: the 1.7M-row pool [W + 4 sw, Q] at sw 128 (108 segments)
+    C, Q, k = (13_282 + 4 * 128 if warm else 9766 + 8 * 256), 64, 100
+    s = torch.randn(C, Q, device=dev, generator=gen)
+    s[:500] = s[500:1000]  # exact duplicates: ties go to the lower row
+    s[-30:] = float("-inf")
+    floor = v4.warm_floor(s, k) if warm else None
+    assert (floor is not None) == warm
+    if layout == "t":
+        got = v4.select_topk_t(s, k, floor=floor)
+        ref = v4.select_plain(s.T, k, floor)
+        cold = v4.select_plain(s.T, k)
+    else:
+        st = s.T.contiguous()
+        ids = torch.randperm(C, device=dev, generator=gen).to(torch.int32)[None, :].expand(Q, -1)
+        ids = ids.contiguous()
+        got = v4.select_topk(st, k, floor=floor, ids=ids)
+        ref = v4.select_plain(st, k, floor, ids)
+        cold = v4.select_plain(st, k, None, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(got[0], cold[0]) and torch.equal(got[1], cold[1])  # a floor prunes only
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_topk_block_v4_matches_plain(dev, gen, dtype):
+    from haconvdr_torch.ops import fused_topk as ft
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    q = torch.randn(70, 768, device=dev, generator=gen)
+    if dtype == torch.int8:
+        p, scale = _int8_index(gen, dev, 60_000, 768)
+        q = q * scale
+    else:
+        p = torch.randn(60_000, 768, device=dev, generator=gen).to(dtype)
+    p[59_000:] = 100 if dtype == torch.int8 else p[59_000:] * 100
+    before = dict(v4.COUNTS)
+    s, i = v4.topk_block_v4(q, p, 59_000, 100)
+    torch.cuda.synchronize()
+    assert v4.COUNTS["window"] > before["window"] and v4.COUNTS["plain"] == before["plain"]
+    if dtype == torch.int8:
+        from haconvdr_torch.index.quantize import quantize_queries_int8
+
+        q8, qs = quantize_queries_int8(q)
+        rs, ri = ft.fused_topk_block_plain(q8, p, 59_000, 100)
+        assert torch.equal(i, ri) and torch.equal(s, rs * (qs[:, None] / 127.0))
+    else:
+        rs, ri = ft.fused_topk_block_plain(q, p, 59_000, 100)
+        assert bool(((s - rs).abs() <= 1e-4 * rs.abs()).all())
+        assert torch.equal(i, ri)
+    assert int(i.max()) < 59_000
+
+
+def test_topk_block_v4_budget_overflow_falls_back_to_v3(dev, gen):
+    from haconvdr_torch.ops import fused_topk as ft
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    q = torch.randn(16, 768, device=dev, generator=gen)
+    p = torch.randn(40_000, 768, device=dev, generator=gen)
+    p[:2048] = p[:1].clone()  # one row planted 2048 times: every query floods its windows
+    p[:2048] *= 10
+    before = dict(v4.COUNTS)
+    kernel_before = ft.COUNTS["kernel"]
+    s, i = v4.topk_block_v4(q, p, 40_000, 100)
+    torch.cuda.synchronize()
+    assert v4.COUNTS["v3_fallback"] == before["v3_fallback"] + 1
+    assert ft.COUNTS["kernel"] == kernel_before + 1
+    rs, ri = ft.fused_topk_block_plain(q, p, 40_000, 100)
+    assert torch.equal(i, ri) and bool(((s - rs).abs() <= 1e-4 * rs.abs()).all())

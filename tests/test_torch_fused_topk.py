@@ -157,7 +157,7 @@ def test_plain_twin_chunking_is_invariant(rng):
     np.testing.assert_allclose(a[0].numpy(), b[0].numpy(), rtol=1e-6)
 
 
-@pytest.mark.parametrize("bad", ["k0", "k129", "int8", "dim"])
+@pytest.mark.parametrize("bad", ["k0", "k129", "int16", "dim"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     from haconvdr_torch.ops.fused_topk import _check
 
@@ -168,9 +168,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k = 0
     elif bad == "k129":
         k = 129
-    elif bad == "int8":
-        p = p.to(torch.int8)
+    elif bad == "int16":  # int8 passages are the int8 mode; int16 has none
+        p = p.to(torch.int16)
     else:
         q = torch.zeros(2, 4)
     with pytest.raises(ValueError):
         _check(q, p, k, init)
+
+
+@pytest.mark.parametrize("queries", ["folded", "codes"])
+def test_int8_mode_matches_kernel(rng, queries):
+    """int8 passages score bfloat16 queries (pallas_topk.py:126-131,
+    203-207): folded float queries are rounded to bf16; int8 codes, as v4's
+    fallback hands them over, stay exact and score exact integers."""
+    from haconvdr_tpu.index.quantize import quantize_int8
+
+    codes, scale = quantize_int8(rng.randn(1024, 32).astype(np.float32))
+    q = rng.randn(24, 32).astype(np.float32) * scale
+    if queries == "codes":
+        q = np.clip(np.round(q / np.abs(q).max(1, keepdims=True) * 127), -127, 127)
+        q = q.astype(np.int8)
+    s, i = _torch(q, codes, 1000, 10)
+    js, ji = _jax(q.astype(np.float32) if queries == "codes" else q, codes, 1000, 10)
+    np.testing.assert_array_equal(i, ji)
+    np.testing.assert_allclose(s, js, rtol=1e-5, atol=1e-6)
+    if queries == "codes":
+        full = q.astype(np.int64) @ codes[:1000].astype(np.int64).T
+        np.testing.assert_array_equal(s, -np.sort(-full, axis=1)[:, :10].astype(np.float32))

@@ -3,7 +3,9 @@ against the JAX reference (haconvdr_tpu/serve.py): one shared-writer
 EmbeddingBlockStore, one tokenizer, the same numpy encoder weights.
 Pass conditions: identical ranked pids for conversational queries with
 scores within 1e-5; BatchingRetriever answers equal the sequential path;
-the two-stage rescore path agrees with JAX."""
+the two-stage rescore path agrees with JAX.  int8 residency, super-block
+streaming and bfloat16 streaming are held against JAX the same way (the
+int8 scoring-model difference is stated in its test)."""
 
 import threading
 
@@ -12,8 +14,10 @@ import pytest
 import torch
 
 from haconvdr_tpu.config import DataConfig, ModelConfig, SearchConfig
+from haconvdr_tpu.index.quantize import quantize_int8
 from haconvdr_tpu.index.store import EmbeddingBlockStore
 from haconvdr_tpu.serve import Retriever as JaxRetriever
+from haconvdr_torch.index.quantize import quantize_queries_int8
 from haconvdr_torch.models.convert import init_params_numpy
 from haconvdr_torch.serve import BacklogFull, BatchingRetriever, Retriever
 from haconvdr_torch.utils.testing import HashTokenizer
@@ -44,19 +48,25 @@ def setup(tmp_path_factory):
         max_query_length=12, max_doc_length=16, max_response_length=8,
         max_concat_length=32,
     )
+    store8 = EmbeddingBlockStore(str(tmp_path_factory.mktemp("torch_serve8") / "emb"))
+    for b in range(store.num_blocks()):  # the same rows as int8 blocks
+        emb, ids = store.read_block(b)
+        codes, scale = quantize_int8(emb)
+        store8.write_block(b, codes, ids, scale=scale)
     return dict(
         tok=HashTokenizer(cfg.vocab_size), cfg=cfg, params=params, store=store,
-        offset2pid=offset2pid, data_cfg=data_cfg,
+        store8=store8, offset2pid=offset2pid, data_cfg=data_cfg,
     )
 
 
-def _pair(setup, **search_kw):
+def _pair(setup, store="store", retriever_kw=None, **search_kw):
     kw = dict(
         offset2pid=setup["offset2pid"], data_cfg=setup["data_cfg"],
         search_cfg=SearchConfig(top_k=8, per_device_test_batch_size=2, **search_kw),
+        **(retriever_kw or {}),
     )
-    jr = JaxRetriever(setup["tok"], setup["params"], setup["cfg"], setup["store"], **kw)
-    tr = Retriever(setup["tok"], setup["params"], setup["cfg"], setup["store"], **kw)
+    jr = JaxRetriever(setup["tok"], setup["params"], setup["cfg"], setup[store], **kw)
+    tr = Retriever(setup["tok"], setup["params"], setup["cfg"], setup[store], **kw)
     return jr, tr
 
 
@@ -82,6 +92,82 @@ def test_streaming_retriever_matches_jax(setup):
         setup["tok"], setup["params"], setup["cfg"], setup["store"],
         offset2pid=setup["offset2pid"], data_cfg=setup["data_cfg"],
         search_cfg=SearchConfig(top_k=8), resident=False,
+    )
+    for question, history in QUERIES:
+        _assert_same(tr.retrieve(question, history), jr.retrieve(question, history))
+
+
+def test_streaming_bf16_store_dtype_scores_in_float32(setup):
+    """resident=False streams the store in float32 whatever store_dtype
+    says, as the JAX Retriever does (haconvdr_tpu/serve.py:220-226)."""
+    jr, tr = _pair(setup, retriever_kw=dict(resident=False, store_dtype="bfloat16"))
+    assert tr.searcher.compute_dtype == torch.float32
+    for question, history in QUERIES:
+        _assert_same(tr.retrieve(question, history), jr.retrieve(question, history))
+
+
+def _int8_oracle(tr, q, k):
+    """The int8 x int8 model on the port's own index: scale folded into
+    the queries, per-query codes, exact integer scores, ties to the lower
+    row, dequantized by q_scale / 127."""
+    idx = tr.index
+    q8, q_scale = quantize_queries_int8(torch.from_numpy(q) * idx.scale)
+    full = q8.numpy().astype(np.int64) @ idx.passages.numpy().astype(np.int64).T
+    n = full.shape[1]
+    order = np.lexsort((np.tile(np.arange(n), (len(q), 1)), -full), axis=1)[:, :k]
+    s = torch.from_numpy(np.take_along_axis(full, order, 1).astype(np.float32))
+    return (s * (q_scale[:, None] / 127.0)).numpy(), tr.offset2pid[order]
+
+
+def test_int8_resident_matches_jax(setup):
+    """store_dtype="int8": the index quantizes as the JAX ShardedIndex does
+    (codes and scale identical).  For k <= 128 the port scores int8 x int8
+    (the JAX package's kernel path, pallas_topk_v4.py:855-861): its answer
+    equals that model's oracle exactly.  The JAX CPU path scores the
+    bfloat16-rounded folded query instead, so against it the pids are
+    identical and the scores agree within the two models' difference
+    (query-side rounding, 1/254 of the largest element)."""
+    jr, tr = _pair(setup, retriever_kw=dict(store_dtype="int8"))
+    np.testing.assert_array_equal(tr.index.passages.numpy(), np.asarray(jr.index.passages)[:N_PASSAGES])
+    np.testing.assert_array_equal(tr.index.scale.numpy(), np.asarray(jr.index.scales)[0])
+    exs = [tr.build_query(q, h) for q, h in QUERIES]
+    q = tr.embed(exs)
+    s, i = tr.search(q)
+    os_, oi = _int8_oracle(tr, q, 8)
+    np.testing.assert_array_equal(i, oi)
+    np.testing.assert_array_equal(s, os_)
+    for question, history in QUERIES:
+        ours, ref = tr.retrieve(question, history), jr.retrieve(question, history)
+        assert [p for p, _ in ours] == [p for p, _ in ref]
+        np.testing.assert_allclose([x for _, x in ours], [x for _, x in ref], rtol=2e-2, atol=2e-2)
+
+
+def test_int8_resident_with_rescore_matches_jax(setup):
+    """The float disk store rescores the int8 first stage exactly."""
+    jr, tr = _pair(setup, retriever_kw=dict(store_dtype="int8"), rescore_oversample=3.0)
+    for question, history in QUERIES:
+        _assert_same(tr.retrieve(question, history), jr.retrieve(question, history))
+
+
+def test_int8_over_a_device_tensor_quantizes_on_the_device(setup):
+    rng = np.random.RandomState(1)
+    emb = rng.randn(50, setup["cfg"].embedding_dim).astype(np.float32)
+    tr = Retriever(
+        setup["tok"], setup["params"], setup["cfg"], torch.from_numpy(emb),
+        data_cfg=setup["data_cfg"], search_cfg=SearchConfig(top_k=5), store_dtype="int8",
+    )
+    codes, scale = quantize_int8(emb)
+    np.testing.assert_array_equal(tr.index.passages.numpy(), codes)
+    np.testing.assert_array_equal(tr.index.scale.numpy(), scale)
+
+
+@pytest.mark.parametrize("store, sb_dtype", [("store", ""), ("store8", "int8"), ("store8", "")])
+def test_superblock_streaming_matches_jax(setup, store, sb_dtype):
+    """resident=False with super-blocks: the store's three blocks fill one
+    accumulator (float32, or int8 at the store's global scale)."""
+    jr, tr = _pair(
+        setup, store=store, retriever_kw=dict(resident=False),
+        superblock_rows=131072, superblock_dtype=sb_dtype,
     )
     for question, history in QUERIES:
         _assert_same(tr.retrieve(question, history), jr.retrieve(question, history))
@@ -136,7 +222,7 @@ def test_batching_backpressure_and_k_bound(setup):
 
 
 def test_unported_modes_raise(setup):
-    for kw in ({"ivf": True}, {"encoder_int8": True}, {"store_dtype": "int8"}):
+    for kw in ({"ivf": True}, {"encoder_int8": True}):
         with pytest.raises(NotImplementedError):
             Retriever(setup["tok"], setup["params"], setup["cfg"], setup["store"], **kw)
 

@@ -1,0 +1,328 @@
+"""The v4 search of the PyTorch port (haconvdr_torch/ops/topk_v4.py) against
+the JAX reference (haconvdr_tpu/ops/pallas_topk_v4.py, Pallas kernels in
+interpret mode) and exact_topk_oracle.  On the CPU every wrapper runs its
+plain twin; inputs are made with numpy and given to both packages.
+
+Pass conditions: float32 scores within 1e-5 relative (summation order
+only), ids identical; int8 x int8 scores are integers and equal exactly.
+Where JAX orders a tie class by buffer slot, the int8 comparison holds
+each id to its tie class (tests/test_pallas_topk.py:468-478); against the
+oracle the port's ids are identical, ties going to the lower id.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+import haconvdr_tpu.ops.pallas_topk_v4 as jv4
+from haconvdr_tpu.index.quantize import quantize_int8
+from haconvdr_tpu.ops.topk import exact_topk_oracle as jax_oracle
+from haconvdr_torch.index.quantize import quantize_queries_int8
+from haconvdr_torch.ops import fused_topk
+from haconvdr_torch.ops import topk_v4 as v4
+
+T = torch.from_numpy
+
+
+def _jax_panels(q, p, n_valid, sw, p_tile=256):
+    """JAX's window kernel, called as _v4_search.run_panel calls it: the
+    first N / sw rows of its transposed (v1, a1, v2) panels."""
+    Q, D = q.shape
+    N = p.shape[0]
+    n_win = p_tile // sw
+    flush = 128 // n_win
+    n_tiles = N // p_tile
+    Wp = -(-n_tiles // flush) * flush * n_win
+    kernel = functools.partial(jv4._window_top2_kernel, pt=p_tile, qt=Q, sw=sw, flush=flush)
+    out_spec = pl.BlockSpec((128, Q), lambda j, *_: (j // flush, 0))
+    outs = pl.pallas_call(
+        kernel,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1,
+            grid=(n_tiles,),
+            in_specs=[
+                pl.BlockSpec((Q, D), lambda j, *_: (0, 0)),
+                pl.BlockSpec((p_tile, D), lambda j, *_: (j, 0)),
+            ],
+            out_specs=[out_spec] * 3,
+        ),
+        out_shape=[
+            jax.ShapeDtypeStruct((Wp, Q), jnp.float32),
+            jax.ShapeDtypeStruct((Wp, Q), jnp.int32),
+            jax.ShapeDtypeStruct((Wp, Q), jnp.float32),
+        ],
+        interpret=True,
+    )(jnp.asarray([n_valid], jnp.int32), jnp.asarray(q), jnp.asarray(p))
+    return [np.asarray(o)[: N // sw] for o in outs]
+
+
+@pytest.mark.parametrize(
+    "n, dtype, sw, budget, want",
+    [
+        (2_500_608, "bfloat16", 0, 0, (256, 8)),
+        (2_500_608, "float32", 0, 0, (256, 8)),
+        (2_500_608, "int8", 0, 0, (256, 6)),
+        (301_056, "bfloat16", 0, 0, (128, 4)),
+        (2_500_608, "int8", 128, 4, (128, 4)),
+        (301_056, "int8", 256, 0, (256, 6)),
+    ],
+)
+def test_geometry_matches_jax(n, dtype, sw, budget, want):
+    got = v4.resolve_select_geometry(n, getattr(torch, dtype), sw, budget)
+    assert got == want == jv4.resolve_select_geometry(n, jnp.dtype(dtype), sw, budget)
+
+
+def test_geometry_drops_the_tpu_tiling_condition():
+    # nothing is padded on the card, so 2M+ rows take sw 256 at any N
+    assert v4.resolve_select_geometry(2_500_000, torch.float32) == (256, 8)
+    assert jv4.resolve_select_geometry(2_500_000, jnp.float32) == (128, 4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("n_valid", [2048, 1500])
+def test_window_top2_matches_jax_panels(rng, dtype, n_valid):
+    Q, N, D, sw = 16, 2048, 32, 128
+    q = rng.randn(Q, D).astype(np.float32)
+    p = rng.randn(N, D).astype(np.float32)
+    p[::37] = p[1::37]  # duplicate rows inside windows: v2 == v1, a1 the lower row
+    if dtype == "int8":
+        p = quantize_int8(p)[0]
+        q = np.clip(np.round(q * 40), -127, 127).astype(np.int8)
+    v1, a1, v2 = v4.window_top2(T(q), T(p), n_valid, sw)
+    j1, ja, j2 = _jax_panels(q, p, n_valid, sw)
+    assert v1.shape == (N // sw, Q)
+    np.testing.assert_allclose(v1.numpy(), j1, rtol=1e-5)
+    np.testing.assert_allclose(v2.numpy(), j2, rtol=1e-5)
+    fin = np.isfinite(j1)
+    np.testing.assert_array_equal(a1.numpy()[fin], ja[fin])
+    assert np.isneginf(v1.numpy()[-(-n_valid // sw):]).all()
+
+
+def test_select_topk_t_matches_jax_cold_and_warm(rng):
+    Q, C, k = 64, 1100, 8
+    s = rng.randn(C, Q).astype(np.float32)
+    s[:40, 0] = np.sort(s[:, 0])[-k]  # exact ties at the k-th value
+    floor = v4.warm_floor(T(s), k)
+    jfloor = jv4.warm_floor(jnp.asarray(s), k)
+    np.testing.assert_array_equal(floor.numpy(), np.asarray(jfloor))
+    for rm0, fl in ((None, None), (jfloor, floor)):
+        vs, vi = v4.select_topk_t(T(s), k, floor=fl)
+        js, ji = jv4.pallas_select_topk_t(
+            jnp.asarray(s), k, c_tile=256, q_sub=64, rm0=rm0, seg=256, interpret=True
+        )
+        np.testing.assert_array_equal(vs.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(vi.numpy()[1:], np.asarray(ji)[1:])
+        # column 0's tie class: the port takes the lowest rows
+        np.testing.assert_array_equal(vi.numpy()[0], np.argsort(-s[:, 0], kind="stable")[:k])
+    assert v4.warm_floor(T(s[:256]), 8) is None  # 2 segments < k
+
+
+def test_select_topk_matches_jax_and_takes_tie_ids(rng):
+    Q, C, k = 64, 1000, 12
+    s = rng.randn(Q, C).astype(np.float32)
+    vs, vi = v4.select_topk(T(s), k)
+    js, ji = jv4.pallas_select_topk(jnp.asarray(s), k, q_tile=32, c_tile=256, interpret=True)
+    np.testing.assert_array_equal(vs.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(vi.numpy(), np.asarray(ji))
+    # tie-break ids: equal scores order by the given id, not the column
+    sd = np.repeat(rng.randn(Q, 125).astype(np.float32), 8, axis=1)
+    ids = np.tile(np.arange(C)[::-1].astype(np.int32), (Q, 1))
+    vs, vi = v4.select_topk(T(sd), k, ids=T(ids))
+    for r in range(Q):
+        order = sorted(range(C), key=lambda c: (-sd[r, c], ids[r, c]))[:k]
+        np.testing.assert_array_equal(vi.numpy()[r], ids[r, order])
+        np.testing.assert_array_equal(vs.numpy()[r], sd[r, order])
+
+
+def test_select_empty_slots_are_neg_inf_minus_one():
+    s = torch.full((3, 5), float("-inf"))
+    s[0, 2] = 1.0
+    vs, vi = v4.select_topk_t(s.T.contiguous(), 4)
+    assert vi.tolist() == [[2, -1, -1, -1], [-1] * 4, [-1] * 4]
+    assert torch.isneginf(vs[:, 1:]).all() and vs[0, 0] == 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_rescore_windows_matches_jax(rng, dtype):
+    Q, N, D, sw, B = 16, 1024, 32, 128, 4
+    q = rng.randn(Q, D).astype(np.float32)
+    p = rng.randn(N, D).astype(np.float32)
+    if dtype == "int8":
+        p = quantize_int8(p)[0]
+        q = np.clip(np.round(q * 40), -127, 127).astype(np.int8)
+    win = rng.randint(0, N // sw, (Q, B)).astype(np.int32)
+    got = v4.rescore_windows(T(p), T(q), T(win), sw, 1000).numpy()
+    ref = np.asarray(jv4._rescore_windows(
+        jnp.asarray(p), jnp.asarray(q), jnp.asarray(win), sw, interpret=True
+    ))
+    rows = win[:, :, None] * sw + np.arange(sw)
+    valid = (rows < 1000).reshape(Q, -1)
+    np.testing.assert_allclose(got[valid], ref[valid], rtol=1e-5, atol=1e-5)
+    assert np.isneginf(got[~valid]).all()
+    win[:, 1] = -1  # an empty slot scores -inf
+    got = v4.rescore_windows(T(p), T(q), T(win), sw, 1000).numpy().reshape(Q, B, sw)
+    assert np.isneginf(got[:, 1]).all()
+
+
+def _jax_v4(q, p, n_valid, k, **kw):
+    kw.setdefault("q_tile", min(64, q.shape[0]))
+    kw.setdefault("p_tile", 256)
+    s, i, nf = jv4._v4_search(
+        jnp.asarray(q), jnp.asarray(p), jnp.int32(n_valid), k, interpret=True, **kw
+    )
+    return np.asarray(s), np.asarray(i), int(nf)
+
+
+@pytest.mark.parametrize("n_valid", [2048, 1500])
+def test_v4_search_matches_jax_and_oracle(rng, n_valid):
+    Q, N, D, k = 128, 2048, 32, 10
+    q = rng.randn(Q, D).astype(np.float32)
+    p = rng.randn(N, D).astype(np.float32)
+    p[n_valid:] *= 100.0  # rows past n_valid would win if they surfaced
+    s, i, nf = v4.v4_search(T(q), T(p), n_valid, k, budget=16)
+    js, ji, jnf = _jax_v4(q, p, n_valid, k, budget=16)
+    assert int(nf) == jnf <= 16
+    np.testing.assert_array_equal(i.numpy(), ji)
+    np.testing.assert_allclose(s.numpy(), js, rtol=1e-5)
+    os_, oi = jax_oracle(jnp.asarray(q), jnp.asarray(p[:n_valid]), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(oi))
+
+
+def test_v4_search_across_jax_query_panels(rng):
+    """JAX splits Q = 256 into two 128-query panels; the port has none."""
+    Q, N, D, k = 256, 1024, 16, 7
+    q = rng.randn(Q, D).astype(np.float32)
+    p = rng.randn(N, D).astype(np.float32)
+    s, i, nf = v4.v4_search(T(q), T(p), 900, k, budget=16)
+    js, ji, jnf = _jax_v4(q, p, 900, k, q_tile=128, q_panel=128, budget=16)
+    assert int(nf) == jnf
+    np.testing.assert_array_equal(i.numpy(), ji)
+    np.testing.assert_allclose(s.numpy(), js, rtol=1e-5)
+
+
+def test_v4_rescore_path_fires_within_budget(rng):
+    """Planted strong pairs inside one window flag it (n_flag >= 1); the
+    rescored rows make the answer exact, with no fallback."""
+    Q, N, D, k = 32, 1024, 16, 8
+    q = rng.randn(Q, D).astype(np.float32)
+    p = rng.randn(N, D).astype(np.float32) * 0.01
+    for w in range(4):
+        strong = rng.randn(D).astype(np.float32)
+        p[w * 256] = strong
+        p[w * 256 + 1] = strong * 0.999
+    s, i, nf = v4.v4_search(T(q), T(p), N, k, budget=8)
+    js, ji, jnf = _jax_v4(q, p, N, k, budget=8, q_tile=32)
+    assert 1 <= int(nf) == jnf <= 8
+    np.testing.assert_array_equal(i.numpy(), ji)
+    before = dict(v4.COUNTS)
+    s2, i2 = v4.topk_block_v4(T(q), T(p), N, k, budget=8)
+    assert v4.COUNTS["v3_fallback"] == before["v3_fallback"]
+    os_, oi = jax_oracle(jnp.asarray(q), jnp.asarray(p), k)
+    np.testing.assert_array_equal(i2.numpy(), np.asarray(oi))
+    np.testing.assert_allclose(s2.numpy(), np.asarray(os_), rtol=1e-5)
+
+
+def test_budget_overflow_falls_back_to_v3(rng):
+    Q, N, D, k = 16, 2048, 8, 6
+    row = rng.randn(D).astype(np.float32)
+    p = np.tile(row, (N, 1))
+    q = rng.randn(Q, D).astype(np.float32)
+    _, _, nf = v4.v4_search(T(q), T(p), N, k)
+    assert int(nf) > 4 and int(nf) == _jax_v4(q, p, N, k, q_tile=16)[2]
+    before = dict(v4.COUNTS)
+    v3_before = fused_topk.COUNTS["plain"]
+    s, i = v4.topk_block_v4(T(q), T(p), N, k)
+    assert v4.COUNTS["v3_fallback"] == before["v3_fallback"] + 1
+    assert fused_topk.COUNTS["plain"] == v3_before + 1  # the v3 route ran
+    # every row ties: the port returns the k lowest ids
+    np.testing.assert_array_equal(i.numpy(), np.tile(np.arange(k), (Q, 1)))
+    np.testing.assert_allclose(s.numpy(), np.tile((q @ row)[:, None], (1, k)), rtol=1e-5)
+    js, ji = jv4.pallas_topk_block_v4(
+        jnp.asarray(q), jnp.asarray(p), N, k, q_tile=16, p_tile=256, interpret=True
+    )
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5)
+
+
+def test_exact_ties_go_to_the_lower_id(rng):
+    """Duplicate rows across and within windows: the v4 answer (unflagged
+    maxima and rescored rows alike) equals the oracle, which takes the
+    lower index, and equals the v3 route's answer."""
+    Q, N, D, k = 8, 2048, 16, 12
+    q = rng.randn(Q, D).astype(np.float32)
+    p = np.repeat(rng.randn(N // 4, D).astype(np.float32), 4, axis=0)
+    p[1000:1004] = p[10:14]  # the same values in windows 0 and 7
+    s, i = v4.topk_block_v4(T(q), T(p), N, k, budget=32)
+    os_, oi = jax_oracle(jnp.asarray(q), jnp.asarray(p), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(oi))
+    s3, i3 = fused_topk.fused_topk_block(T(q), T(p), N, k)
+    np.testing.assert_array_equal(i.numpy(), i3.numpy())
+    np.testing.assert_array_equal(s.numpy(), s3.numpy())
+
+
+def test_bf16_passages_match_jax(rng):
+    Q, N, D, k = 64, 2048, 32, 10
+    q = rng.randn(Q, D).astype(np.float32)
+    p = rng.randn(N, D).astype(np.float32)
+    s, i = v4.topk_block_v4(T(q), T(p).to(torch.bfloat16), N, k, budget=16)
+    js, ji = jv4.pallas_topk_block_v4(
+        jnp.asarray(q), jnp.asarray(p, jnp.bfloat16), N, k,
+        q_tile=64, p_tile=256, budget=16, interpret=True,
+    )
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+
+
+def _int8_case(rng, Q, N, D):
+    emb = rng.randn(N, D).astype(np.float32)
+    codes, scale = quantize_int8(emb)
+    qf = rng.randn(Q, D).astype(np.float32) * scale[None, :]
+    q8, q_scale = quantize_queries_int8(T(qf))  # one set of codes for both packages
+    return codes, qf, q8.numpy(), q_scale
+
+
+@pytest.mark.parametrize("N, k", [(8192, 4), (1024, 10)])  # fast path; budget overflow
+def test_int8_through_both_packages(rng, N, k):
+    Q, D = 64, 32
+    codes, qf, q8, q_scale = _int8_case(rng, Q, N, D)
+    s, i, nf = v4.v4_search(T(q8), T(codes), N, k, budget=8)
+    js, ji, jnf = _jax_v4(q8, codes, N, k, budget=8)
+    assert int(nf) == jnf
+    full_int = q8.astype(np.int64) @ codes.astype(np.int64).T
+    if jnf <= 8:
+        np.testing.assert_array_equal(s.numpy(), js)  # integer scores
+        for r in range(Q):  # JAX orders a tie class by buffer slot
+            np.testing.assert_array_equal(full_int[r, i.numpy()[r]], full_int[r, ji[r]])
+    # the port's full answer (v4, or the v3 fallback) against the oracle:
+    # ids identical at every position, scores bit-identical
+    s2, i2 = v4.topk_block_v4(T(qf), T(codes), N, k, budget=8)
+    order = np.lexsort((np.tile(np.arange(N), (Q, 1)), -full_int), axis=1)[:, :k]
+    np.testing.assert_array_equal(i2.numpy(), order)
+    want = T(np.take_along_axis(full_int, order, 1).astype(np.float32)) * (q_scale[:, None] / 127.0)
+    np.testing.assert_array_equal(s2.numpy(), want.numpy())
+
+
+def test_fewer_windows_than_k(rng):
+    """W < k: v_k bounds nothing, every window with a second row flags."""
+    Q, N, D, k = 4, 300, 8, 20
+    q = rng.randn(Q, D).astype(np.float32)
+    p = rng.randn(N, D).astype(np.float32)
+    s, i = v4.topk_block_v4(T(q), T(p), N, k)
+    os_, oi = jax_oracle(jnp.asarray(q), jnp.asarray(p), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(oi))
+    s, i = v4.topk_block_v4(T(q), T(p), 7, k)  # fewer valid rows than k
+    assert (i.numpy()[:, 7:] == -1).all() and np.isneginf(s.numpy()[:, 7:]).all()
+
+
+def test_v4_search_takes_the_kernels_dtype():
+    """v4_search scores queries already in the passages' dtype; the
+    quantization of float queries lives in topk_block_v4 alone."""
+    q = torch.zeros(2, 8)
+    p = torch.zeros(256, 8, dtype=torch.int8)
+    with pytest.raises(ValueError, match="passages' dtype"):
+        v4.v4_search(q, p, 256, 4)
