@@ -18,7 +18,10 @@ order; any failure raises and the script exits non-zero:
    layouts, cold at the path's pool [W + 8 sw, Q] and warm (a floor from
    warm_floor) at the wider pool of a 1.7M-row search, where it must also
    equal the cold answer; the whole v4 search in f32, bf16 and int8, and a
-   forced fallback to v3 (planted duplicate rows);
+   forced fallback to v3 (planted duplicate rows); the int8 tower's kernels
+   at the corpus-encode batch (256 x 384 = 98,304 rows, H 768, I 3072):
+   LayerNorm with a bf16 residual, LayerNorm-quant with a bf16 residual
+   and with a float32 input and none, and the int8 MLP block;
 4. main path: a full-width ANCE RoBERTa-base query tower (random weights
    from the seed) over a resident 2,500,000 x 768 float32 index made on
    the card, searched by the v4 kernels; a BatchingRetriever(max_batch=64)
@@ -32,7 +35,18 @@ order; any failure raises and the script exits non-zero:
    device blocks: per block (unseeded v3 first, then seeded v3), and as
    super-blocks of 2,500,000 rows (one v4 search per fill) in float32 and
    with the int8 accumulator.  Answers are held against the plain twins.
-Each of phases 4-6 zeroes every launch count just before it and reads
+7. int8 tower serving: Retriever(encoder_int8=True) with
+   ModelConfig(dtype="bfloat16") over the phase-4 index; 64 concurrent
+   requests and a few single ones.  Each forward launches LayerNorm-quant
+   13 times and the MLP kernel 12 times; the searches equal the plain
+   search of the same embeddings, and the embeddings agree with the
+   plain-twin tower on the same batches;
+8. corpus encode: encode_corpus through the same int8 bf16 tower over
+   2,048 passages (lengths 32-384, seed), batch 256, blocks of 1,024, into
+   int8 blocks.  Offsets come out in corpus order, each block's codes equal
+   quantize_int8 of the tower's float rows, and the rows agree with the
+   plain-twin tower run through the same encode_corpus.
+Each of phases 4-8 zeroes every launch count just before it and reads
 them just after: each kernel of that path must have launched, and no
 plain twin may have run.
 
@@ -51,6 +65,25 @@ Tolerances (kernel vs plain twin on the same inputs):
   int8 x int8        exact: scores equal, ids identical at every position
   select, rescore    bit-identical to the twin's values and rows / to the
                      window kernel's own v1, v2
+  LayerNorm (-quant) y within one bf16 ulp (2**-7 |ref| + 1e-5); yq, ys
+                     exactly the quantization of the kernel's own y; codes
+                     within 1 of the twin's at under 0.1% of positions
+  int8 MLP block     the JAX package's bounds for its kernel
+                     (tests/test_fused_mlp.py): |diff| <= 2**-6 |ref| +
+                     0.07, under 0.2% past 2**-6 (1 + |ref|); yq, ys and
+                     codes as for LayerNorm-quant
+  int8 bf16 tower    embeddings vs the plain-twin tower: max |diff| <=
+                     TOWER_ATOL = 0.25, cosine >= TOWER_MIN_COS = 0.999
+                     (unit-scale rows).  Not tighter: one-ulp differences
+                     (about 1e-5 of a kernel's outputs) spread through the
+                     attention and the denses, and the bf16 rounding and
+                     per-token codes after each of them, to ~90% of the
+                     carry by layer 12; two bf16 int8 towers that round
+                     differently end ~0.1 apart (cosine ~0.9996), as far
+                     as either is from the f32 float tower.  So the
+                     kernel tower's minimum cosine to the f32 float tower
+                     must also be within TOWER_COS_SLACK = 2e-4 of the
+                     plain-twin tower's (phase 7)
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last line is {"ok": true, "device": {...}}.
@@ -59,6 +92,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -79,6 +113,12 @@ N_BATCHED_INT8 = 64
 N_SINGLE = 4
 N_BLOCKS = 4  # phase 6: 625,000-row blocks
 WARM_POOL = 13_282 + 4 * 128  # the v4 pool of 1.7M float32 rows (sw 128)
+INTER = 3072
+ENC_BATCH, ENC_LEN = 256, 384  # the corpus-encode batch (phases 3 and 8)
+N_CORPUS, ENC_BLOCK = 2_048, 1_024  # phase 8: 8 batches, 2 blocks
+# the int8 bf16 tower against its plain-twin tower, on unit-scale outputs;
+# the int8 bf16 tower's distance to the f32 float tower, against the twin's
+TOWER_ATOL, TOWER_MIN_COS, TOWER_COS_SLACK = 0.25, 0.999, 2e-4
 WORDS = [f"w{i}" for i in range(5000)]
 
 
@@ -137,19 +177,21 @@ def compare_exact(s, i, rs, ri, what: str) -> float:
     return 0.0
 
 
-def zero_counts():
-    from haconvdr_torch.ops import fused_attention, fused_topk, topk_v4
+def _count_modules():
+    from haconvdr_torch.ops import fused_attention, fused_ln, fused_mlp, fused_topk, topk_v4
 
-    for mod in (fused_attention, fused_topk, topk_v4):
+    return {"fused_attention": fused_attention, "fused_topk": fused_topk, "topk_v4": topk_v4,
+            "fused_ln": fused_ln, "fused_mlp": fused_mlp}
+
+
+def zero_counts():
+    for mod in _count_modules().values():
         for key in mod.COUNTS:
             mod.COUNTS[key] = 0
 
 
 def read_counts():
-    from haconvdr_torch.ops import fused_attention, fused_topk, topk_v4
-
-    return {"fused_attention": dict(fused_attention.COUNTS),
-            "fused_topk": dict(fused_topk.COUNTS), "topk_v4": dict(topk_v4.COUNTS)}
+    return {name: dict(mod.COUNTS) for name, mod in _count_modules().items()}
 
 
 def check_counts(counts, need, what: str) -> None:
@@ -379,12 +421,102 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
     torch.cuda.empty_cache()
 
 
+def int8_weight(g, dev, out_dim, in_dim):
+    """[out, in] int8 codes and per-output-channel kernel_scale of a
+    normal(0, 0.02) kernel, as quantize_encoder_params makes them."""
+    w = torch.randn(out_dim, in_dim, device=dev, generator=g) * 0.02
+    s = w.abs().amax(dim=1)
+    return torch.clamp(torch.round(w / s[:, None] * 127.0), -127, 127).to(torch.int8), s / 127.0
+
+
+def codes_close(q, rq, what: str) -> float:
+    """int8 codes within 1 of the twin's at under 0.1% of positions;
+    returns the share that differ."""
+    dq = (q.int() - rq.int()).abs()
+    frac = float((dq > 0).float().mean())
+    check(int(dq.max()) <= 1 and frac < 1e-3,
+          f"{what}: codes differ from the twin's by up to {int(dq.max())} at {frac:.2e}")
+    return frac
+
+
+def kernels_int8_tower(dev, g, rows):
+    """Rows 8-10 at the corpus-encode batch: [256 x 384, 768] rows, I 3072."""
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.ops import fused_ln as fl
+    from haconvdr_torch.ops import fused_mlp as fm
+
+    R = ENC_BATCH * ENC_LEN
+    x32 = torch.randn(R, DIM, device=dev, generator=g) * 3.0  # embedding sums: float32
+    xb = x32.to(torch.bfloat16)
+    r = torch.randn(R, DIM, device=dev, generator=g).to(torch.bfloat16)
+    lns = torch.randn(DIM, device=dev, generator=g) * 0.5 + 1.0
+    lnb = torch.randn(DIM, device=dev, generator=g) * 0.1
+    eps, bf = 1e-5, torch.bfloat16
+    cases = (  # (kernel, config, kernel call, plain-twin call)
+        ("fused_ln", "bf16 + residual",
+         lambda: fl.fused_residual_ln(xb, r, lns, lnb, eps),
+         lambda: fl.fused_residual_ln_plain(xb, r, lns, lnb, eps)),
+        ("fused_ln_quant", "bf16 + residual",
+         lambda: fl.fused_residual_ln_quant(xb, r, lns, lnb, eps),
+         lambda: fl.fused_residual_ln_quant_plain(xb, r, lns, lnb, eps)),
+        ("fused_ln_quant", "f32, no residual",
+         lambda: fl.fused_residual_ln_quant(x32, None, lns, lnb, eps, bf),
+         lambda: fl.fused_residual_ln_quant_plain(x32, None, lns, lnb, eps, bf)),
+    )
+    for name, config, run, plain in cases:
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        quant = name == "fused_ln_quant"
+        y, ry = (got[0], ref[0]) if quant else (got, ref)
+        d = (y.float() - ry.float()).abs()
+        check(y.dtype == bf and bool((d <= 2.0**-7 * ry.float().abs() + 1e-5).all()),
+              f"{name} {config}: y beyond one bf16 ulp ({float(d.max())})")
+        row = dict(kernel=name, config=config, max_abs_err=float(d.max()),
+                   y_diff_share=float((d > 0).float().mean()),
+                   ms=cuda_ms(run, 5), plain_ms=cuda_ms(plain, 5), shape=[R, DIM])
+        if quant:
+            oq, os_ = quantize_rows(y)
+            check(torch.equal(got[1], oq) and torch.equal(got[2], os_),
+                  f"{name} {config}: yq, ys are not the quantization of the kernel's y")
+            row["code_diff_share"] = codes_close(got[1], ref[1], f"{name} {config}")
+        rows.append(row)
+        del got, ref, y, ry, d
+    # -- the MLP block on an LN output carry
+    x = fl.fused_residual_ln_plain(xb, r, lns, lnb, eps)
+    del x32, xb, r
+    xq, xs = quantize_rows(x)
+    w1, s1 = int8_weight(g, dev, INTER, DIM)
+    w2, s2 = int8_weight(g, dev, DIM, INTER)
+    b1 = torch.randn(INTER, device=dev, generator=g) * 0.02
+    b2 = torch.randn(DIM, device=dev, generator=g) * 0.02
+    args = (x, xq, xs, w1, s1, b1, w2, s2, b2, lns, lnb)
+    run = lambda: fm.fused_mlp_block(*args, eps=eps)  # noqa: E731
+    plain = lambda: fm.fused_mlp_block_plain(*args, eps=eps)  # noqa: E731
+    (y, yq, ys), (ry, rq, _) = run(), plain()
+    torch.cuda.synchronize()
+    gy, wy = y.float(), ry.float()
+    d = (gy - wy).abs()
+    flips = float((d > 2.0**-6 * (1 + wy.abs())).float().mean())
+    check(bool((d <= 2.0**-6 * wy.abs() + 0.07).all()) and flips < 2e-3,
+          f"fused_mlp: beyond the JAX test's bounds (max {float(d.max())}, flips {flips})")
+    oq, os_ = quantize_rows(y)
+    check(torch.equal(yq, oq) and torch.equal(ys, os_),
+          "fused_mlp: yq, ys are not the quantization of the kernel's y")
+    rows.append(dict(kernel="fused_mlp", config="bf16", max_abs_err=float(d.max()),
+                     y_diff_share=float((d > 0).float().mean()), flip_share=flips,
+                     code_diff_share=codes_close(yq, rq, "fused_mlp"),
+                     ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), shape=[R, DIM, INTER]))
+    del args, x, xq, xs, y, yq, ys, ry, rq, gy, wy, d
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(seed: int, dev, passages_f32, codes, scale):
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     rng = np.random.default_rng(seed + 1)
     rows = []
     kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows)
     kernels_v4(dev, g, passages_f32, codes, scale, rows)
+    kernels_int8_tower(dev, g, rows)
     return rows
 
 
@@ -446,7 +578,8 @@ def serve(retriever, batched_reqs, single_reqs):
     return answers + singles, metrics
 
 
-def build_retriever(params, cfg, dev, store, offset2pid, store_dtype="float32"):
+def build_retriever(params, cfg, dev, store, offset2pid, store_dtype="float32",
+                    encoder_int8=False):
     from haconvdr_torch.config import DataConfig, SearchConfig
     from haconvdr_torch.serve import Retriever
     from haconvdr_torch.utils.testing import HashTokenizer
@@ -456,13 +589,13 @@ def build_retriever(params, cfg, dev, store, offset2pid, store_dtype="float32"):
         offset2pid=offset2pid,
         data_cfg=DataConfig(is_train=False, use_PRL=False),  # max_concat_length 512
         search_cfg=SearchConfig(top_k=TOP_K, per_device_test_batch_size=64),
-        device=dev, store_dtype=store_dtype,
+        device=dev, store_dtype=store_dtype, encoder_int8=encoder_int8,
     )
 
 
 def phase_main_path(seed: int, dev, passages_f32, params, cfg, card: str):
     from haconvdr_torch.models.encoder import AnceEncoder
-    from haconvdr_torch.ops import fused_attention, fused_topk
+    from haconvdr_torch.ops import fused_topk
     from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
 
     t0 = time.perf_counter()
@@ -483,9 +616,7 @@ def phase_main_path(seed: int, dev, passages_f32, params, cfg, card: str):
     print("main path e2e:", json.dumps(metrics), f"[{card}]")
 
     # ---- plain-twin reference for the same queries, on the card
-    ref_enc = AnceEncoder.from_jax_params(
-        params, cfg, dev, attention=fused_attention.fused_attention_qkv_plain
-    )
+    ref_enc = AnceEncoder.from_jax_params(params, cfg, dev, plain=True)
     examples = [retriever.build_query(*r) for r in reqs]
     ref_q, _ = encode_batches(ref_enc, batch_iter(examples, 64), "conv_qp", "conv_qp_mask")
     got_q = retriever.embed(examples)  # per_device_test_batch_size 64
@@ -596,6 +727,194 @@ def phase_streaming(dev, passages_f32, scale, queries):
     return counts
 
 
+def count_forwards(encoder):
+    """Wrap encoder.forward; returns a one-element list counting its calls."""
+    n = [0]
+    forward = encoder.forward
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return forward(*a, **kw)
+
+    encoder.forward = counted
+    return n
+
+
+def check_tower_counts(counts, n_fwd: int, layers: int, what: str) -> None:
+    """Per forward of the int8 bf16 tower, 1 + layers LayerNorm-quant
+    launches (embeddings, then each attention residual) and one MLP launch
+    per layer: 13 and 12 at 12 layers."""
+    check(n_fwd > 0, f"{what}: no tower forward ran")
+    check(counts["fused_ln"]["ln_quant"] == (1 + layers) * n_fwd
+          and counts["fused_ln"]["ln"] == 0 and counts["fused_mlp"]["kernel"] == layers * n_fwd,
+          f"{what}: {n_fwd} forwards launched LN-quant {counts['fused_ln']['ln_quant']} "
+          f"and MLP {counts['fused_mlp']['kernel']} times, not {1 + layers} and {layers} each")
+
+
+def tower_agreement(got, ref, what: str):
+    """(max |diff|, min cosine) of two [n, E] embedding sets, held to
+    TOWER_ATOL and TOWER_MIN_COS."""
+    check(np.isfinite(got).all() and got.shape == ref.shape, f"{what}: not finite or misshapen")
+    err = float(np.abs(got - ref).max())
+    cos = float(((got * ref).sum(1) / np.linalg.norm(got, axis=1)
+                 / np.linalg.norm(ref, axis=1)).min())
+    check(err <= TOWER_ATOL and cos >= TOWER_MIN_COS,
+          f"{what}: kernel vs plain-twin tower max |diff| {err}, min cosine {cos}")
+    return err, cos
+
+
+def phase_int8_tower(seed: int, dev, passages_f32, params, cfg, card: str):
+    """Phase 7: Retriever(encoder_int8=True) with a bfloat16 carry over the
+    f32 resident index: 64 concurrent requests and a few single ones."""
+    from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+    from haconvdr_torch.ops.fused_topk import fused_topk_block_plain
+    from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
+
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    t0 = time.perf_counter()
+    retriever = build_retriever(params, cfg, dev, passages_f32, None, encoder_int8=True)
+    check(retriever.encoder.int8, "int8 tower: the encoder holds no int8 kernels")
+    print(f"int8 tower: set up in {time.perf_counter() - t0:.1f} s ({cfg.num_hidden_layers} x "
+          f"{cfg.hidden_size} int8 dense kernels, bf16 carry; index {N_ROWS}x{DIM} f32)")
+    n_fwd = count_forwards(retriever.encoder)
+    index = retriever.index
+    calls = []  # (query embeddings, answer) of every index search
+    search = index.search
+
+    def recording_search(queries, k):
+        out = search(queries, k)
+        calls.append((np.array(queries, copy=True), out))
+        return out
+
+    index.search = recording_search
+    reqs = make_requests(seed + 20, N_BATCHED_INT8 + N_SINGLE)
+    zero_counts()
+    n_fwd[0] = 0
+    got, metrics = serve(retriever, reqs[:N_BATCHED_INT8], reqs[N_BATCHED_INT8:])
+    counts = read_counts()
+    print("int8 tower launch counts:", json.dumps(counts), f"({n_fwd[0]} forwards)")
+    check_counts(counts, [("fused_attention", "kernel"), ("fused_ln", "ln_quant"),
+                          ("fused_mlp", "kernel"), ("topk_v4", "window"),
+                          ("topk_v4", "select_t"), ("topk_v4", "select")], "int8 tower")
+    check_tower_counts(counts, n_fwd[0], cfg.num_hidden_layers, "int8 tower")
+    print("int8 tower e2e:", json.dumps(metrics), f"[{card}]")
+    check(all(a is not None and len(a) == TOP_K for a in got), "int8 tower: short answers")
+    n_q = 0
+    for q, (s, i) in calls:
+        rs, ri = fused_topk_block_plain(torch.from_numpy(q).to(dev), passages_f32, N_ROWS, TOP_K)
+        compare_topk(torch.from_numpy(s), torch.from_numpy(i), rs.cpu(), ri.cpu(),
+                     "int8 tower search")
+        n_q += q.shape[0]
+    # ---- the plain-twin tower on the same batches
+    ref_enc = AnceEncoder.from_jax_params(quantize_encoder_params(params), cfg, dev, plain=True)
+    examples = [retriever.build_query(*r) for r in reqs]
+    ref_q, _ = encode_batches(ref_enc, batch_iter(examples, 64), "conv_qp", "conv_qp_mask")
+    got_q = retriever.embed(examples)  # per_device_test_batch_size 64
+    err, cos = tower_agreement(got_q, ref_q, "int8 tower query embeddings")
+    f32_enc = AnceEncoder.from_jax_params(params, dataclasses.replace(cfg, dtype="float32"), dev)
+    f32_q, _ = encode_batches(f32_enc, batch_iter(examples, 64), "conv_qp", "conv_qp_mask")
+
+    def min_cos(a, b):
+        return float(((a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)).min())
+
+    cos_k, cos_p = min_cos(got_q, f32_q), min_cos(ref_q, f32_q)
+    check(cos_k >= cos_p - TOWER_COS_SLACK,
+          f"int8 tower: min cosine to the f32 float tower {cos_k} (kernels) vs {cos_p} (twins)")
+    print(f"int8 tower: {len(calls)} searches ({n_q} query rows) match the plain search of "
+          f"the same embeddings; embeddings vs the plain-twin tower max |diff| {err:.3g}, "
+          f"min cosine {cos:.7f}; min cosine to the f32 float tower {cos_k:.7f} (kernels), "
+          f"{cos_p:.7f} (twins)")
+    del retriever, index, ref_enc, f32_enc, calls
+    torch.cuda.empty_cache()
+    return counts, metrics, dict(max_abs_err=err, min_cos=cos, f32_cos=cos_k, f32_cos_plain=cos_p)
+
+
+def phase_corpus_encode(seed: int, dev, params, cfg, card: str):
+    """Phase 8: encode_corpus through the int8 bf16 tower into int8 blocks."""
+    import tempfile
+
+    from haconvdr_torch.index.build import (
+        EmbeddingBlockStore,
+        TokenizedCorpus,
+        TokenizedCorpusWriter,
+        encode_corpus,
+    )
+    from haconvdr_torch.index.quantize import quantize_int8
+    from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    rng = np.random.default_rng(seed + 3)
+    lengths = rng.integers(32, ENC_LEN + 1, N_CORPUS).astype(np.int32)
+    ids = rng.integers(3, cfg.vocab_size, (N_CORPUS, ENC_LEN)).astype(np.int32)
+    ids[:, 0] = 0  # <s>
+    ids[np.arange(N_CORPUS), lengths - 1] = 2  # </s>
+    ids[np.arange(ENC_LEN)[None, :] >= lengths[:, None]] = 0  # the writer's padding
+    qparams = quantize_encoder_params(params)
+    enc = AnceEncoder.from_jax_params(qparams, cfg, dev)
+    rows_dev = []
+    n_fwd = [0]
+
+    def encode_fn(ids_t, mask_t):
+        out = enc(ids_t, mask_t)
+        rows_dev.append(out.clone())
+        n_fwd[0] += 1
+        return out
+
+    kw = dict(batch_size=ENC_BATCH, per_block_passage_num=ENC_BLOCK)
+    with tempfile.TemporaryDirectory() as tmp:
+        w = TokenizedCorpusWriter(f"{tmp}/corpus", max_seq_length=ENC_LEN)
+        w.add_batch(np.arange(N_CORPUS, dtype=np.int64) * 5 + 3, ids, lengths)
+        w.finalize()
+        corpus = TokenizedCorpus(f"{tmp}/corpus")
+        with torch.inference_mode():  # warm-up at the batch shape
+            offs, b_ids, b_mask = next(corpus.batches(ENC_BATCH))
+            enc(torch.from_numpy(b_ids).to(dev), torch.from_numpy(b_mask).to(dev))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        store = encode_corpus(corpus, encode_fn, f"{tmp}/int8", store_dtype="int8",
+                              device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        print("corpus encode launch counts:", json.dumps(counts), f"({n_fwd[0]} forwards)")
+        check_counts(counts, [("fused_attention", "kernel"), ("fused_ln", "ln_quant"),
+                              ("fused_mlp", "kernel")], "corpus encode")
+        check(n_fwd[0] == N_CORPUS // ENC_BATCH, f"corpus encode: {n_fwd[0]} forwards")
+        check_tower_counts(counts, n_fwd[0], cfg.num_hidden_layers, "corpus encode")
+        rows = torch.cat(rows_dev).cpu().numpy()
+        check(rows.shape == (N_CORPUS, cfg.embedding_dim) and np.isfinite(rows).all(),
+              "corpus encode: rows not finite or misshapen")
+        n_blocks = N_CORPUS // ENC_BLOCK
+        check(store.num_blocks() == n_blocks, f"corpus encode: {store.num_blocks()} blocks")
+        for b in range(n_blocks):
+            codes, offsets = store.read_block(b)
+            lo, hi = b * ENC_BLOCK, (b + 1) * ENC_BLOCK
+            check(np.array_equal(offsets, np.arange(lo, hi)), f"block {b}: offsets out of order")
+            want_codes, want_scale = quantize_int8(rows[lo:hi])
+            check(np.array_equal(codes, want_codes)
+                  and np.array_equal(store.block_scale(b), want_scale),
+                  f"block {b}: codes are not quantize_int8 of the tower's rows")
+        # ---- the plain-twin tower through the same encode_corpus, float32 blocks
+        ref_enc = AnceEncoder.from_jax_params(qparams, cfg, dev, plain=True)
+        ref_store = encode_corpus(corpus, ref_enc, f"{tmp}/ref", **kw)
+        ref_rows = np.concatenate([ref_store.read_block(b)[0] for b in range(n_blocks)])
+        err, cos = tower_agreement(rows, ref_rows, "corpus encode rows")
+        check(isinstance(store, EmbeddingBlockStore), "encode_corpus returned no store")
+    tokens = int(lengths.sum())
+    metrics = dict(passages_per_s=N_CORPUS / secs, tokens_per_s=tokens / secs,
+                   padded_tokens_per_s=N_CORPUS * ENC_LEN / secs, seconds=secs,
+                   max_abs_err=err, min_cos=cos)
+    print(f"corpus encode: {N_CORPUS} passages (lengths 32-{ENC_LEN}, {tokens} tokens) in "
+          f"{secs:.3f} s into {n_blocks} int8 blocks; codes equal quantize_int8 of the "
+          f"tower's rows; rows vs the plain-twin tower max |diff| {err:.3g}, min cosine "
+          f"{cos:.7f}")
+    print("corpus encode e2e:", json.dumps(metrics), f"[{card}]")
+    del enc, ref_enc, rows_dev
+    torch.cuda.empty_cache()
+    return counts, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -636,10 +955,14 @@ def main(argv=None) -> int:
     c5, e2e8, scale8 = phase_int8_path(args.seed, dev, passages, params, cfg, card)
     check(torch.equal(scale8, scale), "int8 path: index scale differs from quantize_int8_torch")
     c6 = phase_streaming(dev, passages, scale, queries)
+    c7, _, _ = phase_int8_tower(args.seed, dev, passages, params, cfg, card)
+    del passages
+    torch.cuda.empty_cache()
+    c8, _ = phase_corpus_encode(args.seed, dev, params, cfg, card)
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def launches(mod, key):
-        return sum(c[mod][key] for c in (c4, c5, c6))
+        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8))
 
     def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]
@@ -660,6 +983,13 @@ def main(argv=None) -> int:
         entry("select_topk_t", v4src, f"{v4py}:612", "topk_v4", "select_t", "cold"),
         entry("rescore_windows", v4src, f"{v4py}:522", "topk_v4", "rescore"),
         entry("select_topk", v4src, f"{v4py}:386", "topk_v4", "select", "cold"),
+        # row 8 lies on no path of either package: phase 3 checks it alone
+        entry("fused_ln", "haconvdr_torch/csrc/fused_ln.cu",
+              "haconvdr_tpu/ops/fused_ln.py:66", "fused_ln", "ln", "bf16 + residual"),
+        entry("fused_ln_quant", "haconvdr_torch/csrc/fused_ln.cu",
+              "haconvdr_tpu/ops/fused_ln.py:91", "fused_ln", "ln_quant", "bf16 + residual"),
+        entry("fused_mlp", "haconvdr_torch/csrc/fused_mlp.cu",
+              "haconvdr_tpu/ops/fused_mlp.py:56", "fused_mlp", "kernel", "bf16"),
     ]}))
     print(f"total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card_line())

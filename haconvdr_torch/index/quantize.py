@@ -12,7 +12,9 @@ the device:
   round half to even;
 * queries: per-query scale ``q_scale = max(max|q|, 1e-30)``, codes
   ``clip(round(q / q_scale * 127), -127, 127)``; a score of int8 codes
-  dequantizes as ``s * (q_scale / 127)``.
+  dequantizes as ``s * (q_scale / 127)``.  ``quantize_rows`` is the same
+  per-row quantization on any [..., D] tensor: the int8 encoder's dynamic
+  per-token activation codes (haconvdr_tpu/models/encoder.py:131-136).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ __all__ = [
     "quantize_int8",
     "quantize_int8_torch",
     "quantize_queries_int8",
+    "quantize_rows",
     "encode_int8_torch",
 ]
 
@@ -62,9 +65,17 @@ def quantize_int8_torch(emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes, scale
 
 
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] float -> ([..., D] int8 codes, [..., 1] float32 scales):
+    ``s = max(max|x|, 1e-30)`` per row, codes ``clip(round(x / s * 127),
+    -127, 127)`` computed in float32 with an IEEE division."""
+    xf = x.to(torch.float32)
+    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-30)
+    q = torch.clamp(torch.round(xf / s * 127.0), -127, 127)
+    return q.to(torch.int8), s
+
+
 def quantize_queries_int8(qf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[Q, D] float queries -> ([Q, D] int8 codes, [Q] float32 q_scale)."""
-    qf = qf.to(torch.float32)
-    q_scale = torch.clamp_min(qf.abs().amax(dim=1), 1e-30)
-    q8 = torch.clamp(torch.round(qf / q_scale[:, None] * 127.0), -127, 127)
-    return q8.to(torch.int8), q_scale
+    q8, q_scale = quantize_rows(qf)
+    return q8, q_scale[:, 0]

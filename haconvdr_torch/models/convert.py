@@ -5,9 +5,11 @@ The JAX package keeps encoder params as a nested dict
 [in, out], LayerNorms have ``scale``/``bias``, ``layers`` is a list (or a
 stacked dict).  The port's ``AnceEncoder`` is an ``nn.Module`` with
 ``nn.Linear`` weights [out, in] and one fused [3H, H] QKV weight per
-layer.  ``params_from_jax`` maps the first onto the second;
-``init_params_numpy`` makes the first with numpy from a seed, so that
-tests and chip_smoke.py hand identical weights to both packages.
+layer.  ``params_from_jax`` maps the first onto the second, int8-quantized
+kernels included (``kernel`` int8 plus ``kernel_scale`` [out]: the
+module's ``Int8Linear`` buffers); ``init_params_numpy`` makes the first
+with numpy from a seed, so that tests and chip_smoke.py hand identical
+weights to both packages.
 """
 
 from __future__ import annotations
@@ -36,18 +38,22 @@ def _unstack(layers) -> list:
 
 
 def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX nested-dict params (numpy-convertible leaves) -> AnceEncoder
-    state dict (float32 CPU tensors).  int8-quantized kernels are not
-    ported yet."""
+    """JAX nested-dict params (numpy-convertible leaves, list or stacked
+    layout) -> AnceEncoder state dict (CPU tensors): float32, and for
+    int8-quantized dense layers int8 ``weight`` [out, in] with float32
+    ``kernel_scale`` [out]."""
     sd: Dict[str, torch.Tensor] = {}
 
-    def dense(prefix, p):
-        if "kernel_scale" in p:
-            raise NotImplementedError(
-                "int8 encoder params (quantize_encoder_params) are not ported yet"
-            )
-        sd[prefix + ".weight"] = _t(np.asarray(p["kernel"]).T)
-        sd[prefix + ".bias"] = _t(p["bias"])
+    def dense(prefix, parts):
+        """One dense from the JAX dicts ``parts`` concatenated along the
+        output axis (the fused q|k|v, with its per-channel scales)."""
+        kernel = np.concatenate([np.asarray(p["kernel"]) for p in parts], axis=1).T
+        if "kernel_scale" in parts[0]:
+            sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(kernel, np.int8))
+            sd[prefix + ".kernel_scale"] = _t(np.concatenate([p["kernel_scale"] for p in parts]))
+        else:
+            sd[prefix + ".weight"] = _t(kernel)
+        sd[prefix + ".bias"] = _t(np.concatenate([np.asarray(p["bias"]) for p in parts]))
 
     def ln(prefix, p):
         sd[prefix + ".weight"] = _t(p["scale"])
@@ -59,25 +65,14 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     ln("embeddings.layer_norm", emb["layer_norm"])
     for li, layer in enumerate(_unstack(params["layers"])):
         a = layer["attention"]
-        if any("kernel_scale" in a[n] for n in ("query", "key", "value")):
-            raise NotImplementedError(
-                "int8 encoder params (quantize_encoder_params) are not ported yet"
-            )
         pre = f"layers.{li}"
-        sd[f"{pre}.attention.qkv.weight"] = _t(
-            np.concatenate(
-                [np.asarray(a[n]["kernel"]) for n in ("query", "key", "value")], axis=1
-            ).T
-        )
-        sd[f"{pre}.attention.qkv.bias"] = _t(
-            np.concatenate([np.asarray(a[n]["bias"]) for n in ("query", "key", "value")])
-        )
-        dense(f"{pre}.attention.output", a["output"])
+        dense(f"{pre}.attention.qkv", [a["query"], a["key"], a["value"]])
+        dense(f"{pre}.attention.output", [a["output"]])
         ln(f"{pre}.attention.output_layer_norm", a["output_layer_norm"])
-        dense(f"{pre}.intermediate", layer["intermediate"])
-        dense(f"{pre}.output", layer["output"])
+        dense(f"{pre}.intermediate", [layer["intermediate"]])
+        dense(f"{pre}.output", [layer["output"]])
         ln(f"{pre}.output_layer_norm", layer["output_layer_norm"])
-    dense("embedding_head", params["embedding_head"])
+    dense("embedding_head", [params["embedding_head"]])
     ln("norm", params["norm"])
     return sd
 

@@ -30,6 +30,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
     # qkv, mask(int32), out, B, L, H, num_heads, dtype(0 f32 / 1 bf16), stream
@@ -49,6 +50,12 @@ SIGNATURES = {
     # scores, ids(int32 or NULL), floor(float [Q] or NULL), Q, C, stride_q,
     # stride_c, k, out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
     "hc_select_topk": [_P, _P, _P, _I, _I, _L, _L, _I, _P, _P, _P],
+    # x, residual (or NULL), scale, bias, eps, rows, H, x dtype, out dtype
+    # (0 f32 / 1 bf16), y, yq (int8 or NULL), ys (float [rows] or NULL), stream
+    "hc_fused_ln": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P],
+    # x, xq, xs, w1, s1, b1, w2, s2, b2, ln scale, ln bias, eps, rows, H, I,
+    # y, yq, ys, stream
+    "hc_fused_mlp": [_P] * 11 + [_F, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

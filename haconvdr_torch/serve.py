@@ -25,7 +25,7 @@ from haconvdr_tpu.data.sequence import ConcatBuilder, encode_no_trunc
 from haconvdr_tpu.index.store import EmbeddingBlockStore
 from haconvdr_torch.config import DataConfig, ModelConfig, SearchConfig
 from haconvdr_torch.device import DeviceLike, resolve_device
-from haconvdr_torch.models.encoder import AnceEncoder
+from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
 from haconvdr_torch.ops.topk import BlockSearcher
 from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
 from haconvdr_torch.parallel.sharded_search import ShardedIndex
@@ -43,6 +43,9 @@ class Retriever:
     float disk store stays the exact rescore stage, serve.py:109-113);
     ``resident=False`` streams its blocks per search.
     ``params`` are the JAX package's nested-dict params (numpy leaves).
+    ``encoder_int8=True`` quantizes them (``quantize_encoder_params``) and
+    serves the int8 tower: with ``model_cfg.dtype="bfloat16"`` it runs the
+    fused LayerNorm-quant and MLP kernels.
     """
 
     def __init__(
@@ -63,7 +66,9 @@ class Retriever:
         if ivf:
             raise NotImplementedError("IVF serving (index/ivf.py) is not ported yet")
         if encoder_int8:
-            raise NotImplementedError("the int8 query tower is not ported yet")
+            # int8 query tower (haconvdr_tpu/serve.py:92-104); the port's
+            # quantize_encoder_params leaves int8 params as they are
+            params = quantize_encoder_params(params)
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.model_cfg = model_cfg

@@ -264,3 +264,124 @@ def test_topk_block_v4_budget_overflow_falls_back_to_v3(dev, gen):
     assert ft.COUNTS["kernel"] == kernel_before + 1
     rs, ri = ft.fused_topk_block_plain(q, p, 40_000, 100)
     assert torch.equal(i, ri) and bool(((s - rs).abs() <= 1e-4 * rs.abs()).all())
+
+
+# --- the int8 tower kernels (ops/fused_ln.py, ops/fused_mlp.py) ------------
+#
+# Tolerances: y within one bf16 ulp of the twin (2**-7 |ref|, plus 1e-5 for
+# values near 0; float32 out within 1e-5 (1 + |ref|)); the MLP within the
+# JAX package's own bounds (tests/test_fused_mlp.py: rtol 2**-6, atol 0.07,
+# flips past 2**-6 (1 + |ref|) below 2e-3).  yq and ys equal the plain
+# quantization of the kernel's own y exactly; against the twin's codes they
+# differ by at most 1, at under 0.1% of positions.
+
+def _codes_close(got_q, ref_q):
+    dq = (got_q.int() - ref_q.int()).abs()
+    assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize(
+    "x_dtype, res, quant, H, out_dtype",
+    [
+        (torch.bfloat16, True, True, 768, torch.bfloat16),   # attention residual
+        (torch.float32, False, True, 768, torch.bfloat16),   # embeddings
+        (torch.bfloat16, True, False, 768, torch.bfloat16),  # row 8
+        (torch.bfloat16, False, False, 256, torch.float32),
+        (torch.float32, True, True, 96, torch.float32),
+    ],
+)
+def test_fused_ln_kernel_matches_plain(dev, gen, x_dtype, res, quant, H, out_dtype):
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.ops import fused_ln as fl
+
+    rows = 1003
+    x = (torch.randn(rows, H, device=dev, generator=gen) * 3).to(x_dtype)
+    r = torch.randn(rows, H, device=dev, generator=gen).to(x_dtype) if res else None
+    scale = torch.randn(H, device=dev, generator=gen) * 0.5 + 1.0
+    bias = torch.randn(H, device=dev, generator=gen) * 0.1
+    key = "ln_quant" if quant else "ln"
+    before = dict(fl.COUNTS)
+    if quant:
+        y, yq, ys = fl.fused_residual_ln_quant(x, r, scale, bias, 1e-5, out_dtype)
+    else:
+        y = fl.fused_residual_ln(x, r, scale, bias, 1e-5, out_dtype)
+    torch.cuda.synchronize()
+    assert fl.COUNTS[key] == before[key] + 1 and fl.COUNTS["plain"] == before["plain"]
+    if quant:
+        ry, rq, rs = fl.fused_residual_ln_quant_plain(x, r, scale, bias, 1e-5, out_dtype)
+    else:
+        ry = fl.fused_residual_ln_plain(x, r, scale, bias, 1e-5, out_dtype)
+    assert y.dtype == out_dtype and y.shape == x.shape
+    d = (y.float() - ry.float()).abs()
+    if out_dtype == torch.bfloat16:
+        assert bool((d <= 2.0**-7 * ry.float().abs() + 1e-5).all())
+    else:
+        assert bool((d <= 1e-5 * (1 + ry.abs())).all())
+    if quant:
+        oq, os_ = quantize_rows(y)
+        assert torch.equal(yq, oq) and torch.equal(ys, os_)
+        _codes_close(yq, rq)
+
+
+def _quant_weight(gen, dev, out_dim, in_dim):
+    """[out, in] int8 codes and per-out-channel kernel_scale, as
+    quantize_encoder_params makes them."""
+    w = torch.randn(out_dim, in_dim, device=dev, generator=gen) * 0.05
+    s = w.abs().amax(dim=1)
+    return torch.clamp(torch.round(w / s[:, None] * 127.0), -127, 127).to(torch.int8), s / 127.0
+
+
+@pytest.mark.parametrize("rows, H, I", [(1003, 768, 3072), (37, 256, 512)])
+def test_fused_mlp_kernel_matches_plain(dev, gen, rows, H, I):
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.ops import fused_mlp as fm
+
+    x = (torch.randn(rows, H, device=dev, generator=gen) * 2).to(torch.bfloat16)
+    xq, xs = quantize_rows(x)
+    w1, s1 = _quant_weight(gen, dev, I, H)
+    w2, s2 = _quant_weight(gen, dev, H, I)
+    b1 = torch.linspace(-0.1, 0.1, I, device=dev)
+    b2 = torch.linspace(-0.1, 0.1, H, device=dev)
+    lns = torch.randn(H, device=dev, generator=gen) * 0.3 + 1.0
+    lnb = torch.randn(H, device=dev, generator=gen) * 0.1
+    args = (x, xq, xs, w1, s1, b1, w2, s2, b2, lns, lnb)
+    before = dict(fm.COUNTS)
+    y, yq, ys = fm.fused_mlp_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert fm.COUNTS["kernel"] == before["kernel"] + 1 and fm.COUNTS["plain"] == before["plain"]
+    ry, rq, _ = fm.fused_mlp_block_plain(*args, eps=1e-12)
+    g, w = y.float(), ry.float()
+    d = (g - w).abs()
+    assert bool((d <= 2.0**-6 * w.abs() + 0.07).all())
+    assert float((d > 2.0**-6 * (1 + w.abs())).float().mean()) < 2e-3
+    oq, os_ = quantize_rows(y)
+    assert torch.equal(yq, oq) and torch.equal(ys, os_)
+    _codes_close(yq, rq)
+
+
+@pytest.mark.parametrize("M", [5, 40])
+def test_int8_dense_is_exact_on_the_card(dev, gen, M):
+    from haconvdr_torch.ops.fused_mlp import _int_mm
+
+    a = torch.randint(-127, 128, (M, 768), device=dev, generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (2304, 768), device=dev, generator=gen, dtype=torch.int8)
+    got = _int_mm(a, w)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (M, 2304)
+    assert torch.equal(got.cpu().long(), a.cpu().long() @ w.cpu().long().T)
+
+
+def test_int8_tower_wrappers_reject_unsupported(dev):
+    from haconvdr_torch.ops.fused_ln import fused_residual_ln_quant
+    from haconvdr_torch.ops.fused_mlp import fused_mlp_block
+
+    v = torch.ones(48, device=dev)
+    with pytest.raises(ValueError):  # H % 32
+        fused_residual_ln_quant(torch.zeros(4, 48, device=dev), None, v, v)
+    H, I = 96, 256  # H % 64
+    x = torch.zeros(4, H, device=dev, dtype=torch.bfloat16)
+    q = torch.zeros(4, H, device=dev, dtype=torch.int8)
+    w1 = torch.zeros(I, H, device=dev, dtype=torch.int8)
+    w2 = torch.zeros(H, I, device=dev, dtype=torch.int8)
+    vi, vh = torch.ones(I, device=dev), torch.ones(H, device=dev)
+    with pytest.raises(ValueError):
+        fused_mlp_block(x, q, vh[:4, None], w1, vi, vi, w2, vh, vh, vh, vh)

@@ -1,8 +1,10 @@
 """ANCE query tower of the PyTorch port (haconvdr_torch/models) against the
 JAX reference encoder (haconvdr_tpu/models/encoder.py:encode) with the
 same numpy weights.  float32 within atol 1e-5; bfloat16 (tanh GELU, bf16
-carry) within 0.05 absolute on the unit-scale LayerNorm output: the two
-frameworks round bfloat16 at different places."""
+carry) within 3e-3 absolute on the unit-scale LayerNorm output (measured
+2.4e-3; XLA:CPU keeps some bfloat16 intermediates in float32).  One bf16
+dense equals JAX's within 1e-5 of its largest output: both accumulate the
+exact products of the bf16-rounded operands in float32 and round once."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ import torch
 from haconvdr_tpu.config import ModelConfig
 from haconvdr_tpu.models import encoder as jenc
 from haconvdr_torch.models.convert import init_params_numpy, params_from_jax
+from haconvdr_torch.models import encoder as tenc
 from haconvdr_torch.models.encoder import AnceEncoder, roberta_position_ids
 
 
@@ -54,7 +57,33 @@ def test_encode_matches_jax_bf16(rng):
     with torch.inference_mode():
         out = enc(torch.from_numpy(ids), torch.from_numpy(mask))
     assert out.dtype == torch.float32
-    np.testing.assert_allclose(out.numpy(), ref, atol=0.05, rtol=0)
+    np.testing.assert_allclose(out.numpy(), ref, atol=3e-3, rtol=0)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16], ids=["f32_out", "bf16_out"])
+def test_dense_bf16_matches_jax(out_dtype):
+    """float32 accumulation of the bf16-rounded operands, the bias added in
+    float32, one rounding to out_dtype (haconvdr_tpu/models/encoder.py:141-145)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((64, 256), dtype=np.float32) * 2.0
+    k = rng.standard_normal((256, 128), dtype=np.float32) * 0.1
+    b = rng.standard_normal(128, dtype=np.float32)
+    jdt = None if out_dtype is None else jnp.bfloat16
+    ref = np.asarray(
+        jenc._dense(jnp.asarray(x), {"kernel": jnp.asarray(k), "bias": jnp.asarray(b)},
+                    jnp.bfloat16, out_dtype=jdt),
+        np.float32,
+    )
+    lin = torch.nn.Linear(256, 128)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(k.T.copy()))
+        lin.bias.copy_(torch.from_numpy(b))
+        out = tenc._dense(torch.from_numpy(x), lin, torch.bfloat16, out_dtype=out_dtype)
+    assert out.dtype == (out_dtype or torch.float32)
+    bound = 1e-5 * np.abs(ref).max()
+    if out_dtype is not None:  # plus half a bf16 ulp where a rounding flips
+        bound += 2.0**-9 * np.abs(ref).max()
+    assert np.abs(out.float().numpy() - ref).max() <= bound
 
 
 def test_params_from_jax_layout():

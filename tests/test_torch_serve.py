@@ -7,6 +7,7 @@ the two-stage rescore path agrees with JAX.  int8 residency, super-block
 streaming and bfloat16 streaming are held against JAX the same way (the
 int8 scoring-model difference is stated in its test)."""
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -222,9 +223,47 @@ def test_batching_backpressure_and_k_bound(setup):
 
 
 def test_unported_modes_raise(setup):
-    for kw in ({"ivf": True}, {"encoder_int8": True}):
+    for kw in ({"ivf": True},):
         with pytest.raises(NotImplementedError):
             Retriever(setup["tok"], setup["params"], setup["cfg"], setup["store"], **kw)
+
+
+@pytest.mark.parametrize("dtype, atol", [("float32", 2e-3), ("bfloat16", 0.03)])
+def test_int8_tower_retriever_matches_jax(setup, dtype, atol):
+    """encoder_int8=True in both packages (a bfloat16 carry routes the
+    port through the fused LayerNorm-quant and MLP twins).  The query
+    embeddings agree within 2e-3 (float32 carry, as in
+    test_torch_encoder_int8.py) or 0.03 (bfloat16 carry: measured 2.0e-2,
+    cosine 0.99997; the float bfloat16 tower differs from JAX's by 1.9e-2
+    on these queries, so the gap is the carry's rounding, not int8's).
+    A passage score then moves by at most
+    delta = max |(q_port - q_jax) . p| over the store, so every rank whose
+    score lies more than 2 delta from both neighbours holds the same pid,
+    and the scores agree within delta."""
+    cfg = dataclasses.replace(setup["cfg"], dtype=dtype)
+    kw = dict(
+        offset2pid=setup["offset2pid"], data_cfg=setup["data_cfg"],
+        search_cfg=SearchConfig(top_k=8), encoder_int8=True,
+    )
+    jr = JaxRetriever(setup["tok"], setup["params"], cfg, setup["store"], **kw)
+    tr = Retriever(setup["tok"], setup["params"], cfg, setup["store"], **kw)
+    assert tr.encoder.int8
+    exs = [tr.build_query(q, h) for q, h in QUERIES]
+    qt, qj = tr.embed(exs), jr.embed(exs)
+    np.testing.assert_allclose(qt, qj, atol=atol, rtol=0)
+    emb = np.concatenate([setup["store"].read_block(b)[0] for b in range(setup["store"].num_blocks())])
+    delta = np.abs((qt - qj) @ emb.T).max(axis=1) + 1e-5
+    separated = 0
+    for n, (question, history) in enumerate(QUERIES):
+        ours, ref = tr.retrieve(question, history), jr.retrieve(question, history)
+        np.testing.assert_allclose([s for _, s in ours], [s for _, s in ref], atol=delta[n], rtol=0)
+        full = np.sort(qj[n] @ emb.T)[::-1]
+        for j in range(len(ref)):
+            above = full[j - 1] - full[j] if j else np.inf
+            if min(above, full[j] - full[j + 1]) > 2 * delta[n]:
+                assert ours[j][0] == ref[j][0]
+                separated += 1
+    assert separated >= len(QUERIES) * 4  # most ranks are separated
 
 
 def test_retriever_over_a_device_tensor(setup):
