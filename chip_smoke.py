@@ -20,8 +20,16 @@ order; any failure raises and the script exits non-zero:
    equal the cold answer; the whole v4 search in f32, bf16 and int8, and a
    forced fallback to v3 (planted duplicate rows); the int8 tower's kernels
    at the corpus-encode batch (256 x 384 = 98,304 rows, H 768, I 3072):
-   LayerNorm with a bf16 residual, LayerNorm-quant with a bf16 residual
-   and with a float32 input and none, and the int8 MLP block;
+   LayerNorm with a bf16 residual and without one, LayerNorm-quant with a
+   bf16 residual and with a float32 input and none, and the int8 MLP
+   block; the trained
+   tower's flash-attention forward and backward at B 8, L 512, 12 heads,
+   float32 and bfloat16, dropout 0 and 0.1, and at phase 9's shape (B 64,
+   query lengths 64-512, bfloat16, dropout 0.1; the same seed words to
+   both);
+   each row also carries its bound (bytes over 3.35 TB/s or operations
+   over the peak of the type the work could run in) and, where one
+   PyTorch call computes the same function, that call's time;
 4. main path: a full-width ANCE RoBERTa-base query tower (random weights
    from the seed) over a resident 2,500,000 x 768 float32 index made on
    the card, searched by the v4 kernels; a BatchingRetriever(max_batch=64)
@@ -45,8 +53,26 @@ order; any failure raises and the script exits non-zero:
    2,048 passages (lengths 32-384, seed), batch 256, blocks of 1,024, into
    int8 blocks.  Offsets come out in corpus order, each block's codes equal
    quantize_int8 of the tower's float rows, and the rows agree with the
-   plain-twin tower run through the same encode_corpus.
-Each of phases 4-8 zeroes every launch count just before it and reads
+   plain-twin tower run through the same encode_corpus;
+9. training at the reference geometry (B 64, query length 512, passage
+   length 384, ModelConfig(dtype="bfloat16", remat="mlp"), dropout 0.1,
+   TrainConfig(is_pseudo_prepos=True, is_prepos_neg=True,
+   frozen_dtype="int8"): four int8 frozen towers a step) on seeded random
+   weights and batches: (a) one micro step with the trained tower through
+   the kernels and one through its plain twins, from the same state,
+   batch and generator seed (at B 16; the int8 frozen towers run their
+   kernels on both sides), loss and gradients compared, and a third step
+   through the kernels with other dropout draws, which must land outside
+   the gradient bound; (b) TRAIN_MICRO micro steps of make_train_step
+   with accumulation_steps 2 on one repeated batch: the loss falls, the
+   frozen tower is unchanged, each micro step launches flash fwd and bwd
+   12 times, LayerNorm-quant 13 x 4, the MLP kernel 12 x 4 and inference
+   attention 12 x 4, and no plain twin; it prints examples/s (all
+   examples of the micro steps after TRAIN_WARM over their wall time, the
+   median step's rate beside it), peak memory, the device idle share of
+   one profiled accumulation window (1 - kernel time / that window's
+   wall time) and the top device operations.
+Each of phases 4-9 zeroes every launch count just before it and reads
 them just after: each kernel of that path must have launched, and no
 plain twin may have run.
 
@@ -68,6 +94,9 @@ Tolerances (kernel vs plain twin on the same inputs):
   LayerNorm (-quant) y within one bf16 ulp (2**-7 |ref| + 1e-5); yq, ys
                      exactly the quantization of the kernel's own y; codes
                      within 1 of the twin's at under 0.1% of positions
+  flash attention    float32 out and dqkv max |diff| <= 1e-5; bfloat16
+                     within one bf16 ulp of the tensor's largest magnitude
+                     (both round P, dS and the outputs to bf16)
   int8 MLP block     the JAX package's bounds for its kernel
                      (tests/test_fused_mlp.py): |diff| <= 2**-6 |ref| +
                      0.07, under 0.2% past 2**-6 (1 + |ref|); yq, ys and
@@ -84,6 +113,14 @@ Tolerances (kernel vs plain twin on the same inputs):
                      kernel tower's minimum cosine to the f32 float tower
                      must also be within TOWER_COS_SLACK = 2e-4 of the
                      plain-twin tower's (phase 7)
+  train micro step   the trained tower through the kernels vs through
+                     its plain twins, the same int8 frozen towers (phase
+                     9a): loss within TRAIN_LOSS_RTOL = 1% and the whole
+                     gradient vector within TRAIN_GRAD_REL = 5% of the
+                     twin's norm: the two differ only where a bf16 ulp of
+                     attention output or dqkv differs, which the bf16
+                     GEMMs of 12 layers spread; a step with other dropout
+                     draws must sit beyond TRAIN_GRAD_REL
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last line is {"ok": true, "device": {...}}.
@@ -101,6 +138,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 N_ROWS = 2_500_000
 N_PAD = 1_000  # rows past n_valid in phase 3
@@ -119,7 +157,20 @@ N_CORPUS, ENC_BLOCK = 2_048, 1_024  # phase 8: 8 batches, 2 blocks
 # the int8 bf16 tower against its plain-twin tower, on unit-scale outputs;
 # the int8 bf16 tower's distance to the f32 float tower, against the twin's
 TOWER_ATOL, TOWER_MIN_COS, TOWER_COS_SLACK = 0.25, 0.999, 2e-4
+# phase 9: the JAX bench's training geometry (bench.py:162-236)
+TRAIN_B, TRAIN_QLEN, TRAIN_PLEN = 64, 512, 384
+TRAIN_B_CHECK = 16  # phase 9a
+TRAIN_MICRO, TRAIN_ACC, TRAIN_WARM = 8, 2, 2
+# random-init towers score in the tens (unit-variance 768-wide embeddings)
+# and Adam's first steps move every weight by ~lr: 2e-4 overshot (the
+# loss rose 3x after the first update), so the smoke steps gently
+TRAIN_LR = 2e-6
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 0.01, 0.05
+FLASH_MAIN = f"bfloat16, drop 0.1, B {TRAIN_B}"  # rows 11-12 at phase 9's shape
 WORDS = [f"w{i}" for i in range(5000)]
+# the card's peaks (NVIDIA H100 SXM data sheet, dense) and memory rate
+PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -147,6 +198,43 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, peak: str):
+    """(least ms, "operations" or "bytes"): the larger of the operations
+    over the peak of their type and the bytes over the memory rate."""
+    t_ops = flops / PEAK[peak] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_row(flops: float, nbytes: float, peak: str) -> dict:
+    ms, by = bound(flops, nbytes, peak)
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def attention_flops(lengths, L: int, H: int, matmuls: int) -> float:
+    """2 x L x (valid keys) x H per batch row and L x L-sized product."""
+    return 2.0 * matmuls * L * float(np.sum(lengths)) * H
+
+
+PEAK_OF = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}
+
+
+def search_bound(p, Q: int, n_valid: int, name: str, out_bytes: int) -> dict:
+    """A score pass over the passages: 2 Q n_valid D operations in the
+    passages' type, each passage row read once."""
+    return bound_row(2.0 * Q * n_valid * DIM, p.numel() * p.element_size() + Q * DIM * 4
+                     + out_bytes, PEAK_OF[name])
+
+
+def sdpa_operands(qkv, mask, heads: int = 12):
+    """q, k, v [B, heads, L, d] views of the fused projection and the
+    additive padding bias, for F.scaled_dot_product_attention."""
+    B, L, H3 = qkv.shape
+    q, k, v = qkv.view(B, L, 3, heads, H3 // 3 // heads).permute(2, 0, 3, 1, 4)
+    bias = ((1.0 - mask.to(qkv.dtype)) * -1e9)[:, None, None, :]
+    return q, k, v, bias
 
 
 def separated(scores: torch.Tensor) -> torch.Tensor:
@@ -178,10 +266,17 @@ def compare_exact(s, i, rs, ri, what: str) -> float:
 
 
 def _count_modules():
-    from haconvdr_torch.ops import fused_attention, fused_ln, fused_mlp, fused_topk, topk_v4
+    from haconvdr_torch.ops import (
+        flash_attention,
+        fused_attention,
+        fused_ln,
+        fused_mlp,
+        fused_topk,
+        topk_v4,
+    )
 
     return {"fused_attention": fused_attention, "fused_topk": fused_topk, "topk_v4": topk_v4,
-            "fused_ln": fused_ln, "fused_mlp": fused_mlp}
+            "fused_ln": fused_ln, "fused_mlp": fused_mlp, "flash_attention": flash_attention}
 
 
 def zero_counts():
@@ -199,7 +294,8 @@ def check_counts(counts, need, what: str) -> None:
     for mod, key in need:
         check(counts[mod][key] > 0, f"{what}: {mod} {key} never launched")
     for mod, c in counts.items():
-        check(c["plain"] == 0, f"{what}: a plain twin of {mod} ran")
+        for key, n in c.items():
+            check(not key.startswith("plain") or n == 0, f"{what}: a plain twin of {mod} ran")
 
 
 def int8_plain(q_folded, codes, n_valid):
@@ -245,9 +341,15 @@ def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
             )
         ms = cuda_ms(lambda: fused_attention_qkv(qkv, mask, 12), reps=10)
         pms = cuda_ms(lambda: fused_attention_qkv_plain(qkv, mask, 12), reps=10)
+        q, k, v, bias = sdpa_operands(qkv, mask)
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps=10)
+        isz = qkv.element_size()
         rows.append(dict(kernel="fused_attention", config=name, max_abs_err=float(diff.max()),
-                         ms=ms, plain_ms=pms, shape=[ATTN_B, ATTN_L, 3 * DIM]))
-        del qkv, out, ref
+                         ms=ms, plain_ms=pms, library_ms=lms, shape=[ATTN_B, ATTN_L, 3 * DIM],
+                         **bound_row(attention_flops(lengths, ATTN_L, DIM, 2),
+                                     ATTN_B * ATTN_L * (4 * DIM * isz + 4),
+                                     "f32" if dt == torch.float32 else "bf16")))
+        del qkv, out, ref, q, k, v, bias
     # -- v3 top-k: f32, bf16, and the int8 mode (folded float queries)
     q = torch.randn(Q_KERNEL, DIM, device=dev, generator=g)
     extra = torch.randn(100_000, DIM, device=dev, generator=g)
@@ -275,7 +377,8 @@ def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
                 lambda: fused_topk_block_plain(qq, p, n_valid, TOP_K, init_scores=init), 3
             )
             rows.append(dict(kernel="fused_topk", config=tag[6:], max_abs_err=err, ms=ms,
-                             plain_ms=pms, shape=[Q_KERNEL, N_ROWS, DIM, TOP_K]))
+                             plain_ms=pms, library_ms=None, shape=[Q_KERNEL, N_ROWS, DIM, TOP_K],
+                             **search_bound(p, Q_KERNEL, n_valid, name, Q_KERNEL * TOP_K * 8)))
         del p
     del extra
     torch.cuda.empty_cache()
@@ -324,7 +427,8 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
         rows.append(dict(kernel="window_top2", config=name, max_abs_err=err,
                          ms=cuda_ms(lambda: v4.window_top2(q, p, n_valid, sw), 3),
                          plain_ms=cuda_ms(lambda: v4.window_top2_plain(q, p, n_valid, sw), 3),
-                         shape=[Q_KERNEL, N_ROWS, DIM, sw]))
+                         library_ms=None, shape=[Q_KERNEL, N_ROWS, DIM, sw],
+                         **search_bound(p, Q_KERNEL, n_valid, name, 3 * v1.numel() * 4)))
         # -- rescore: budget 8 random windows, bit for bit against the window kernel
         W = v1.shape[0]
         win = torch.randint(0, W, (Q_KERNEL, 8), device=dev, generator=g, dtype=torch.int32)
@@ -346,11 +450,17 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
               f"rescore {name}: second max != window v2")
         check(bool(torch.isneginf(resc.view(Q_KERNEL, 8, sw)[:, -1]).all()),
               f"rescore {name}: empty slot not -inf")
+        # the distinct windows this run's queries name, each read once
+        n_win = int(torch.unique(win[win >= 0]).numel())
         rows.append(dict(kernel="rescore_windows", config=name, max_abs_err=float(d.max()),
                          ms=cuda_ms(lambda: v4.rescore_windows(p, q, win, sw, n_valid), 3),
                          plain_ms=cuda_ms(
                              lambda: v4.rescore_windows_plain(p, q, win, sw, n_valid), 3),
-                         shape=[Q_KERNEL, 8, sw, DIM]))
+                         library_ms=None, shape=[Q_KERNEL, 8, sw, DIM],
+                         **bound_row(2.0 * Q_KERNEL * 7 * sw * DIM,
+                                     n_win * sw * DIM * p.element_size() + q.numel()
+                                     * q.element_size() + win.numel() * 4 + resc.numel() * 4,
+                                     PEAK_OF[name])))
         if name == "float32":  # select panels from real window scores
             panels = {
                 # the path's pool [W + 8 sw, Q]: 93 segments of 128 rows,
@@ -400,21 +510,25 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
         ids = torch.randperm(panel.shape[0], device=dev, generator=g).to(torch.int32)
         ids_t = ids[:, None].expand(-1, Q_KERNEL).contiguous()
         rowmajor, rowmajor_ids = panel.T.contiguous(), ids_t.T.contiguous()
-        cases = (  # (name, kernel(floor), plain twin(floor))
+        cases = (  # (name, kernel(floor), plain twin(floor), library call, id bytes)
             ("select_topk_t", lambda f: v4.select_topk_t(panel, k, floor=f),
-             lambda f: v4.select_plain(panel.T, k, f)),
+             lambda f: v4.select_plain(panel.T, k, f), lambda: torch.topk(panel, k, dim=0), 0),
             ("select_topk", lambda f: v4.select_topk(rowmajor, k, floor=f, ids=rowmajor_ids),
-             lambda f: v4.select_plain(rowmajor, k, f, rowmajor_ids)),
+             lambda f: v4.select_plain(rowmajor, k, f, rowmajor_ids),
+             lambda: torch.topk(rowmajor, k, dim=1), rowmajor_ids.numel() * 4),
         )
-        for kname, run, plain in cases:
+        for kname, run, plain, library, id_bytes in cases:
             got, ref, ref_cold = run(fl), plain(fl), plain(None)
             torch.cuda.synchronize()
             for want, what in ((ref, "the plain twin"), (ref_cold, "the cold plain twin")):
                 check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                       f"{kname} {temp}: differs from {what}")
+            # a selection reads each score once: bytes-bound
             row = dict(kernel=kname, config=temp, max_abs_err=0.0,
                        ms=cuda_ms(lambda: run(fl), 5), plain_ms=cuda_ms(lambda: plain(fl), 5),
-                       shape=list(panel.shape) + [k])
+                       library_ms=cuda_ms(library, 5), shape=list(panel.shape) + [k],
+                       **bound_row(panel.numel(), panel.numel() * 4 + id_bytes
+                                   + Q_KERNEL * k * 8, "f32"))
             if temp == "warm":  # the same panel without the floor
                 row["cold_ms"] = cuda_ms(lambda: run(None), 5)
             rows.append(row)
@@ -452,18 +566,25 @@ def kernels_int8_tower(dev, g, rows):
     lns = torch.randn(DIM, device=dev, generator=g) * 0.5 + 1.0
     lnb = torch.randn(DIM, device=dev, generator=g) * 0.1
     eps, bf = 1e-5, torch.bfloat16
-    cases = (  # (kernel, config, kernel call, plain-twin call)
+    lns_b, lnb_b = lns.to(bf), lnb.to(bf)
+    ln_library = lambda: F.layer_norm(xb, (DIM,), lns_b, lnb_b, eps)  # noqa: E731
+    cases = (  # (kernel, config, kernel call, plain-twin call, library call, bytes)
         ("fused_ln", "bf16 + residual",
          lambda: fl.fused_residual_ln(xb, r, lns, lnb, eps),
-         lambda: fl.fused_residual_ln_plain(xb, r, lns, lnb, eps)),
+         lambda: fl.fused_residual_ln_plain(xb, r, lns, lnb, eps), None, R * DIM * 6),
+        ("fused_ln", "bf16, no residual",
+         lambda: fl.fused_residual_ln(xb, None, lns, lnb, eps),
+         lambda: fl.fused_residual_ln_plain(xb, None, lns, lnb, eps), ln_library, R * DIM * 4),
         ("fused_ln_quant", "bf16 + residual",
          lambda: fl.fused_residual_ln_quant(xb, r, lns, lnb, eps),
-         lambda: fl.fused_residual_ln_quant_plain(xb, r, lns, lnb, eps)),
+         lambda: fl.fused_residual_ln_quant_plain(xb, r, lns, lnb, eps), None,
+         R * DIM * 7 + R * 4),
         ("fused_ln_quant", "f32, no residual",
          lambda: fl.fused_residual_ln_quant(x32, None, lns, lnb, eps, bf),
-         lambda: fl.fused_residual_ln_quant_plain(x32, None, lns, lnb, eps, bf)),
+         lambda: fl.fused_residual_ln_quant_plain(x32, None, lns, lnb, eps, bf), None,
+         R * DIM * 7 + R * 4),
     )
-    for name, config, run, plain in cases:
+    for name, config, run, plain, library, nbytes in cases:
         got, ref = run(), plain()
         torch.cuda.synchronize()
         quant = name == "fused_ln_quant"
@@ -473,7 +594,9 @@ def kernels_int8_tower(dev, g, rows):
               f"{name} {config}: y beyond one bf16 ulp ({float(d.max())})")
         row = dict(kernel=name, config=config, max_abs_err=float(d.max()),
                    y_diff_share=float((d > 0).float().mean()),
-                   ms=cuda_ms(run, 5), plain_ms=cuda_ms(plain, 5), shape=[R, DIM])
+                   ms=cuda_ms(run, 5), plain_ms=cuda_ms(plain, 5),
+                   library_ms=cuda_ms(library, 5) if library else None, shape=[R, DIM],
+                   **bound_row(10.0 * R * DIM, nbytes + 2 * DIM * 4, "f32"))
         if quant:
             oq, os_ = quantize_rows(y)
             check(torch.equal(got[1], oq) and torch.equal(got[2], os_),
@@ -505,8 +628,93 @@ def kernels_int8_tower(dev, g, rows):
     rows.append(dict(kernel="fused_mlp", config="bf16", max_abs_err=float(d.max()),
                      y_diff_share=float((d > 0).float().mean()), flip_share=flips,
                      code_diff_share=codes_close(yq, rq, "fused_mlp"),
-                     ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), shape=[R, DIM, INTER]))
+                     ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), library_ms=None,
+                     shape=[R, DIM, INTER],
+                     **bound_row(4.0 * R * DIM * INTER, R * DIM * 6 + R * 8
+                                 + 2 * DIM * INTER * 1, "int8")))
     del args, x, xq, xs, y, yq, ys, ry, rq, gy, wy, d
+    torch.cuda.empty_cache()
+
+
+def bf16_ulp_of_max(ref: torch.Tensor) -> float:
+    return float(2.0 ** (np.floor(np.log2(float(ref.float().abs().max()))) - 7))
+
+
+def kernels_flash(dev, g, rng, rows):
+    """Rows 11-12: the trained tower's attention forward and backward at
+    B 8, L 512, H 768, 12 heads (float32 and bfloat16, dropout 0 and 0.1),
+    and at phase 9's own shape (B 64, query lengths 64-512, bfloat16,
+    dropout 0.1), against the plain twins on the same qkv, mask, output
+    cotangent and seed words."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    def ragged_mask(B, lo):
+        lengths = rng.integers(lo, ATTN_L + 1, B)
+        lengths[0] = ATTN_L
+        return lengths, torch.from_numpy(
+            (np.arange(ATTN_L)[None, :] < lengths[:, None]).astype(np.int32)).to(dev)
+
+    small = ragged_mask(ATTN_B, 1)
+    seed = fa.draw_seed(torch.Generator().manual_seed(int(rng.integers(1 << 30))))
+    cases = [(small, dt, rate, f"{name}, drop {rate}")
+             for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))
+             for rate in (0.0, 0.1)]
+    cases.append((ragged_mask(TRAIN_B, TRAIN_QLEN // 8), torch.bfloat16, 0.1, FLASH_MAIN))
+    for (lengths, mask), dt, rate, config in cases:
+        B = len(lengths)
+        name = "float32" if dt == torch.float32 else "bfloat16"
+        qkv = (torch.randn(B, ATTN_L, 3 * DIM, device=dev, generator=g) * 0.5).to(dt)
+        go = torch.randn(B, ATTN_L, DIM, device=dev, generator=g).to(dt)
+        x = qkv.clone().requires_grad_(True)
+        out = fa.flash_attention(x, mask, 12, seed=seed, drop_rate=rate)
+        out.backward(go)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_fwd_plain(qkv, mask, 12, seed, rate)
+        rdq = fa.flash_attention_bwd_plain(qkv, mask, go, 12, seed, rate)
+        errs = []
+        for got, want, what in ((out.detach(), ref, "forward"), (x.grad, rdq, "dqkv")):
+            err = float((got.float() - want.float()).abs().max())
+            tol = 1e-5 if dt == torch.float32 else bf16_ulp_of_max(want)
+            check(err <= tol, f"flash {what} {config}: {err} > {tol}")
+            errs.append(err)
+        m32 = mask.contiguous()
+        with torch.no_grad():
+            _, stats = fa._fwd_kernel(qkv, m32, 12, seed, rate)
+            fwd_ms = cuda_ms(lambda: fa._fwd_kernel(qkv, m32, 12, seed, rate), 10)
+            bwd_ms = cuda_ms(lambda: fa._bwd_kernel(qkv, m32, stats, go, 12, seed, rate), 10)
+            pf_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(qkv, mask, 12, seed, rate), 5)
+            pb_ms = cuda_ms(
+                lambda: fa.flash_attention_bwd_plain(qkv, mask, go, 12, seed, rate), 5)
+            q, k, v, bias = sdpa_operands(qkv, mask)
+            lf_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, dropout_p=rate), 10)
+        xl = qkv.clone().requires_grad_(True)
+        ql, kl, vl, _ = sdpa_operands(xl, mask)
+        gh = go.view(B, ATTN_L, 12, 64).transpose(1, 2)
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, dropout_p=rate)
+        lb_ms = cuda_ms(lambda: torch.autograd.grad(ol, xl, gh, retain_graph=True), 10)
+
+        def library_fwd_bwd():
+            F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, dropout_p=rate
+                                           ).backward(gh)
+
+        lfb_ms = cuda_ms(library_fwd_bwd, 10)
+        isz, peak = qkv.element_size(), PEAK_OF[name]
+        shape = [B, ATTN_L, 3 * DIM]
+        rows.append(dict(kernel="flash_attention_fwd", config=config, max_abs_err=errs[0],
+                         ms=fwd_ms, plain_ms=pf_ms, library_ms=lf_ms, shape=shape,
+                         **bound_row(attention_flops(lengths, ATTN_L, DIM, 2),
+                                     B * ATTN_L * (4 * DIM * isz + 4), peak)))
+        # the backward recomputes S (one L x L product) and forms dV,
+        # dP, dQ and dK; its library figure is SDPA's backward alone (to
+        # dqkv, through the same views), with SDPA forward + backward beside
+        rows.append(dict(kernel="flash_attention_bwd", config=config, max_abs_err=errs[1],
+                         ms=bwd_ms, plain_ms=pb_ms, library_ms=lb_ms,
+                         fwd_plus_bwd_ms=fwd_ms + bwd_ms, library_fwd_bwd_ms=lfb_ms,
+                         shape=shape,
+                         **bound_row(attention_flops(lengths, ATTN_L, DIM, 5),
+                                     B * ATTN_L * (7 * DIM * isz + 4), peak)))
+        del qkv, go, x, out, ref, rdq, stats, q, k, v, bias, xl, ql, kl, vl, gh, ol
     torch.cuda.empty_cache()
 
 
@@ -517,6 +725,7 @@ def phase_kernels(seed: int, dev, passages_f32, codes, scale):
     kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows)
     kernels_v4(dev, g, passages_f32, codes, scale, rows)
     kernels_int8_tower(dev, g, rows)
+    kernels_flash(dev, g, rng, rows)
     return rows
 
 
@@ -915,6 +1124,195 @@ def phase_corpus_encode(seed: int, dev, params, cfg, card: str):
     return counts, metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+def train_batch(seed: int, B: int, vocab: int):
+    """A collate()-shaped batch: conversational queries of 64-512 tokens,
+    passages of 32-384, every extra passage present for most rows."""
+    rng = np.random.default_rng(seed)
+
+    def toks(n, L, lo):
+        lengths = rng.integers(lo, L + 1, n)
+        ids = rng.integers(3, vocab, (n, L)).astype(np.int32)
+        ids[:, 0] = 0  # <s>
+        ids[np.arange(n), lengths - 1] = 2  # </s>
+        mask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)
+        return ids * mask, mask
+
+    b = {}
+    b["conv_qp"], b["conv_qp_mask"] = toks(B, TRAIN_QLEN, TRAIN_QLEN // 8)
+    for key in ("pos_docs", "neg_docs", "pseudo_prepos_docs", "prepos_neg_docs"):
+        b[key], b[f"{key}_mask"] = toks(B, TRAIN_PLEN, TRAIN_PLEN // 12)
+    b["has_pseudo_prepos"] = (rng.random(B) < 0.8).astype(np.int32)
+    b["has_prepos_neg"] = (rng.random(B) < 0.8).astype(np.int32)
+    b["valid"] = np.ones(B, np.int32)
+    return b
+
+
+def train_setup(seed: int, dev, cfg, tcfg, plain: bool = False, rng_seed=None):
+    """The train step, a fresh train state (dropout generator from
+    ``rng_seed``, default ``seed``) and the int8 frozen tower; ``plain``
+    runs the trained tower's plain twins (the frozen tower always runs
+    the kernels)."""
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.models.encoder import AnceEncoder
+    from haconvdr_torch.train.trainer import (
+        build_frozen_encoder,
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    opt = make_optimizer(tcfg, total_steps=100)
+    step = make_train_step(dev, cfg, tcfg, opt)
+    model = AnceEncoder.from_jax_params(init_params_numpy(cfg, seed), cfg, dev, plain=plain)
+    frozen = build_frozen_encoder(init_params_numpy(cfg, seed + 1), cfg, tcfg, dev)
+    return step, init_train_state(model, opt, seed=seed if rng_seed is None else rng_seed), frozen
+
+
+def eval_loss(state, frozen, batch, tcfg, dev) -> float:
+    """The batch's loss with dropout off, the query tower in eval mode."""
+    from haconvdr_torch.train.trainer import batch_loss, batch_to_device
+
+    with torch.no_grad():
+        return float(batch_loss(state.model, frozen, batch_to_device(batch, dev), tcfg,
+                                trainable=False))
+
+
+def check_train_counts(counts, layers: int, n_frozen: int, n_micro: int) -> None:
+    """Per micro step: flash fwd and bwd once a layer (remat "mlp" reruns
+    no attention), and per frozen int8 bf16 forward 1 + layers
+    LayerNorm-quant, layers MLP and layers inference attention launches."""
+    want = {("flash_attention", "fwd"): layers, ("flash_attention", "bwd"): layers,
+            ("fused_ln", "ln_quant"): (1 + layers) * n_frozen, ("fused_ln", "ln"): 0,
+            ("fused_mlp", "kernel"): layers * n_frozen,
+            ("fused_attention", "kernel"): layers * n_frozen}
+    for (mod, key), n in want.items():
+        check(counts[mod][key] == n * n_micro,
+              f"training: {mod} {key} launched {counts[mod][key]} times in {n_micro} micro "
+              f"steps, not {n} each")
+    check_counts(counts, list(want)[:2], "training")
+
+
+def phase_training(seed: int, dev, card: str):
+    """Phase 9 at the reference geometry; returns (launch counts, metrics)."""
+    from haconvdr_torch.config import ModelConfig, TrainConfig
+
+    cfg = ModelConfig(dtype="bfloat16", remat="mlp")  # dropout 0.1 (the defaults)
+    tcfg = TrainConfig(per_device_train_batch_size=TRAIN_B, accumulation_steps=TRAIN_ACC,
+                       learning_rate=TRAIN_LR, num_warmup_portion=0.0, weight_decay=0.01,
+                       max_grad_norm=1.0, is_pseudo_prepos=True, is_prepos_neg=True,
+                       frozen_dtype="int8")
+    L, n_frozen = cfg.num_hidden_layers, 4
+    # ---- (a) one micro step with the trained tower through the kernels and
+    # one through its plain twins, from the same state, batch and dropout
+    # draws; the frozen towers run the int8 kernels on both sides, so only
+    # the flash kernels differ.  A third step through the kernels with
+    # other dropout draws shows how far a mask that differs moves the
+    # gradients: it must land outside the bound
+    batch = train_batch(seed + 30, TRAIN_B_CHECK, cfg.vocab_size)
+    got = {}
+    for run, plain, rng_seed in (("kernels", False, seed + 40), ("plain", True, seed + 40),
+                                 ("other draws", False, seed + 41)):
+        step, state, frozen = train_setup(seed + 40, dev, cfg, tcfg, plain=plain,
+                                          rng_seed=rng_seed)
+        zero_counts()
+        _, loss = step(state, frozen, batch)
+        got[run] = (float(loss), torch.cat([gr.flatten() for gr in state.accum_grads.values()])
+                     .double(), read_counts())
+        del step, state, frozen
+        torch.cuda.empty_cache()
+    (lk, gk, ck), (lp, gp, cp), (lo, go, _) = got["kernels"], got["plain"], got["other draws"]
+    check_train_counts(ck, L, n_frozen, 1)
+    check(cp["flash_attention"] == {"fwd": 0, "bwd": 0, "plain_fwd": L, "plain_bwd": L},
+          f"training (plain): flash launches {cp['flash_attention']}")
+    for mod in ("fused_ln", "fused_mlp", "fused_attention"):
+        check(cp[mod] == ck[mod], f"training (plain): the frozen towers' {mod} launches differ")
+    grad_rel = float((gk - gp).norm() / gp.norm())
+    other_rel = float((go - gk).norm() / gk.norm())
+    check(np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp)
+          and grad_rel <= TRAIN_GRAD_REL,
+          f"training: kernels vs plain twins: loss {lk} vs {lp}, gradients {grad_rel} apart")
+    check(other_rel > TRAIN_GRAD_REL,
+          f"training: other dropout draws move the gradients by only {other_rel}")
+    print(f"training (a) B {TRAIN_B_CHECK}: kernels vs plain twins loss {lk:.6f} vs {lp:.6f}, "
+          f"gradients {grad_rel:.3e} apart (|g| {float(gk.norm()):.4f} vs "
+          f"{float(gp.norm()):.4f}); other dropout draws: loss {lo:.6f}, "
+          f"gradients {other_rel:.3e} apart")
+    del got, gk, gp, go
+    # ---- (b) timed micro steps at B 64 on one repeated batch
+    step, state, frozen = train_setup(seed + 50, dev, cfg, tcfg)
+
+    def checksum():
+        return sum(float(t.double().sum()) for t in frozen.state_dict().values())
+
+    before = checksum()
+    batch = train_batch(seed + 60, TRAIN_B, cfg.vocab_size)
+    eval_before = eval_loss(state, frozen, batch, tcfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    zero_counts()
+    for _ in range(TRAIN_MICRO):
+        t = time.perf_counter()
+        _, loss = step(state, frozen, batch)
+        losses.append(float(loss))  # a host sync: the step has finished
+        secs.append(time.perf_counter() - t)
+    counts = read_counts()
+    print("training launch counts:", json.dumps(counts), f"({TRAIN_MICRO} micro steps)")
+    check_train_counts(counts, L, n_frozen, TRAIN_MICRO)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    eval_after = eval_loss(state, frozen, batch, tcfg, dev)
+    check(all(np.isfinite(losses)), f"training: non-finite loss {losses}")
+    check(eval_after < eval_before,
+          f"training: the eval loss did not fall over the repeated batch (lr {TRAIN_LR}): "
+          f"{eval_before} -> {eval_after}; training losses {losses}")
+    check(state.global_step == TRAIN_MICRO // TRAIN_ACC, "training: wrong update count")
+    check(checksum() == before, "training: the frozen tower changed")
+    # ---- device time of one accumulation window (TRAIN_ACC micro steps)
+    # under torch.profiler, against that window's own wall time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(TRAIN_ACC):
+            step(state, frozen, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = {}  # device ms by the first 70 characters of the kernel's name
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:70]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(by_name.values())
+    check(dev_ms > 0, "training: the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    timed = secs[TRAIN_WARM:]  # every micro step after the warm-up ones
+    med = float(np.median(timed))
+    metrics = dict(examples_per_s=TRAIN_B * len(timed) / sum(timed),
+                   examples_per_s_median_step=TRAIN_B / med, micro_step_ms_median=med * 1e3,
+                   micro_step_ms=[x * 1e3 for x in secs], losses=losses, lr=TRAIN_LR,
+                   eval_loss=[eval_before, eval_after], peak_memory_gib=peak_gib,
+                   profiled_wall_ms=prof_wall_ms, device_ms=dev_ms,
+                   idle_share=1.0 - dev_ms / prof_wall_ms,
+                   unprofiled_window_wall_ms=sum(secs[-TRAIN_ACC:]) * 1e3,
+                   kernel_vs_plain=dict(loss=[lk, lp], grad_rel=grad_rel),
+                   other_draws=dict(loss=lo, grad_rel=other_rel),
+                   top_device_ms=dict(top))
+    print(f"training (b): {TRAIN_MICRO} micro steps of B {TRAIN_B} (query {TRAIN_QLEN}, "
+          f"passages {TRAIN_PLEN}, 4 int8 frozen towers), losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f" at lr {TRAIN_LR}; eval loss (no "
+          f"dropout) {eval_before:.4f} -> {eval_after:.4f}; frozen tower unchanged")
+    print("training e2e:", json.dumps(metrics), f"[{card}]")
+    del step, state, frozen
+    torch.cuda.empty_cache()
+    return counts, metrics
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -959,10 +1357,11 @@ def main(argv=None) -> int:
     del passages
     torch.cuda.empty_cache()
     c8, _ = phase_corpus_encode(args.seed, dev, params, cfg, card)
+    c9, _ = phase_training(args.seed, dev, card)
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def launches(mod, key):
-        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8))
+        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9))
 
     def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]
@@ -970,7 +1369,9 @@ def main(argv=None) -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches(mod, key),
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
-                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}
+                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                "library_ms": main_row["library_ms"]}
 
     v4src = "haconvdr_torch/csrc/topk_v4.cu"
     v4py = "haconvdr_tpu/ops/pallas_topk_v4.py"
@@ -985,11 +1386,17 @@ def main(argv=None) -> int:
         entry("select_topk", v4src, f"{v4py}:386", "topk_v4", "select", "cold"),
         # row 8 lies on no path of either package: phase 3 checks it alone
         entry("fused_ln", "haconvdr_torch/csrc/fused_ln.cu",
-              "haconvdr_tpu/ops/fused_ln.py:66", "fused_ln", "ln", "bf16 + residual"),
+              "haconvdr_tpu/ops/fused_ln.py:66", "fused_ln", "ln", "bf16, no residual"),
         entry("fused_ln_quant", "haconvdr_torch/csrc/fused_ln.cu",
               "haconvdr_tpu/ops/fused_ln.py:91", "fused_ln", "ln_quant", "bf16 + residual"),
         entry("fused_mlp", "haconvdr_torch/csrc/fused_mlp.cu",
               "haconvdr_tpu/ops/fused_mlp.py:56", "fused_mlp", "kernel", "bf16"),
+        entry("flash_attention_fwd", "haconvdr_torch/csrc/flash_attention.cu",
+              "haconvdr_tpu/ops/flash_attention.py:105", "flash_attention", "fwd",
+              FLASH_MAIN),
+        entry("flash_attention_bwd", "haconvdr_torch/csrc/flash_attention.cu",
+              "haconvdr_tpu/ops/flash_attention.py:174", "flash_attention", "bwd",
+              FLASH_MAIN),
     ]}))
     print(f"total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card_line())

@@ -25,9 +25,10 @@ _DTYPES = {
 
 
 def resolve_device(name: DeviceLike = None) -> torch.device:
-    """``None`` -> cpu.  Asking for a CUDA device without one raises
-    instead of quietly running on the CPU."""
-    dev = torch.device("cpu" if name is None else name)
+    """``None`` -> the CUDA card: the port's entry points run there unless
+    the caller names the CPU (``"cpu"``).  A CUDA device without a card
+    raises instead of quietly running on the CPU."""
+    dev = torch.device("cuda" if name is None else name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
@@ -48,7 +49,7 @@ def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
         ) from None
 
 
-def to_torch(x, device: DeviceLike = None, dtype=None) -> torch.Tensor:
+def to_torch(x, device: DeviceLike, dtype=None) -> torch.Tensor:
     """numpy array / tensor -> tensor on ``device``.  numpy bfloat16
     (ml_dtypes, as EmbeddingBlockStore reads it) goes through its raw
     uint16 bits."""

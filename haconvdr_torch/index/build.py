@@ -2,26 +2,30 @@
 haconvdr_tpu/index/build.py:encode_corpus, the reference's
 gen_doc_embeddings.py:65-158).
 
-``tokenize_collection`` and ``parse_collection_line`` are framework-free
-and shared from the JAX package (re-exported here), not copied, as are
-the on-disk formats (``TokenizedCorpus`` / ``TokenizedCorpusWriter``,
-``EmbeddingBlockStore``).
+``tokenize_collection`` and ``parse_collection_line`` are the port's own
+copies of the JAX package's (haconvdr_tpu/index/build.py:40-163); the
+on-disk formats (``TokenizedCorpus`` / ``TokenizedCorpusWriter``,
+``EmbeddingBlockStore``, index/store.py) are the same bytes in both
+packages.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import time
 from collections import deque
-from typing import Callable, List, Optional
+from multiprocessing import Pool
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from haconvdr_tpu.index.build import parse_collection_line, tokenize_collection
-from haconvdr_tpu.index.quantize import quantize_int8
-from haconvdr_tpu.index.store import EmbeddingBlockStore, TokenizedCorpus, TokenizedCorpusWriter
+from haconvdr_torch.config import IndexConfig
 from haconvdr_torch.device import DeviceLike, resolve_device, to_numpy
+from haconvdr_torch.index.quantize import quantize_int8
+from haconvdr_torch.index.store import EmbeddingBlockStore, TokenizedCorpus, TokenizedCorpusWriter
 
 __all__ = [
     "EmbeddingBlockStore",
@@ -35,6 +39,135 @@ __all__ = [
 logger = logging.getLogger(__name__)
 
 PIPELINE_DEPTH = 8  # batches in flight before the oldest is read back
+
+_WORKER_TOK = None
+
+
+def parse_collection_line(
+    line: str, ext: str, max_doc_character: int, title: bool = False
+) -> Optional[Tuple[int, str, Optional[str]]]:
+    """One collection record -> (pid, text, title_or_None).
+
+    Mirrors PassagePreprocessingFn's field handling
+    (gen_tokenized_doc.py:200-239): TSV = ``pid\\ttext\\ttitle`` (title mode
+    joins the de-[SEP]ed title before the text); JSONL = {id, text, title}
+    encoded as a text pair.  Returns None for bad/header lines.
+    """
+    line = line.strip()
+    if not line:
+        return None
+    if ext == ".jsonl":
+        obj = json.loads(line)
+        return int(obj["id"]), obj["text"][:max_doc_character], obj["title"]
+    # tsv
+    arr = line.split("\t")
+    if arr[0] == "id":  # header
+        return None
+    try:
+        pid = int(arr[0])
+        if title:
+            text = arr[2].rstrip().replace(" [SEP] ", " ") + " " + arr[1].rstrip()
+        else:
+            text = arr[1].rstrip()
+    except (IndexError, ValueError):
+        return None
+    return pid, text[:max_doc_character], None
+
+
+def _encode_passage(tokenizer, text: str, title: Optional[str], max_seq_length: int) -> List[int]:
+    if title is not None:
+        return tokenizer.encode(
+            title,
+            text_pair=text,
+            add_special_tokens=True,
+            truncation=True,
+            max_length=max_seq_length,
+        )
+    return tokenizer.encode(
+        text, add_special_tokens=True, truncation=True, max_length=max_seq_length
+    )
+
+
+def _pool_init(tokenizer_factory):
+    global _WORKER_TOK
+    _WORKER_TOK = tokenizer_factory()
+
+
+def _pool_tokenize(args):
+    lines, ext, max_doc_character, max_seq_length, title = args
+    out = []
+    for line in lines:
+        parsed = parse_collection_line(line, ext, max_doc_character, title)
+        if parsed is None:
+            continue
+        pid, text, ttl = parsed
+        ids = _encode_passage(_WORKER_TOK, text, ttl, max_seq_length)
+        out.append((pid, ids))
+    return out
+
+
+def tokenize_collection(
+    cfg: IndexConfig,
+    tokenizer=None,
+    tokenizer_factory=None,
+    title: bool = False,
+    lines: Optional[Iterable[str]] = None,
+) -> TokenizedCorpus:
+    """Tokenize the raw collection into ``cfg.data_output_path``.
+
+    Idempotent like the reference ("exists -> exit",
+    gen_tokenized_doc.py:147-149): an existing corpus dir is reused.
+    Provide either a ``tokenizer`` (in-process) or a picklable
+    ``tokenizer_factory`` (for the worker pool).
+    """
+    out_dir = cfg.data_output_path
+    if os.path.exists(os.path.join(out_dir, "meta.json")):
+        logger.info("tokenized corpus already exists at %s, skipping", out_dir)
+        return TokenizedCorpus(out_dir)
+
+    ext = cfg.raw_collection_path[cfg.raw_collection_path.rfind("."):]
+    writer = TokenizedCorpusWriter(out_dir, cfg.max_seq_length)
+
+    def line_iter():
+        if lines is not None:
+            yield from lines
+        else:
+            with open(cfg.raw_collection_path, "r", encoding="utf-8") as f:
+                yield from f
+
+    t0 = time.time()
+    if cfg.num_tokenize_workers > 1 and tokenizer_factory is not None:
+        with Pool(
+            cfg.num_tokenize_workers, initializer=_pool_init, initargs=(tokenizer_factory,)
+        ) as pool:
+            def chunk_gen():
+                chunk: List[str] = []
+                for line in line_iter():
+                    chunk.append(line)
+                    if len(chunk) >= 10000:
+                        yield (chunk, ext, cfg.max_doc_character, cfg.max_seq_length, title)
+                        chunk = []
+                if chunk:
+                    yield (chunk, ext, cfg.max_doc_character, cfg.max_seq_length, title)
+
+            for result in pool.imap(_pool_tokenize, chunk_gen()):
+                for pid, ids in result:
+                    writer.add(pid, ids)
+    else:
+        if tokenizer is None:
+            raise ValueError("need a tokenizer for in-process tokenization")
+        for line in line_iter():
+            parsed = parse_collection_line(line, ext, cfg.max_doc_character, title)
+            if parsed is None:
+                continue
+            pid, text, ttl = parsed
+            writer.add(pid, _encode_passage(tokenizer, text, ttl, cfg.max_seq_length))
+
+    writer.finalize()
+    logger.info(
+        "tokenized %d passages in %.1fs -> %s", writer.count, time.time() - t0, out_dir
+    )
+    return TokenizedCorpus(out_dir)
 
 
 def encode_corpus(
@@ -54,7 +187,7 @@ def encode_corpus(
 
     ``encode_fn(ids, mask)`` takes int32 [B, L] tensors on ``device``
     (default: the device of ``encode_fn``'s parameters when it is a
-    module, else the CPU) and returns [B, D] embeddings, or [B, n_chunks, D]
+    module, else the CUDA card) and returns [B, D] embeddings, or [B, n_chunks, D]
     for a multi-chunk encoder (one row per chunk, chunk-major, each with
     the passage's offset).  As in the JAX package: every batch has the
     static shape [batch_size, L] (the tail is padded with fully masked
@@ -70,9 +203,8 @@ def encode_corpus(
     without blocking, each batch's copy marked by an event, and the host
     waits only for the oldest batch when the pipeline is full.
     """
-    if device is None:
-        params = encode_fn.parameters() if isinstance(encode_fn, torch.nn.Module) else iter(())
-        device = next(params, torch.empty(0)).device
+    if device is None and isinstance(encode_fn, torch.nn.Module):
+        device = next(encode_fn.parameters()).device
     dev = resolve_device(device)
     store = EmbeddingBlockStore(out_dir, fmt=fmt)
     quantize = store_dtype == "int8"

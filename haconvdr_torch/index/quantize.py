@@ -2,10 +2,10 @@
 haconvdr_tpu/index/quantize.py, and of the per-query quantization in
 haconvdr_tpu/ops/pallas_topk_v4.py:855-861).
 
-The numpy pair ``quantize_int8`` / ``dequantize_int8`` is shared with the
-JAX package as it is: its module imports only numpy at top level.  The
-torch functions here give the same codes on tensors that already live on
-the device:
+The numpy pair ``quantize_int8`` / ``dequantize_int8`` is the port's own
+copy of the JAX package's (the same formula, so blocks written by either
+package read in the other).  The torch functions here give the same codes
+on tensors that already live on the device:
 
 * index rows: per-dimension scale ``max|x[:, d]| / 127`` (1 for an
   all-zero dimension), codes ``clip(round(x / scale), -127, 127)`` with
@@ -21,9 +21,8 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
-
-from haconvdr_tpu.index.quantize import dequantize_int8, quantize_int8
 
 __all__ = [
     "dequantize_int8",
@@ -35,6 +34,21 @@ __all__ = [
 ]
 
 _ROWS = 65536  # rows per pass: bounds the float32 temporaries on the device
+
+
+def quantize_int8(emb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """[N, D] float -> ([N, D] int8, [D] float32 per-dim scales).
+    Symmetric, zero-offset; all-zero dimensions get scale 1."""
+    emb = np.asarray(emb, np.float32)
+    amax = np.abs(emb).max(axis=0)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.rint(emb / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def dequantize_int8(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """Exact float32 reconstruction the int8 search path scores against."""
+    return q.astype(np.float32) * np.asarray(scale, np.float32)
 
 
 def encode_int8_torch(emb: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ stacked dict).  The port's ``AnceEncoder`` is an ``nn.Module`` with
 ``nn.Linear`` weights [out, in] and one fused [3H, H] QKV weight per
 layer.  ``params_from_jax`` maps the first onto the second, int8-quantized
 kernels included (``kernel`` int8 plus ``kernel_scale`` [out]: the
-module's ``Int8Linear`` buffers); ``init_params_numpy`` makes the first
+module's ``Int8Linear`` buffers); ``params_to_jax`` maps a float state
+dict back (trained weights compared with the JAX package's);
+``init_params_numpy`` makes the first
 with numpy from a seed, so that tests and chip_smoke.py hand identical
 weights to both packages.
 """
@@ -75,6 +77,51 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     dense("embedding_head", [params["embedding_head"]])
     ln("norm", params["norm"])
     return sd
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor], stacked: bool = False) -> Dict[str, Any]:
+    """Inverse of ``params_from_jax`` for float towers: an AnceEncoder
+    state dict -> the JAX package's nested dict with float32 numpy leaves,
+    ``layers`` as a list or, with ``stacked``, one dict of [num_layers, ...]
+    leaves."""
+    sd = {k: v.detach().to(torch.float32).cpu().numpy().copy() for k, v in state_dict.items()}
+    if any(k.endswith("kernel_scale") for k in sd):
+        raise ValueError("params_to_jax takes float towers, not int8 ones")
+
+    def dense(prefix, parts=1):
+        kernels = np.split(sd[prefix + ".weight"].T, parts, axis=1)
+        biases = np.split(sd[prefix + ".bias"], parts)
+        out = [{"kernel": np.ascontiguousarray(k), "bias": b} for k, b in zip(kernels, biases)]
+        return out if parts > 1 else out[0]
+
+    def ln(prefix):
+        return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+    n = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("layers."))
+    layers = []
+    for li in range(n):
+        pre = f"layers.{li}"
+        q, k, v = dense(f"{pre}.attention.qkv", 3)
+        layers.append({
+            "attention": {
+                "query": q, "key": k, "value": v,
+                "output": dense(f"{pre}.attention.output"),
+                "output_layer_norm": ln(f"{pre}.attention.output_layer_norm"),
+            },
+            "intermediate": dense(f"{pre}.intermediate"),
+            "output": dense(f"{pre}.output"),
+            "output_layer_norm": ln(f"{pre}.output_layer_norm"),
+        })
+    if stacked:
+        def stack(*xs):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]} if isinstance(xs[0], dict) else np.stack(xs)
+
+        layers = stack(*layers)
+    emb = {name: sd[f"embeddings.{name}.weight"]
+           for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    emb["layer_norm"] = ln("embeddings.layer_norm")
+    return {"embeddings": emb, "layers": layers, "embedding_head": dense("embedding_head"),
+            "norm": ln("norm")}
 
 
 def init_params_numpy(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:

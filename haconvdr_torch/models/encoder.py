@@ -1,5 +1,5 @@
-"""ANCE RoBERTa query/passage tower, inference forward (counterpart of
-haconvdr_tpu/models/encoder.py:encode).
+"""ANCE RoBERTa query/passage tower (counterpart of
+haconvdr_tpu/models/encoder.py:encode), inference and train mode.
 
 Numerics follow the reference: parameters are float32; float dense
 layers multiply ``cfg.dtype``-rounded operands with float32 accumulation
@@ -20,8 +20,23 @@ emits its output's int8 codes (``ops.fused_ln.fused_residual_ln_quant``),
 which the next dense takes as ``prequant``, and each MLP block is one
 kernel (``ops.fused_mlp.fused_mlp_block``); the carry through the layers is
 ``(x, xq, xs)``.  With a float32 carry, int8 kernels take the unfused int8
-dense and no fused kernel, as the reference does.  The module is
-inference-only, so no training gate applies.
+dense and no fused kernel, as the reference does.  int8 towers are
+inference-only: a trainable int8 tower raises.
+
+Train mode (``forward(..., dropout=generator, trainable=True)``,
+haconvdr_tpu/models/encoder.py:283-300): ``trainable`` routes attention to
+the differentiable ``ops.flash_attention`` kernels (never to the inference
+kernel, which has no gradient), with or without dropout; a dropout
+generator (None means eval) turns on attention-probs dropout inside those
+kernels and hidden dropout where JAX puts it (after the embedding
+LayerNorm, on the attention output, on the MLP output).  Every mask comes
+from seeds drawn from the generator at the start of the forward: the
+attention words go to the kernels' hash, and each hidden mask is drawn
+from a generator made from its own seed where it is applied, so a
+checkpointed block (``cfg.remat``: ``"mlp"`` the MLP block, ``True`` the
+whole layer) draws the same mask when it is recomputed.  JAX draws the
+hidden masks from the TPU's ``rbg`` bits, which cannot be matched, so the
+parity tests run with dropout off.
 """
 
 from __future__ import annotations
@@ -33,12 +48,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from haconvdr_torch.config import ModelConfig
 from haconvdr_torch.device import DeviceLike, resolve_device, torch_dtype
 from haconvdr_torch.index.quantize import quantize_rows
 from haconvdr_torch.models.convert import params_from_jax
-from haconvdr_torch.ops import fused_attention, fused_ln, fused_mlp
+from haconvdr_torch.ops import flash_attention, fused_attention, fused_ln, fused_mlp
 from haconvdr_torch.ops.fused_ln import layer_norm
 
 
@@ -98,24 +114,58 @@ class Int8Linear(nn.Module):
         return y if out_dtype is None else y.to(out_dtype)
 
 
+class _MmF32(torch.autograd.Function):
+    """``x @ w^T`` of bf16 operands with a float32 result (one bf16 GEMM,
+    ``torch.mm(out_dtype=float32)``), differentiable: ``aten::mm.dtype``
+    has no derivative.  The backward is two bf16 GEMMs with float32
+    results, cast to the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g, w, out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(g.t(), x, out_dtype=torch.float32).to(w.dtype)
+        return gx, gw
+
+
 def _dense(x, lin, dtype, out_dtype=None, prequant=None):
     """One dense layer.  int8: ``Int8Linear``.  float: x @ W of the
     ``dtype``-rounded operands, accumulated and biased in
     promote(dtype, f32), rounded once to ``out_dtype``.  bfloat16 on CUDA
-    is one bf16 GEMM with a float32 result (``torch.mm(out_dtype=)``);
-    elsewhere a float32 product of the rounded operands (exact products,
-    float32 sums; TF32 is off, device.py)."""
+    is one bf16 GEMM with a float32 result (``_MmF32``); elsewhere a
+    float32 product of the rounded operands (exact products, float32 sums;
+    TF32 is off, device.py)."""
     if isinstance(lin, Int8Linear):
         return lin(x, prequant, out_dtype)
     acc = torch.promote_types(dtype, torch.float32)
     w = lin.weight.to(dtype)
     if dtype == torch.bfloat16 and x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]).to(dtype), w.t(), out_dtype=acc)
+        y = _MmF32.apply(x.reshape(-1, x.shape[-1]).to(dtype), w)
         y = y.reshape(*x.shape[:-1], w.shape[0])
     else:
         y = F.linear(x.to(dtype).to(acc), w.to(acc))
     y = y + lin.bias.to(acc)
     return y if out_dtype is None else y.to(out_dtype)
+
+
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """Inverted dropout, a no-op without a seed: the mask comes from a
+    generator made from ``seed`` on x's device, so a recomputation under
+    ``torch.utils.checkpoint`` draws the same mask."""
+    if seed is None or rate <= 0.0:
+        return x
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class AnceLayer(nn.Module):
@@ -180,24 +230,52 @@ class AnceEncoder(nn.Module):
         enc.load_state_dict(sd, assign=True)
         return enc.to(resolve_device(device)).eval()
 
-    def hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor):
+    def hidden_states(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        dropout: Optional[torch.Generator] = None,
+        trainable: bool = False,
+    ):
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         carry = torch.promote_types(dtype, torch.bfloat16)  # residual carry
         eps = cfg.layer_norm_eps
         plain = self.plain
-        attention = (
-            fused_attention.fused_attention_qkv_plain if plain
-            else fused_attention.fused_attention_qkv
-        )
+        nh = cfg.num_attention_heads
+        hd, ad = cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob
+        if trainable and self.int8:
+            raise ValueError("int8 towers are inference-only: a trainable tower needs float weights")
+        n = len(self.layers)
+        if dropout is not None:  # every seed of this forward, drawn up front
+            words = [flash_attention.draw_seed(dropout) for _ in range(n)]
+            hseeds = torch.randint(0, 2**62, (1 + 2 * n,), generator=dropout).tolist()
+        else:
+            words, hseeds = [None] * n, [None] * (1 + 2 * n)
+        if trainable or dropout is not None:
+            flash = flash_attention.flash_attention_plain if plain else flash_attention.flash_attention
+
+            def attention(qkv, seed):
+                return flash(qkv, attention_mask, nh, seed=seed, drop_rate=ad)
+        else:
+            fused = (
+                fused_attention.fused_attention_qkv_plain if plain
+                else fused_attention.fused_attention_qkv
+            )
+
+            def attention(qkv, seed):
+                return fused(qkv, attention_mask, nh)
         ln_quant = (
             fused_ln.fused_residual_ln_quant_plain if plain
             else fused_ln.fused_residual_ln_quant
         )
-        mlp_block = fused_mlp.fused_mlp_block_plain if plain else fused_mlp.fused_mlp_block
+        mlp_kernel = fused_mlp.fused_mlp_block_plain if plain else fused_mlp.fused_mlp_block
         # the reference's gates (encoder.py:345-368), less the TPU-only ones
-        use_fused_quant = cfg.use_fused_ln and carry == torch.bfloat16 and self.int8
+        use_fused_quant = (
+            cfg.use_fused_ln and carry == torch.bfloat16 and self.int8 and dropout is None
+        )
         use_fused_mlp = use_fused_quant and cfg.use_fused_mlp
+        remat = cfg.remat if torch.is_grad_enabled() and not self.int8 else False
 
         def res_ln(x, branch_out, ln):
             """(LayerNorm(x + branch_out), prequant) in the carry dtype; the
@@ -225,26 +303,42 @@ class AnceEncoder(nn.Module):
             pq = (xq, xs)
         else:
             x, pq = layer_norm(x, ln.weight, ln.bias, eps, carry), None
+        x = _dropout(x, hd, hseeds[0])
         gelu = "tanh" if dtype == torch.bfloat16 else "none"
-        for layer in self.layers:
-            att = layer.attention
-            qkv = _dense(x, att["qkv"], dtype, out_dtype=dtype, prequant=pq).contiguous()
-            ctx = attention(qkv, attention_mask, cfg.num_attention_heads)
-            x, pq = res_ln(x, _dense(ctx, att["output"], dtype), att["output_layer_norm"])
+
+        def mlp_block(x, pq, layer, seed):
             if use_fused_mlp:
                 ffn, out, ln = layer.intermediate, layer.output, layer.output_layer_norm
-                x, xq, xs = mlp_block(
+                x, xq, xs = mlp_kernel(
                     x, pq[0], pq[1], ffn.weight, ffn.kernel_scale, ffn.bias,
                     out.weight, out.kernel_scale, out.bias, ln.weight, ln.bias,
                     eps=eps, out_dtype=carry,
                 )
-                pq = (xq, xs)
-                continue
+                return x, (xq, xs)
             inter = F.gelu(
                 _dense(x, layer.intermediate, dtype, out_dtype=dtype, prequant=pq),
                 approximate=gelu,
             )
-            x, pq = res_ln(x, _dense(inter, layer.output, dtype), layer.output_layer_norm)
+            out = _dropout(_dense(inter, layer.output, dtype), hd, seed)
+            return res_ln(x, out, layer.output_layer_norm)
+
+        def layer_fn(x, pq, layer, words, s_attn, s_mlp):
+            att = layer.attention
+            qkv = _dense(x, att["qkv"], dtype, out_dtype=dtype, prequant=pq).contiguous()
+            out = _dropout(_dense(attention(qkv, words), att["output"], dtype), hd, s_attn)
+            x, pq = res_ln(x, out, att["output_layer_norm"])
+            if remat == "mlp":  # float towers only: pq is None
+                return checkpoint(lambda x: mlp_block(x, None, layer, s_mlp)[0], x,
+                                  use_reentrant=False, preserve_rng_state=False), None
+            return mlp_block(x, pq, layer, s_mlp)
+
+        for li, layer in enumerate(self.layers):
+            args = (layer, words[li], hseeds[1 + 2 * li], hseeds[2 + 2 * li])
+            if remat and remat != "mlp":  # the whole layer
+                x = checkpoint(lambda x, a=args: layer_fn(x, None, *a)[0], x,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, pq = layer_fn(x, pq, *args)
         return x
 
     def forward(
@@ -252,12 +346,16 @@ class AnceEncoder(nn.Module):
         input_ids: torch.Tensor,
         attention_mask: torch.Tensor,
         use_mean: bool = False,
+        dropout: Optional[torch.Generator] = None,
+        trainable: bool = False,
     ) -> torch.Tensor:
         """encoder -> CLS (or masked-mean) pooling -> embeddingHead ->
         LayerNorm(eps 1e-5); [B, embedding_dim] float32
-        (haconvdr_tpu/models/encoder.py:489-519)."""
+        (haconvdr_tpu/models/encoder.py:489-519).  ``dropout``: a
+        generator turns on train-mode dropout (None: eval); ``trainable``
+        marks the tower gradients flow through (flash attention)."""
         input_ids = input_ids.to(torch.int64)
-        hidden = self.hidden_states(input_ids, attention_mask)
+        hidden = self.hidden_states(input_ids, attention_mask, dropout, trainable)
         if use_mean:
             m = attention_mask.to(torch.float32)[:, :, None]
             pooled = (hidden * m).sum(dim=1) / m.sum(dim=1)

@@ -31,6 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
     # qkv, mask(int32), out, B, L, H, num_heads, dtype(0 f32 / 1 bf16), stream
@@ -56,6 +57,13 @@ SIGNATURES = {
     # x, xq, xs, w1, s1, b1, w2, s2, b2, ln scale, ln bias, eps, rows, H, I,
     # y, yq, ys, stream
     "hc_fused_mlp": [_P] * 11 + [_F, _I, _I, _I, _P, _P, _P, _P],
+    # qkv, mask(int32), out, stats(float2 [B, nh, L]), B, L, H, num_heads,
+    # dtype, drop_on, seed0, seed1, keep threshold, 1 / (1 - rate), stream
+    "hc_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _P],
+    # qkv, mask, dout, stats, dvec(float [B, nh, L] scratch), dqkv, B, L, H,
+    # num_heads, dtype, drop_on, seed0, seed1, keep threshold, 1 / (1 - rate),
+    # stream
+    "hc_flash_bwd": [_P] * 6 + [_I] * 8 + [_U, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
 """Runs the encoder over collated batches on one device (counterpart of
 haconvdr_tpu/parallel/sharded_encode.py:encode_batches).
 
-Batches come from the shared ``haconvdr_tpu.data.loader`` (``batch_iter``
-/ ``collate(pad_to=...)``, re-exported here): fixed-size int32 arrays plus
+Batches come from ``haconvdr_torch.data.loader`` (``batch_iter`` /
+``collate(pad_to=...)``, re-exported here): fixed-size int32 arrays plus
 a ``valid`` row mask; padded rows are dropped from the output.
 """
 
@@ -13,7 +13,7 @@ from typing import Iterable, List, Tuple
 import numpy as np
 import torch
 
-from haconvdr_tpu.data.loader import batch_iter
+from haconvdr_torch.data.loader import batch_iter
 from haconvdr_torch.device import to_numpy, to_torch
 
 __all__ = ["batch_iter", "encode_batches"]

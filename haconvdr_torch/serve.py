@@ -4,9 +4,9 @@ haconvdr_tpu/serve.py).
 ``Retriever`` holds the query tower and a device-resident flat index (or
 streams an EmbeddingBlockStore through ``BlockSearcher``) on one device.
 ``BatchingRetriever`` coalesces concurrent requests into power-of-two
-batches on one worker thread.  Query construction reuses the shared
-``haconvdr_tpu.data.sequence`` helpers, and the two-stage rescore the
-shared ``haconvdr_tpu.index.rescore.StoreRescorer``, unchanged.
+batches on one worker thread.  Query construction uses the port's
+``data.sequence`` helpers and the two-stage rescore its
+``index.rescore.StoreRescorer``, copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,10 +21,11 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from haconvdr_tpu.data.sequence import ConcatBuilder, encode_no_trunc
-from haconvdr_tpu.index.store import EmbeddingBlockStore
 from haconvdr_torch.config import DataConfig, ModelConfig, SearchConfig
+from haconvdr_torch.data.sequence import ConcatBuilder, encode_no_trunc
 from haconvdr_torch.device import DeviceLike, resolve_device
+from haconvdr_torch.index.rescore import StoreRescorer
+from haconvdr_torch.index.store import EmbeddingBlockStore
 from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
 from haconvdr_torch.ops.topk import BlockSearcher
 from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
@@ -170,8 +171,6 @@ class Retriever:
                     "Retriever was built from a device tensor"
                 )
             if self._rescorer is None:
-                from haconvdr_tpu.index.rescore import StoreRescorer
-
                 self._rescorer = StoreRescorer(self._rescore_store)
             scores, ids = self._rescorer.rescore(query_embs, ids, k)
         if self.offset2pid is not None:

@@ -2,7 +2,7 @@
 where no HF tokenizer is installed.
 
 Implements the subset of the HF tokenizer protocol that
-``haconvdr_tpu.data.sequence`` uses (``encode`` with
+``haconvdr_torch.data.sequence`` uses (``encode`` with
 ``add_special_tokens`` / ``max_length`` / ``truncation``, special-token
 ids).  RoBERTa's special ids: ``<s>`` = 0, ``<pad>`` = 1, ``</s>`` = 2;
 words hash (crc32) into [5, vocab_size), so any vocabulary size works and

@@ -385,3 +385,115 @@ def test_int8_tower_wrappers_reject_unsupported(dev):
     vi, vh = torch.ones(I, device=dev), torch.ones(H, device=dev)
     with pytest.raises(ValueError):
         fused_mlp_block(x, q, vh[:4, None], w1, vi, vi, w2, vh, vh, vh, vh)
+
+
+def _bf16_ulp_of_max(t):
+    import math
+
+    return 2.0 ** (math.floor(math.log2(float(t.float().abs().max()))) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L", [77, 512])
+def test_flash_attention_kernels_match_plain(dev, gen, dtype, rate, L):
+    """Rows 11-12: forward and dqkv against the plain twins on the same
+    seed words: float32 within 1e-5, bfloat16 within one bf16 ulp of the
+    largest magnitude."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    qkv = (torch.randn(2, L, 3 * 768, device=dev, generator=gen) * 0.5).to(dtype)
+    go = torch.randn(2, L, 768, device=dev, generator=gen).to(dtype)
+    mask = torch.ones(2, L, dtype=torch.int32, device=dev)
+    mask[1, L // 3 :] = 0
+    seed = (2**31 - 5, -(2**31) + 3)
+    before = dict(fa.COUNTS)
+    x = qkv.clone().requires_grad_(True)
+    out = fa.flash_attention(x, mask, 12, seed=seed, drop_rate=rate)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert fa.COUNTS["fwd"] == before["fwd"] + 1 and fa.COUNTS["bwd"] == before["bwd"] + 1
+    assert fa.COUNTS["plain_fwd"] == before["plain_fwd"]
+    ref = fa.flash_attention_fwd_plain(qkv, mask, 12, seed, rate)
+    rdq = fa.flash_attention_bwd_plain(qkv, mask, go, 12, seed, rate)
+    for got, want in ((out.detach(), ref), (x.grad, rdq)):
+        assert got.dtype == dtype and got.shape == want.shape
+        tol = 1e-5 if dtype == torch.float32 else _bf16_ulp_of_max(want)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_flash_attention_rejects_unsupported(dev):
+    from haconvdr_torch.ops.flash_attention import flash_attention
+
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(torch.zeros(1, 8, 3 * 96, device=dev), torch.ones(1, 8, device=dev), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(torch.zeros(1, 3 * 768, 8, device=dev).transpose(1, 2),
+                        torch.ones(1, 8, device=dev), 12)
+
+
+def test_bf16_dense_gradient_on_the_card(dev, gen):
+    """The bf16 dense (one bf16 GEMM with a float32 result) is
+    differentiable: its gradients equal float32 products of the
+    bf16-rounded operands, rounded to bf16."""
+    from torch import nn
+
+    from haconvdr_torch.models.encoder import _dense
+
+    lin = nn.Linear(96, 40).to(dev)
+    x = torch.randn(3, 7, 96, device=dev, generator=gen).requires_grad_(True)
+    y = _dense(x, lin, torch.bfloat16)
+    assert y.dtype == torch.float32
+    g = torch.randn(y.shape, device=dev, generator=gen)
+    y.backward(g)
+    gb = g.to(torch.bfloat16).float().reshape(-1, 40)
+    wb, xb = lin.weight.to(torch.bfloat16).float(), x.detach().to(torch.bfloat16).float()
+    want_x = (gb @ wb).to(torch.bfloat16).float().reshape(x.shape)
+    want_w = (gb.T @ xb.reshape(-1, 96)).to(torch.bfloat16).float()
+    torch.testing.assert_close(x.grad, want_x, rtol=2**-7, atol=1e-6)
+    torch.testing.assert_close(lin.weight.grad, want_w, rtol=2**-7, atol=1e-6)
+    torch.testing.assert_close(lin.bias.grad, g.reshape(-1, 40).sum(0), rtol=1e-5, atol=1e-5)
+
+
+def test_two_train_steps_on_the_card(dev):
+    """make_train_step on the card with bf16 towers and int8 frozen towers:
+    two micro steps with accumulation 2 apply one update, launch the flash
+    kernels once a layer per step and the frozen int8 kernels, no plain
+    twin, and leave the frozen tower unchanged."""
+    import numpy as np
+
+    from haconvdr_torch.config import ModelConfig, TrainConfig
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.models.encoder import AnceEncoder
+    from haconvdr_torch.ops import flash_attention as fa
+    from haconvdr_torch.ops import fused_mlp
+    from haconvdr_torch.train.trainer import (
+        build_frozen_encoder,
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = ModelConfig(num_hidden_layers=2, dtype="bfloat16", remat="mlp", vocab_size=1000)
+    tcfg = TrainConfig(accumulation_steps=2, learning_rate=1e-4, is_pseudo_prepos=False,
+                       is_prepos_neg=False, frozen_dtype="int8")
+    opt = make_optimizer(tcfg, total_steps=10)
+    step = make_train_step(dev, cfg, tcfg, opt)
+    state = init_train_state(AnceEncoder.from_jax_params(init_params_numpy(cfg, 0), cfg, dev), opt)
+    frozen = build_frozen_encoder(init_params_numpy(cfg, 1), cfg, tcfg, dev)
+    before = {k: v.clone() for k, v in frozen.state_dict().items()}
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(3, 1000, (4, n)).astype(np.int32)
+             for k, n in (("conv_qp", 64), ("pos_docs", 48), ("neg_docs", 48))}
+    batch.update({f"{k}_mask": np.ones((4, n), np.int32)
+                  for k, n in (("conv_qp", 64), ("pos_docs", 48), ("neg_docs", 48))})
+    batch["valid"] = np.ones(4, np.int32)
+    c0, m0 = dict(fa.COUNTS), fused_mlp.COUNTS["kernel"]
+    losses = [float(step(state, frozen, batch)[1]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(np.isfinite(losses)) and state.global_step == 1 and state.micro_step == 0
+    assert fa.COUNTS["fwd"] - c0["fwd"] == 4 and fa.COUNTS["bwd"] - c0["bwd"] == 4
+    assert fa.COUNTS["plain_fwd"] == c0["plain_fwd"] and fa.COUNTS["plain_bwd"] == c0["plain_bwd"]
+    assert fused_mlp.COUNTS["kernel"] - m0 == 2 * 2 * 2  # 2 frozen forwards x 2 layers x 2 steps
+    for k, v in frozen.state_dict().items():
+        assert torch.equal(v, before[k]), k

@@ -41,7 +41,7 @@ def test_encode_matches_jax_f32(rng, use_mean):
     params = init_params_numpy(cfg, seed=3)
     ids, mask = _inputs(rng, cfg)
     ref = _jax_encode(params, cfg, ids, mask, use_mean)
-    enc = AnceEncoder.from_jax_params(params, cfg)
+    enc = AnceEncoder.from_jax_params(params, cfg, "cpu")
     with torch.inference_mode():
         out = enc(torch.from_numpy(ids), torch.from_numpy(mask), use_mean=use_mean)
     assert out.dtype == torch.float32 and tuple(out.shape) == (3, cfg.embedding_dim)
@@ -53,7 +53,7 @@ def test_encode_matches_jax_bf16(rng):
     params = init_params_numpy(cfg, seed=4)
     ids, mask = _inputs(rng, cfg)
     ref = _jax_encode(params, cfg, ids, mask)
-    enc = AnceEncoder.from_jax_params(params, cfg)
+    enc = AnceEncoder.from_jax_params(params, cfg, "cpu")
     with torch.inference_mode():
         out = enc(torch.from_numpy(ids), torch.from_numpy(mask))
     assert out.dtype == torch.float32

@@ -92,7 +92,7 @@ def test_params_from_jax_carries_int8_kernels(layout):
         sd["layers.1.output.weight"].numpy(), q["layers"][1]["output"]["kernel"].T
     )
     assert sd["embedding_head.weight"].dtype == torch.float32
-    enc = AnceEncoder.from_jax_params(src, cfg)
+    enc = AnceEncoder.from_jax_params(src, cfg, "cpu")
     assert enc.int8 and isinstance(enc.layers[0].intermediate, Int8Linear)
     assert set(sd) == set(enc.state_dict())
 
@@ -122,7 +122,7 @@ def test_int8_tower_matches_jax(dtype, atol, use_mean):
     ref = np.asarray(
         jenc.encode(jp, cfg, jnp.asarray(ids), jnp.asarray(mask), use_mean=use_mean)
     )
-    out = _encode(AnceEncoder.from_jax_params(quantize_encoder_params(params), cfg),
+    out = _encode(AnceEncoder.from_jax_params(quantize_encoder_params(params), cfg, "cpu"),
                   ids, mask, use_mean)
     assert out.shape == (3, cfg.embedding_dim) and np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
@@ -134,7 +134,7 @@ def _counts_of_forward(cfg, params, ids, mask):
     for mod in (fused_ln, fused_mlp):
         for k in mod.COUNTS:
             mod.COUNTS[k] = 0
-    out = _encode(AnceEncoder.from_jax_params(params, cfg), ids, mask)
+    out = _encode(AnceEncoder.from_jax_params(params, cfg, "cpu"), ids, mask)
     return out, dict(fused_ln.COUNTS), dict(fused_mlp.COUNTS)
 
 

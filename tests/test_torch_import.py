@@ -1,6 +1,8 @@
-"""The PyTorch port (haconvdr_torch): imports without JAX, refuses a CUDA
+"""The PyTorch port (haconvdr_torch): imports without JAX and without the
+JAX package, runs on the card unless told otherwise and refuses a CUDA
 device it does not have, and routes CPU tensors only to the plain twins."""
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -15,6 +17,7 @@ from haconvdr_torch.device import resolve_device, to_numpy, to_torch
 from haconvdr_torch.ops import _build, fused_attention, fused_topk
 
 PKG = pathlib.Path(haconvdr_torch.__file__).parent
+SMOKE = PKG.parent / "chip_smoke.py"
 
 
 def _modules():
@@ -25,16 +28,32 @@ def _modules():
     )
 
 
+def _smoke_imports():
+    """Every module chip_smoke.py imports, at top level or in a function."""
+    mods = set()
+    for node in ast.walk(ast.parse(SMOKE.read_text())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            mods.add(node.module)
+    return sorted(mods)
+
+
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
-    assert "haconvdr_torch.serve" in mods and "haconvdr_torch.ops.fused_topk" in mods
+    assert "haconvdr_torch.serve" in mods and "haconvdr_torch.train.trainer" in mods
+    smoke = _smoke_imports()
+    assert "haconvdr_torch.train.trainer" in smoke
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
-        f"for m in {mods!r}:\n"
+        "sys.modules['haconvdr_tpu'] = None\n"
+        f"for m in {mods + smoke!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
-        "sys.modules.items() if v is not None)\n"
+        "import chip_smoke\n"
+        "bad = [k for k, v in sys.modules.items() if v is not None and "
+        "k.split('.')[0] in ('jax', 'haconvdr_tpu')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -46,8 +65,9 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_no_jax_import_in_package():
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
-    offenders = [p.name for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    pat = re.compile(r"^\s*(import|from)\s+(jax|haconvdr_tpu)\b", re.M)
+    files = [*PKG.rglob("*.py"), SMOKE]
+    offenders = [p.name for p in files if pat.search(p.read_text())]
     assert offenders == []
 
 
@@ -57,8 +77,27 @@ def test_resolve_device_refuses_missing_cuda(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
-    assert resolve_device(None).type == "cpu"
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_entry_points_need_the_card_unless_told_cpu(monkeypatch):
+    """Each entry point that takes a device resolves None to CUDA."""
+    from haconvdr_torch.config import ModelConfig
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.models.encoder import AnceEncoder
+    from haconvdr_torch.ops.topk import BlockSearcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig.tiny()
+    params = init_params_numpy(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="is_available"):
+        AnceEncoder.from_jax_params(params, cfg)
+    with pytest.raises(RuntimeError, match="is_available"):
+        BlockSearcher(top_k=3)
+    assert next(AnceEncoder.from_jax_params(params, cfg, "cpu").parameters()).device.type == "cpu"
+    assert BlockSearcher(top_k=3, device="cpu").device.type == "cpu"
 
 
 def test_tf32_is_off():
@@ -92,6 +131,6 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_numpy_roundtrip_bfloat16():
     ml_dtypes = pytest.importorskip("ml_dtypes")
     a = np.arange(6, dtype=np.float32).reshape(2, 3) / 3
-    t = to_torch(a.astype(ml_dtypes.bfloat16))
+    t = to_torch(a.astype(ml_dtypes.bfloat16), "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(to_numpy(t), to_numpy(torch.from_numpy(a).bfloat16()))

@@ -11,6 +11,8 @@ hold exactly ``quantize_int8`` of the port's own float rows, and
 bfloat16 blocks their bfloat16 rounding.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -85,7 +87,7 @@ def test_encode_corpus_matches_jax(corpus, tmp_path, dtype, int8, atol):
     fn = jax.jit(lambda p, ids, mask: jenc.encode(p, cfg, ids, mask))
     kw = dict(batch_size=16, per_block_passage_num=32)  # blocks of 32 + 8 rows
     ref = _blocks(jax_encode_corpus(corpus, fn, jp, str(tmp_path / "jax"), **kw))
-    enc = AnceEncoder.from_jax_params(params, cfg)
+    enc = AnceEncoder.from_jax_params(params, cfg, "cpu")
     assert enc.int8 == int8
     ours = _blocks(encode_corpus(corpus, enc, str(tmp_path / "f32"), **kw))
     assert [len(i) for _, i in ours] == [32, 8]
@@ -131,6 +133,7 @@ def test_encode_corpus_multi_chunk_output_matches_jax(tmp_path):
 
     ours = _blocks(encode_corpus(
         corpus, torch_fn, str(tmp_path / "torch"), batch_size=4, per_block_passage_num=100,
+        device="cpu",
     ))
     _assert_rows_close(ours, ref, 0.0)
     np.testing.assert_array_equal(ours[0][1], [0, 1, 2, 3, 0, 1, 2, 3, 4, 5, 4, 5])
@@ -146,7 +149,7 @@ def test_encode_corpus_shards_and_numbers_blocks_like_jax(corpus, tmp_path):
     ref_store = jax_encode_corpus(
         corpus, fn, jax.tree_util.tree_map(jnp.asarray, params), str(tmp_path / "jax"), **kw
     )
-    store = encode_corpus(corpus, AnceEncoder.from_jax_params(params, cfg), str(tmp_path / "t"), **kw)
+    store = encode_corpus(corpus, AnceEncoder.from_jax_params(params, cfg, "cpu"), str(tmp_path / "t"), **kw)
     assert _block_ids(store) == _block_ids(ref_store) == [4, 5]
     ours = [store.read_block(b) for b in _block_ids(store)]
     _assert_rows_close(ours, [ref_store.read_block(b) for b in _block_ids(ref_store)], 1e-5)
@@ -169,7 +172,7 @@ def test_hf_checkpoint_roundtrip_across_packages(tmp_path, model_type):
     for src in ("jax", "torch"):
         ours, ours_cfg = thf.load_hf_checkpoint(str(tmp_path / src), model_type)
         ref, ref_cfg = jhf.load_hf_checkpoint(str(tmp_path / src), model_type)
-        assert ours_cfg == ref_cfg
+        assert dataclasses.asdict(ours_cfg) == dataclasses.asdict(ref_cfg)
         _assert_trees_equal(ours, ref)
         _assert_trees_equal(ours, params)
     sd = thf.state_dict_from_params(params, cfg)
@@ -209,7 +212,7 @@ def test_cli_matches_the_jax_cli(corpus, checkpoint, tmp_path, int8, shard):
         *shard,
     ]
     jax_main(args + [f"index.data_output_path={tmp_path / 'jax'}"])
-    store = torch_main(args + [f"index.data_output_path={tmp_path / 'torch'}"])
+    store = torch_main(args + [f"index.data_output_path={tmp_path / 'torch'}", "--device", "cpu"])
     ref_store = EmbeddingBlockStore(str(tmp_path / "jax"))
     assert _block_ids(store) == _block_ids(ref_store)
     assert _block_ids(store)[0] == (3 if shard else 0)
@@ -218,3 +221,64 @@ def test_cli_matches_the_jax_cli(corpus, checkpoint, tmp_path, int8, shard):
                        2e-3 if int8 else 1e-5)
     ids = np.concatenate([i for _, i in ours])
     np.testing.assert_array_equal(ids, np.arange(1 if shard else 0, N_PASSAGES, 2 if shard else 1))
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_stores_read_across_packages(tmp_path, writer):
+    """The port keeps its own copy of index/store.py: a store or tokenized
+    corpus written by either package reads the same in the other (npy
+    blocks in f32, int8 with scales and bf16, reference pickle blocks,
+    the offset/pid pickles)."""
+    from haconvdr_tpu.index import store as jstore
+    from haconvdr_torch.index import store as tstore
+
+    w_mod, r_mod = (jstore, tstore) if writer == "jax" else (tstore, jstore)
+    rng = np.random.default_rng(5)
+    emb = rng.standard_normal((20, 8)).astype(np.float32)
+    ids = np.arange(20, dtype=np.int64) * 3 + 1
+    codes, scale = quantize_int8(emb)
+    out = w_mod.EmbeddingBlockStore(str(tmp_path / "npy"))
+    out.write_block(0, emb, ids)
+    out.write_block(1, codes, ids, scale=scale)
+    out.write_block(2, emb.astype(ml_dtypes.bfloat16), ids)
+    w_mod.EmbeddingBlockStore(str(tmp_path / "pb"), fmt="pickle").write_block(0, emb, ids)
+    back = r_mod.EmbeddingBlockStore(str(tmp_path / "npy"))
+    assert back.num_blocks() == 3
+    for b, want in enumerate([emb, codes, emb.astype(ml_dtypes.bfloat16)]):
+        e, i = back.read_block(b)
+        assert e.dtype == want.dtype
+        np.testing.assert_array_equal(e, want)
+        np.testing.assert_array_equal(i, ids)
+    np.testing.assert_array_equal(back.block_scale(1), scale)
+    np.testing.assert_array_equal(list(back.iter_blocks())[1][0], codes.astype(np.float32) * scale)
+    e, i = r_mod.EmbeddingBlockStore.open_auto(str(tmp_path / "pb")).read_block(0)
+    np.testing.assert_array_equal(e, emb)
+    w = w_mod.TokenizedCorpusWriter(str(tmp_path / "tok"), max_seq_length=6)
+    for pid in range(7):
+        w.add(900 + pid, list(range(1, 2 + pid)))
+    w.finalize()
+    corpus, ref = r_mod.TokenizedCorpus(str(tmp_path / "tok")), w_mod.TokenizedCorpus(str(tmp_path / "tok"))
+    assert len(corpus) == 7 and corpus.offset2pid() == ref.offset2pid()
+    for got, want in zip(corpus.batches(3), ref.batches(3)):
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_cli_refuses_to_run_without_the_card(corpus, checkpoint, tmp_path, monkeypatch):
+    """No fallback: without a card the CLI raises before it reads
+    anything, unless it is given --device cpu."""
+    from haconvdr_torch.cli.gen_doc_embeddings import main as torch_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [
+        f"model.pretrained_encoder_path={checkpoint}",
+        f"index.tokenized_dir={corpus.dir_path}",
+        f"index.data_output_path={tmp_path / 'out'}",
+    ]
+    with pytest.raises(RuntimeError, match="is_available"):
+        torch_main(args)
+    with pytest.raises(RuntimeError, match="is_available"):
+        torch_main(args + ["--device=cuda"])
+    assert not (tmp_path / "out").exists()
+    store = torch_main(args + ["--device=cpu"])
+    assert store.num_blocks() == 1

@@ -18,8 +18,15 @@ from haconvdr_torch.index import quantize as tq
 
 
 def test_numpy_functions_are_the_shared_ones():
-    assert tq.quantize_int8 is jq.quantize_int8
-    assert tq.dequantize_int8 is jq.dequantize_int8
+    """The port keeps its own copy of the numpy pair (it imports nothing of
+    the JAX package); the copy gives the same codes, scales and rows."""
+    assert tq.quantize_int8 is not jq.quantize_int8
+    emb = np.random.default_rng(0).standard_normal((50, 8)).astype(np.float32)
+    emb[:, 3] = 0.0
+    (codes, scale), (rc, rs) = tq.quantize_int8(emb), jq.quantize_int8(emb)
+    np.testing.assert_array_equal(codes, rc)
+    np.testing.assert_array_equal(scale, rs)
+    np.testing.assert_array_equal(tq.dequantize_int8(codes, scale), jq.dequantize_int8(rc, rs))
 
 
 @pytest.mark.parametrize("shape", [(300, 16), (7, 64), (70_000, 4)])

@@ -67,7 +67,7 @@ def _pair(setup, store="store", retriever_kw=None, **search_kw):
         **(retriever_kw or {}),
     )
     jr = JaxRetriever(setup["tok"], setup["params"], setup["cfg"], setup[store], **kw)
-    tr = Retriever(setup["tok"], setup["params"], setup["cfg"], setup[store], **kw)
+    tr = Retriever(setup["tok"], setup["params"], setup["cfg"], setup[store], **kw, device="cpu")
     return jr, tr
 
 
@@ -92,7 +92,7 @@ def test_streaming_retriever_matches_jax(setup):
     tr = Retriever(
         setup["tok"], setup["params"], setup["cfg"], setup["store"],
         offset2pid=setup["offset2pid"], data_cfg=setup["data_cfg"],
-        search_cfg=SearchConfig(top_k=8), resident=False,
+        search_cfg=SearchConfig(top_k=8), resident=False, device="cpu",
     )
     for question, history in QUERIES:
         _assert_same(tr.retrieve(question, history), jr.retrieve(question, history))
@@ -156,6 +156,7 @@ def test_int8_over_a_device_tensor_quantizes_on_the_device(setup):
     tr = Retriever(
         setup["tok"], setup["params"], setup["cfg"], torch.from_numpy(emb),
         data_cfg=setup["data_cfg"], search_cfg=SearchConfig(top_k=5), store_dtype="int8",
+        device="cpu",
     )
     codes, scale = quantize_int8(emb)
     np.testing.assert_array_equal(tr.index.passages.numpy(), codes)
@@ -246,7 +247,7 @@ def test_int8_tower_retriever_matches_jax(setup, dtype, atol):
         search_cfg=SearchConfig(top_k=8), encoder_int8=True,
     )
     jr = JaxRetriever(setup["tok"], setup["params"], cfg, setup["store"], **kw)
-    tr = Retriever(setup["tok"], setup["params"], cfg, setup["store"], **kw)
+    tr = Retriever(setup["tok"], setup["params"], cfg, setup["store"], **kw, device="cpu")
     assert tr.encoder.int8
     exs = [tr.build_query(q, h) for q, h in QUERIES]
     qt, qj = tr.embed(exs), jr.embed(exs)
@@ -271,7 +272,7 @@ def test_retriever_over_a_device_tensor(setup):
     emb = torch.from_numpy(rng.randn(50, setup["cfg"].embedding_dim).astype(np.float32))
     tr = Retriever(
         setup["tok"], setup["params"], setup["cfg"], emb,
-        data_cfg=setup["data_cfg"], search_cfg=SearchConfig(top_k=5),
+        data_cfg=setup["data_cfg"], search_cfg=SearchConfig(top_k=5), device="cpu",
     )
     q = tr.embed([tr.build_query("hello there")])
     s, i = tr.search(q)
@@ -281,5 +282,5 @@ def test_retriever_over_a_device_tensor(setup):
         Retriever(
             setup["tok"], setup["params"], setup["cfg"], emb,
             data_cfg=setup["data_cfg"],
-            search_cfg=SearchConfig(top_k=5, rescore_oversample=2.0),
+            search_cfg=SearchConfig(top_k=5, rescore_oversample=2.0), device="cpu",
         ).search(q)

@@ -105,7 +105,7 @@ def test_block_searcher_streams_blocks_like_jax(rng, k):
     path for k > 128) against JAX BlockSearcher(use_pallas=False)."""
     q = rng.randn(20, 16).astype(np.float32)
     blocks = _blocks(rng, [300, 256, 130], 16)
-    port = BlockSearcher(top_k=k, passage_chunk=128, query_chunk=8)
+    port = BlockSearcher(device="cpu", top_k=k, passage_chunk=128, query_chunk=8)
     s, i = port.search(q, blocks)
     ref = jtopk.BlockSearcher(top_k=k, passage_chunk=128, use_pallas=False)
     js, ji = ref.search(q, blocks)
@@ -116,7 +116,7 @@ def test_block_searcher_streams_blocks_like_jax(rng, k):
 def test_block_searcher_with_top_k_and_small_corpus(rng):
     q = rng.randn(4, 8).astype(np.float32)
     blocks = _blocks(rng, [3, 2], 8)
-    port = BlockSearcher(top_k=5).with_top_k(9)
+    port = BlockSearcher(device="cpu", top_k=5).with_top_k(9)
     assert port.top_k == 9
     s, i = port.search(q, blocks)
     ref = jtopk.BlockSearcher(top_k=9, passage_chunk=64, use_pallas=False)
@@ -128,14 +128,14 @@ def test_block_searcher_with_top_k_and_small_corpus(rng):
 
 def test_block_searcher_rejects_ids_past_int32(rng):
     with pytest.raises(ValueError, match="int32"):
-        BlockSearcher(top_k=2).search(
+        BlockSearcher(device="cpu", top_k=2).search(
             np.ones((1, 4), np.float32), [(np.ones((8, 4), np.float32), np.arange(8) + 2**31)]
         )
     emb = rng.randint(-127, 127, (8, 4)).astype(np.int8)
     with pytest.raises(ValueError, match="scale"):  # raw codes never score unscaled
-        BlockSearcher(top_k=2).search(np.ones((1, 4), np.float32), [(emb, np.arange(8))])
+        BlockSearcher(device="cpu", top_k=2).search(np.ones((1, 4), np.float32), [(emb, np.arange(8))])
     with pytest.raises(ValueError, match="superblock_rows"):
-        BlockSearcher(superblock_dtype="int8")
+        BlockSearcher(device="cpu", superblock_dtype="int8")
 
 
 def _int8_blocks(rng, sizes, D):
@@ -154,7 +154,7 @@ def test_block_searcher_int8_blocks_match_jax(rng, k):
     package's XLA path does."""
     q = rng.randn(12, 16).astype(np.float32)
     blocks = _int8_blocks(rng, [300, 256, 130], 16)
-    s, i = BlockSearcher(top_k=k, query_chunk=8).search(q, blocks)
+    s, i = BlockSearcher(device="cpu", top_k=k, query_chunk=8).search(q, blocks)
     ref = jtopk.BlockSearcher(top_k=k, passage_chunk=128, use_pallas=False)
     js, ji = ref.search(q, blocks)
     np.testing.assert_array_equal(i, ji)
@@ -168,7 +168,7 @@ def test_block_searcher_superblocks_match_jax(rng, v4_min_rows):
     v4_min_rows=0, v3 below the default) and merged."""
     q = rng.randn(10, 16).astype(np.float32)
     blocks = _blocks(rng, [300, 256, 130], 16)
-    port = BlockSearcher(top_k=11, superblock_rows=256, v4_min_rows=v4_min_rows)
+    port = BlockSearcher(device="cpu", top_k=11, superblock_rows=256, v4_min_rows=v4_min_rows)
     before = dict(topk_v4.COUNTS)
     s, i = port.search(q, blocks)
     assert (topk_v4.COUNTS["plain"] > before["plain"]) == (v4_min_rows == 0)
@@ -193,12 +193,12 @@ def test_block_searcher_int8_superblock_accumulator_matches_jax(rng, kind):
         blocks = _blocks(rng, [300, 256, 130], 16)
         scale = quantize_int8(np.concatenate([b[0] for b in blocks]))[1]
     kw = dict(top_k=7, superblock_rows=256, superblock_dtype="int8", superblock_scale=scale)
-    s, i = BlockSearcher(**kw).search(q, blocks)
+    s, i = BlockSearcher(device="cpu", **kw).search(q, blocks)
     js, ji = jtopk.BlockSearcher(passage_chunk=128, use_pallas=False, **kw).search(q, blocks)
     np.testing.assert_array_equal(i, ji)
     np.testing.assert_allclose(s, js, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="superblock_scale"):
-        BlockSearcher(top_k=7, superblock_rows=256, superblock_dtype="int8").search(q, blocks)
+        BlockSearcher(device="cpu", top_k=7, superblock_rows=256, superblock_dtype="int8").search(q, blocks)
 
 
 def test_block_searcher_first_block_routes_v4(rng, monkeypatch):
@@ -219,12 +219,12 @@ def test_block_searcher_first_block_routes_v4(rng, monkeypatch):
     blocks = _blocks(rng, [700, 500], 16)
     ref = jtopk.BlockSearcher(top_k=9, passage_chunk=128, use_pallas=False)
     js, ji = ref.search(q, blocks)
-    s, i = BlockSearcher(top_k=9, v4_min_rows=600).search(q, blocks)
+    s, i = BlockSearcher(device="cpu", top_k=9, v4_min_rows=600).search(q, blocks)
     assert calls == [700]
     np.testing.assert_array_equal(i, ji)
     np.testing.assert_allclose(s, js, rtol=1e-5)
     calls.clear()
-    BlockSearcher(top_k=9).search(q, blocks)  # below the default: v3 only
+    BlockSearcher(device="cpu", top_k=9).search(q, blocks)  # below the default: v3 only
     assert calls == []
 
 
