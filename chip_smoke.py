@@ -26,7 +26,10 @@ order; any failure raises and the script exits non-zero:
    tower's flash-attention forward and backward at B 8, L 512, 12 heads,
    float32 and bfloat16, dropout 0 and 0.1, and at phase 9's shape (B 64,
    query lengths 64-512, bfloat16, dropout 0.1; the same seed words to
-   both);
+   both); the streaming top-k (row 7, on no path) at Q = 256 over the
+   first 2,498,560 rows (a multiple of both dtypes' p_chunk * group),
+   n_valid = N - 1,000, float32 and bfloat16, also bit for bit against the
+   unseeded v3 kernel on the same rows;
    each row also carries its bound (bytes over 3.35 TB/s or operations
    over the peak of the type the work could run in) and, where one
    PyTorch call computes the same function, that call's time;
@@ -71,10 +74,25 @@ order; any failure raises and the script exits non-zero:
    examples of the micro steps after TRAIN_WARM over their wall time, the
    median step's rate beside it), peak memory, the device idle share of
    one profiled accumulation window (1 - kernel time / that window's
-   wall time) and the top device operations.
-Each of phases 4-9 zeroes every launch count just before it and reads
-them just after: each kernel of that path must have launched, and no
-plain twin may have run.
+   wall time) and the top device operations;
+10. offline evaluation (retrieval.py) at full width: 64 TopiOCQA-format
+   conversations of 8 turns (512 test queries, convqp inputs up to 512
+   tokens, HashTokenizer) through the float32 tower at batch 64, then
+   gen_metric_score_and_save over an on-disk EmbeddingBlockStore of two
+   float32 blocks (2,500,000 rows: the v4 search; 500,000 rows: the seeded
+   v3 kernel; N(0, 1) rows made on the card) in a temporary directory,
+   with every query's embedding planted at a seeded offset, a seeded
+   offset2pid read back through passage_offset2pid_path and a qrel file of
+   the golds: MRR, NDCG@3, Recall@10 and Recall@100 must be 100.0, and the
+   TREC run must equal the plain twins' exact top-100 of the same
+   embeddings over the same rows.  Then run_prj_labeling, with its own
+   encode, over 96 probes of 32 conversations (-0..-2), a seeded subset of
+   the non-base probes planted with gold qrels: the labels must equal the
+   plants.  It prints seconds per stage, queries/s and peak memory.
+Each of phases 4-10 zeroes every launch count just before it (phase 10:
+before the encode, the search and the labeling) and reads them just
+after: each kernel of that path must have launched, and no plain twin may
+have run.
 
 Tolerances (kernel vs plain twin on the same inputs):
   attention float32  max |diff| <= 1e-4
@@ -113,6 +131,10 @@ Tolerances (kernel vs plain twin on the same inputs):
                      kernel tower's minimum cosine to the f32 float tower
                      must also be within TOWER_COS_SLACK = 2e-4 of the
                      plain-twin tower's (phase 7)
+  streaming top-k    as float scores above, and equal to the unseeded v3
+                     kernel bit for bit (one fmaf chain, one merge)
+  offline eval run   as top-k ids and scores above, against the plain
+                     twins' top-100
   train micro step   the trained tower through the kernels vs through
                      its plain twins, the same int8 frozen towers (phase
                      9a): loss within TRAIN_LOSS_RTOL = 1% and the whole
@@ -167,6 +189,15 @@ TRAIN_MICRO, TRAIN_ACC, TRAIN_WARM = 8, 2, 2
 TRAIN_LR = 2e-6
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 0.01, 0.05
 FLASH_MAIN = f"bfloat16, drop 0.1, B {TRAIN_B}"  # rows 11-12 at phase 9's shape
+# row 7 (phase 3): the first rows of the index, a multiple of both dtypes'
+# p_chunk * group (1220 x 2048 = 610 x 4096)
+N_STREAM = 2_498_560
+# phase 10: 64 TopiOCQA-format conversations of 8 turns over a store of the
+# reference's 2.5M-row faiss block and a 500,000-row second block; PRJ over
+# 32 conversations' probes -0..-2, PRJ_PLANTED of the 64 non-base ones planted
+EVAL_CONVS, EVAL_TURNS = 64, 8
+EVAL_BLOCKS = (2_500_000, 500_000)
+PRJ_CONVS, PRJ_PLANTED = 32, 24
 WORDS = [f"w{i}" for i in range(5000)]
 # the card's peaks (NVIDIA H100 SXM data sheet, dense) and memory rate
 PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -272,11 +303,13 @@ def _count_modules():
         fused_ln,
         fused_mlp,
         fused_topk,
+        topk_stream,
         topk_v4,
     )
 
     return {"fused_attention": fused_attention, "fused_topk": fused_topk, "topk_v4": topk_v4,
-            "fused_ln": fused_ln, "fused_mlp": fused_mlp, "flash_attention": flash_attention}
+            "fused_ln": fused_ln, "fused_mlp": fused_mlp, "flash_attention": flash_attention,
+            "topk_stream": topk_stream}
 
 
 def zero_counts():
@@ -381,6 +414,38 @@ def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
                              **search_bound(p, Q_KERNEL, n_valid, name, Q_KERNEL * TOP_K * 8)))
         del p
     del extra
+    torch.cuda.empty_cache()
+
+
+def kernels_stream(dev, g, passages_f32, rows):
+    """Row 7: the streaming top-k over the first N_STREAM rows (a view),
+    float32 and bfloat16, against its plain twin and, bit for bit, against
+    the unseeded v3 kernel on the same rows (one fmaf chain in both)."""
+    from haconvdr_torch.ops import topk_stream as ts
+    from haconvdr_torch.ops.fused_topk import fused_topk_block
+
+    q = torch.randn(Q_KERNEL, DIM, device=dev, generator=g)
+    n_valid = N_STREAM - N_PAD
+    for name in ("float32", "bfloat16"):
+        p = passages_f32[:N_STREAM]
+        if name == "bfloat16":
+            p = p.to(torch.bfloat16)
+        s, i = ts.topk_block_v2(q, p, n_valid, TOP_K)
+        torch.cuda.synchronize()
+        rs, ri = ts.topk_block_v2_plain(q, p, n_valid, TOP_K)
+        err = compare_topk(s, i, rs, ri, f"topk_stream {name}")
+        check(int(i.max()) < n_valid, f"topk_stream {name}: a row past n_valid surfaced")
+        vs, vi = fused_topk_block(q, p, n_valid, TOP_K)
+        check(torch.equal(s, vs) and torch.equal(i, vi),
+              f"topk_stream {name}: not bit-equal to the unseeded v3 kernel")
+        rows.append(dict(kernel="topk_stream", config=name, max_abs_err=err,
+                         ms=cuda_ms(lambda: ts.topk_block_v2(q, p, n_valid, TOP_K), 3),
+                         plain_ms=cuda_ms(lambda: ts.topk_block_v2_plain(q, p, n_valid, TOP_K), 3),
+                         v3_ms=cuda_ms(lambda: fused_topk_block(q, p, n_valid, TOP_K), 3),
+                         bit_equal_v3=True, library_ms=None,
+                         shape=[Q_KERNEL, N_STREAM, DIM, TOP_K],
+                         **search_bound(p, Q_KERNEL, n_valid, name, Q_KERNEL * TOP_K * 8)))
+        del p, s, i, rs, ri, vs, vi
     torch.cuda.empty_cache()
 
 
@@ -726,6 +791,7 @@ def phase_kernels(seed: int, dev, passages_f32, codes, scale):
     kernels_v4(dev, g, passages_f32, codes, scale, rows)
     kernels_int8_tower(dev, g, rows)
     kernels_flash(dev, g, rng, rows)
+    kernels_stream(dev, g, passages_f32, rows)
     return rows
 
 
@@ -1313,6 +1379,291 @@ def phase_training(seed: int, dev, card: str):
     return counts, metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 10: offline evaluation
+# ---------------------------------------------------------------------------
+
+class TimedStore:
+    """An EmbeddingBlockStore that times each block: the host read up to
+    the yield, then (synchronized) everything the searcher does with the
+    block before it asks for the next one: the copy to the card, the
+    search and the merge."""
+
+    def __init__(self, store):
+        self.store = store
+        self.read_s, self.block_s = [], []
+
+    def global_scale(self):
+        return self.store.global_scale()
+
+    def iter_blocks(self, num_blocks=-1, with_scales=False):
+        t = time.perf_counter()
+        for blk in self.store.iter_blocks(num_blocks, with_scales):
+            now = time.perf_counter()
+            self.read_s.append(now - t)
+            yield blk
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            self.block_s.append(t - now)
+
+
+def words(rng, lo: int, hi: int) -> str:
+    """lo to hi (inclusive) words of WORDS."""
+    return " ".join(rng.choice(WORDS, int(rng.integers(lo, hi + 1))))
+
+
+def eval_records(seed: int):
+    """TopiOCQA-format test records: EVAL_CONVS conversations of EVAL_TURNS
+    turns, each turn a 4-14 word question with a gold passage of 150-250
+    words; rel_label covers the prior turns."""
+    rng = np.random.default_rng(seed)
+    return [{"sample_id": f"TopiOCQA-test_{c + 1}_{t + 1}", "cur_utt_text": words(rng, 4, 14),
+             "last_response": words(rng, 5, 30) if t else "",
+             "pos_docs": [words(rng, 150, 250)], "pos_docs_pids": [0],
+             "rel_label": [int(x) for x in rng.integers(0, 2, t)]}
+            for c in range(EVAL_CONVS) for t in range(EVAL_TURNS)]
+
+
+def prj_records(seed: int):
+    """PRJ probes of PRJ_CONVS conversations at turn 3: '-0' the bare
+    question, '-1' and '-2' paired with a history question."""
+    rng = np.random.default_rng(seed)
+    probes = []
+    for c in range(PRJ_CONVS):
+        q = words(rng, 4, 14)
+        for k in range(3):
+            probes.append({"id": f"{c + 1}-3-{k}", "conv_id": str(c + 1), "turn_id": "3",
+                           "query": q, "query_pair": words(rng, 4, 14) if k else "",
+                           "last_response": "", "pos_docs_id": []})
+    return probes
+
+
+def store_dir(need: int):
+    """(directory, second block's rows): the first of the temporary
+    directory and the checkout's build/ with room for the store; if neither
+    has room, the second block shrinks to fit the roomiest (the first
+    block, the reference's faiss block, never does)."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    margin = 2 << 30
+    row_bytes = DIM * 4 + 8
+    cands = [pathlib.Path(tempfile.gettempdir()),
+             pathlib.Path(__file__).resolve().parent / "build"]
+    cands[1].mkdir(exist_ok=True)
+    free = [(shutil.disk_usage(c).free, c) for c in cands]
+    for f, c in free:
+        if f >= need + margin:
+            return c, EVAL_BLOCKS[1]
+    f, c = max(free)
+    second = (f - margin) // row_bytes - EVAL_BLOCKS[0]
+    check(second > 0, f"no room for the eval store: {[(str(c), f) for f, c in free]}")
+    return c, int(second)
+
+
+def phase_offline_eval(seed: int, dev, params, cfg, card: str):
+    """Phase 10: retrieval.py end to end at full width over an on-disk store
+    of two float32 blocks (v4 on the first, seeded v3 on the second), then
+    PRJ labeling over the same store."""
+    import tempfile
+
+    from haconvdr_torch import retrieval
+    from haconvdr_torch.config import DataConfig, ExperimentConfig, SearchConfig
+    from haconvdr_torch.data.prj import build_prj_probe_examples
+    from haconvdr_torch.eval.trec import dedup_ranked_candidates
+    from haconvdr_torch.index.store import EmbeddingBlockStore
+    from haconvdr_torch.models.encoder import AnceEncoder
+    from haconvdr_torch.ops import topk_v4
+    from haconvdr_torch.ops.fused_topk import (
+        _finish,
+        fused_topk_block_plain,
+        order_keys,
+        top_keys,
+    )
+    from haconvdr_torch.utils.io import pstore
+    from haconvdr_torch.utils.testing import HashTokenizer
+
+    stages = {}
+    root, second = store_dir(sum(EVAL_BLOCKS) * (DIM * 4 + 8))
+    blocks = (EVAL_BLOCKS[0], second)
+    n_rows = sum(blocks)
+    print(f"offline eval: store of {blocks[0]} + {blocks[1]} float32 rows "
+          f"({n_rows * DIM * 4 / 1e9:.2f} GB) under {root}"
+          + ("" if second == EVAL_BLOCKS[1] else f" (second block cut from {EVAL_BLOCKS[1]})"))
+    tok = HashTokenizer(cfg.vocab_size)
+    encoder = AnceEncoder.from_jax_params(params, cfg, dev)
+    rng = np.random.default_rng(seed + 70)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        test_file = f"{tmp}/test.json"
+        with open(test_file, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in eval_records(seed + 71))
+        ecfg = ExperimentConfig(
+            data=DataConfig(dataset="topiocqa", test_file_path=test_file, is_train=False,
+                            use_PRL=False),  # the published convqp input, up to 512 tokens
+            model=cfg,
+            search=SearchConfig(passage_embeddings_dir_path=f"{tmp}/emb",
+                                passage_offset2pid_path=f"{tmp}/offset2pid.pickle",
+                                top_k=TOP_K, per_device_test_batch_size=64,
+                                qrel_output_path=f"{tmp}/out",
+                                trec_gold_qrel_file_path=f"{tmp}/qrel.trec"),
+        )
+        run_file = f"{ecfg.search.qrel_output_path}/{ecfg.search.output_trec_file}"
+        # ---- the test queries: examples, then the tower
+        t = time.perf_counter()
+        examples = retrieval.build_test_examples(ecfg, tok)
+        stages["build_examples_s"] = time.perf_counter() - t
+        lens = [sum(e["conv_qp_mask"]) for e in examples]
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        embs, qids = retrieval.get_test_query_embeddings(ecfg, encoder, examples=examples)
+        stages["encode_s"] = time.perf_counter() - t
+        stages["encode_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        counts = read_counts()
+        n_q = len(qids)
+        check(embs.shape == (EVAL_CONVS * EVAL_TURNS, cfg.embedding_dim)
+              and np.isfinite(embs).all(), "offline eval: query embeddings misshapen")
+        # ---- the PRJ probes' embeddings, for their plants (the labeling
+        # below encodes them again itself)
+        probes = prj_records(seed + 72)
+        with open(f"{tmp}/probes.json", "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in probes)
+        p_emb, p_ids = retrieval.get_test_query_embeddings(
+            ecfg, encoder, examples=build_prj_probe_examples(ecfg.data, tok, f"{tmp}/probes.json"),
+            query_key="pair_query")
+        non_base = [j for j, pid in enumerate(p_ids) if not pid.endswith("-0")]
+        planted = sorted(rng.choice(non_base, PRJ_PLANTED, replace=False).tolist())
+        # ---- the store: N(0, 1) rows made on the card, every test query's
+        # and every planted probe's embedding at a seeded offset, one per v4
+        # window (sw rows), so that no window holds two.  Plants are scaled
+        # to one norm, sqrt(D): LayerNorm leaves the towers' norms a hair
+        # apart, and a neighbour of marginally larger norm must not outscore
+        # a query's own row
+        plants = np.concatenate([embs, p_emb[planted]])
+        plants = (plants / np.linalg.norm(plants, axis=1, keepdims=True)
+                  * np.sqrt(DIM)).astype(np.float32)
+        sw, _ = topk_v4.resolve_select_geometry(blocks[0], torch.float32)
+        offsets = rng.choice(n_rows // sw, len(plants), replace=False) * sw
+        offsets += rng.integers(0, sw, len(plants))
+        offset2pid = rng.permutation(n_rows)
+        pstore([int(x) for x in offset2pid], ecfg.search.passage_offset2pid_path)
+        with open(ecfg.search.trec_gold_qrel_file_path, "w") as f:
+            f.writelines(f"{q} 0 {offset2pid[o]} 1\n" for q, o in zip(qids, offsets))
+        # probe qrels: a planted probe's gold is its row; every other
+        # probe's gold is a pid no row holds (its MRR is 0)
+        gold = {p_ids[j]: int(offset2pid[o]) for j, o in zip(planted, offsets[n_q:])}
+        with open(f"{tmp}/probe_qrel.trec", "w") as f:
+            f.writelines(f"{pid} Q0 {gold.get(pid, n_rows + j)} 1\n"
+                         for j, pid in enumerate(p_ids))
+        # each block is written, then scanned by the plain twins while it is
+        # on the card: their exact top-k keys (offsets as ids) and each
+        # query's best score over rows that hold no plant
+        g = torch.Generator(device=dev).manual_seed(seed + 73)
+        store = EmbeddingBlockStore(f"{tmp}/emb")
+        q = torch.from_numpy(embs).to(dev)
+        keys, best_random, base = [], torch.full((n_q,), float("-inf"), device=dev), 0
+        t = time.perf_counter()
+        for b, rows in enumerate(blocks):
+            emb = torch.randn(rows, DIM, device=dev, generator=g)
+            sel = (offsets >= base) & (offsets < base + rows)
+            here = torch.from_numpy(offsets[sel] - base).to(dev)
+            emb[here] = torch.from_numpy(plants[sel]).to(dev)
+            store.write_block(b, emb.cpu().numpy(), np.arange(base, base + rows, dtype=np.int64))
+            s, i = fused_topk_block_plain(q, emb, rows, TOP_K)
+            keys.append(order_keys(s, torch.where(i >= 0, i.long() + base, -1)))
+            emb[here] = 0.0  # planted rows score 0: out of the random maximum
+            for c0 in range(0, rows, 1 << 18):
+                best_random = torch.maximum(best_random, (q @ emb[c0:c0 + (1 << 18)].T).amax(1))
+            del emb
+            base += rows
+        torch.cuda.synchronize()
+        stages["store_write_and_reference_s"] = time.perf_counter() - t
+        rs, ri = _finish(top_keys(torch.cat(keys, 1), TOP_K))
+        self_s = (q * torch.from_numpy(plants[:n_q]).to(dev)).sum(1)
+        margin = float((self_s - best_random).min())
+        nearest = float((rs[:, 0] - rs[:, 1]).min())
+        del q, keys
+        torch.cuda.empty_cache()
+        # ---- search + dedup + TREC run + metrics, counted after the encode
+        timed = TimedStore(store)
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = retrieval.gen_metric_score_and_save(ecfg, embs, qids, store=timed, device=dev)
+        stages["search_write_eval_s"] = time.perf_counter() - t
+        stages["search_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        for mod, c in read_counts().items():
+            for key, n in c.items():
+                counts[mod][key] += n
+        stages["block_read_s"], stages["block_search_s"] = timed.read_s, timed.block_s
+        stages["dedup_write_eval_s"] = (stages["search_write_eval_s"] - sum(timed.read_s)
+                                        - sum(timed.block_s))
+        print("offline eval launch counts:", json.dumps(counts))
+        n_batches = -(-n_q // 64)
+        check(counts["fused_attention"]["kernel"] == cfg.num_hidden_layers * n_batches,
+              f"offline eval: attention launched {counts['fused_attention']['kernel']} times, "
+              f"not {cfg.num_hidden_layers} x {n_batches}")
+        check_counts(counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
+                              ("topk_v4", "select_t"), ("topk_v4", "select"),
+                              ("topk_v4", "rescore"), ("fused_topk", "kernel")], "offline eval")
+        print(f"offline eval: v3_fallback {counts['topk_v4']['v3_fallback']}")
+        print("offline eval metrics:", json.dumps(res))
+        for key in ("MRR", "NDCG@3", "Recall@10", "Recall@100"):
+            check(res.get(key) == 100.0, f"offline eval: {key} {res.get(key)}, not 100.0")
+        check(margin > 0, f"offline eval: a random row outscores a planted query ({margin})")
+        # ---- the run against the plain twins' top-k, mapped and deduped
+        # the same way: every column in the reference's layout
+        ref = dedup_ranked_candidates(qids, rs.cpu().numpy(), ri.cpu().numpy(), offset2pid, TOP_K)
+        with open(run_file) as f:
+            lines = [line.split() for line in f]
+        check(len(lines) == n_q * TOP_K and all(
+            x[:2] == [qids[j // TOP_K], "Q0"] and x[3:5] == [str(j % TOP_K + 1),
+                                                             str(199 - j % TOP_K)]
+            and x[6] == "ance" for j, x in enumerate(lines)),
+            "offline eval: TREC run out of the reference's layout")
+        got_s = torch.tensor([float(x[5]) for x in lines]).view(n_q, TOP_K)
+        got_i = torch.tensor([int(x[2]) for x in lines]).view(n_q, TOP_K)
+        ref_s = torch.tensor([[x[1] for x in ref[qid]] for qid in qids])
+        ref_i = torch.tensor([[x[0] for x in ref[qid]] for qid in qids])
+        err = compare_topk(got_s, got_i, ref_s, ref_i, "offline eval TREC run")
+        stages["max_abs_err"] = err
+        print(f"offline eval: {n_q} queries (conv_qp {min(lens)}-{max(lens)} tokens); the TREC "
+              f"run equals the plain twins' (max |diff| {err:.3g}); self-score minus the best "
+              f"random row >= {margin:.2f}, minus the next row >= {nearest:.4g}")
+        # ---- PRJ labeling with its own encode over the same store
+        timed = TimedStore(store)
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rel = retrieval.run_prj_labeling(ecfg, encoder, probes, f"{tmp}/probe_qrel.trec", tok,
+                                         store=timed)
+        stages["prj_s"] = time.perf_counter() - t
+        stages["prj_block_read_s"], stages["prj_block_search_s"] = timed.read_s, timed.block_s
+        prj_counts = read_counts()
+        print("PRJ launch counts:", json.dumps(prj_counts))
+        check(prj_counts["fused_attention"]["kernel"]
+              == cfg.num_hidden_layers * -(-len(probes) // 64), "PRJ: attention launches")
+        check_counts(prj_counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
+                                  ("fused_topk", "kernel")], "PRJ")
+        want = {}
+        for c in range(PRJ_CONVS):
+            want[f"{c + 1}-1"] = []
+            want[f"{c + 1}-3"] = [int(f"{c + 1}-3-{k}" in gold) for k in (1, 2)]
+        check(rel == want, f"PRJ: labels differ from the plants: {rel} vs {want}")
+        print(f"PRJ: {len(probes)} probes, {len(gold)} planted: the labels equal the plants "
+              f"({sum(map(sum, rel.values()))} ones)")
+    stages["eval_queries_per_s"] = n_q / (stages["encode_s"] + stages["search_write_eval_s"])
+    stages["v3_fallback"] = counts["topk_v4"]["v3_fallback"]
+    stages["metrics"] = res
+    print("offline eval e2e:", json.dumps(stages), f"[{card}]")
+    del encoder
+    torch.cuda.empty_cache()
+    return counts, stages
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1358,10 +1709,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     c8, _ = phase_corpus_encode(args.seed, dev, params, cfg, card)
     c9, _ = phase_training(args.seed, dev, card)
+    c10, _ = phase_offline_eval(args.seed, dev, params, cfg, card)
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def launches(mod, key):
-        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9))
+        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10))
 
     def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]
@@ -1397,6 +1749,9 @@ def main(argv=None) -> int:
         entry("flash_attention_bwd", "haconvdr_torch/csrc/flash_attention.cu",
               "haconvdr_tpu/ops/flash_attention.py:174", "flash_attention", "bwd",
               FLASH_MAIN),
+        # row 7 lies on no path of either package: phase 3 checks it alone
+        entry("topk_stream", "haconvdr_torch/csrc/topk_stream.cu",
+              "haconvdr_tpu/ops/pallas_topk_v2.py:38", "topk_stream", "kernel"),
     ]}))
     print(f"total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card_line())

@@ -3,8 +3,8 @@
 A second implementation beside the JAX package ``haconvdr_tpu`` (the
 reference it is held against in tests/test_torch_*.py).  This package
 imports ``torch`` and never ``jax`` or ``haconvdr_tpu``: it keeps its own
-copies of the framework-free layers it needs (``config``,
-``data.sequence``, ``data.loader``, ``utils.io``, ``index.store``,
+copies of the framework-free layers it needs (``config``, ``data.*``,
+``eval.*``, ``mine.prj``, ``utils.io``, ``index.store``,
 ``index.rescore``, the numpy half of ``index.quantize``, and
 ``index.build``'s ``tokenize_collection``), with the same names and the
 same on-disk formats, so a store written by one package reads in the
@@ -13,11 +13,16 @@ other.  Entry points run on the CUDA card unless the caller passes
 
 Layers, entry point first:
   serve.py                  Retriever / BatchingRetriever (query -> pids)
+  retrieval.py              offline evaluation: test queries -> blocked
+                            store search -> TREC run + metrics; PRJ labels
+  eval/metrics, trec, analysis  trec_eval-style metrics, run files
+  mine/prj                  PRJ probes and the MRR-difference judge
   train/trainer             Trainer.fit, make_train_step, AdamW + clip
   train/loss                contrastive ranking losses
   train/checkpoint          train-state save / restore (torch.save)
   config                    ModelConfig / DataConfig / TrainConfig / ...
   data/sequence, loader     query construction, fixed-shape batches
+  data/topiocqa, qrecc, cast, prj  dataset and probe example builders
   parallel/sharded_encode   encoder runs over data.loader batches
   parallel/sharded_search   device-resident flat index (ShardedIndex)
   index/build, store        corpus encode, tokenized corpus, block store
@@ -27,6 +32,7 @@ Layers, entry point first:
   ops/topk                  block_topk routing, merges, BlockSearcher
   ops/topk_v4               CUDA kernels: v4 window top-2, select, rescore
   ops/fused_topk            CUDA kernel: fused score matmul + exact top-k
+  ops/topk_stream           CUDA kernel: cp.async streaming top-k (on no path)
   ops/fused_attention       CUDA kernel: inference attention, fused QKV
   ops/flash_attention       CUDA kernels: trainable attention fwd + bwd
   ops/fused_ln, fused_mlp   CUDA kernels: the int8 tower's LN and MLP

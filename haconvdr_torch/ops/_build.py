@@ -39,6 +39,9 @@ SIGNATURES = {
     # q, p, Q, N, D, n_valid, k, thr(float[Q] or NULL), rows_per_split,
     # n_splits, cand_keys(uint64 [S, Q, k]), dtype, stream
     "hc_topk_split": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P],
+    # q, p, Q, N, D, n_valid, k, rows_per_split, n_splits,
+    # cand_keys(uint64 [S, Q, k]), dtype, stream
+    "hc_topk_stream": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # cand_keys, n_splits, Q, k, seed(float [Q, ks] or NULL), ks,
     # out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
     "hc_topk_merge": [_P, _I, _I, _I, _P, _I, _P, _P, _P],

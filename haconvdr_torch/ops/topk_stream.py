@@ -1,0 +1,145 @@
+"""Streaming exact inner-product top-k over one passage block (counterpart
+of haconvdr_tpu/ops/pallas_topk_v2.py:pallas_topk_block_v2).
+
+``topk_block_v2`` launches the CUDA kernel (csrc/topk_stream.cu: cp.async
+double-buffered passage stages, grouped selection, then fused_topk.cu's
+split merge) for CUDA tensors and runs the plain twin
+``topk_block_v2_plain`` for CPU tensors; there is no other route.  No path
+of either package calls it: the JAX package runs its kernel only in tests.
+
+Contract of both, as the JAX function's:
+
+* queries [Q, D], passages [N, D] float32 or bfloat16 with N a multiple of
+  ``p_chunk * group`` (``p_chunk`` 0 means 2048 for bfloat16 passages and
+  1024 otherwise), else ValueError;
+* scores are ``q . p`` accumulated in float32 over rows < ``n_valid``;
+  bfloat16 passages score bfloat16-rounded queries (the products are exact
+  in float32);
+* float32 scores [Q, k] and int32 row ids [Q, k], ordered (score desc, id
+  asc); empty slots (k past the valid rows) are (-inf, -1);
+* ``q_tile`` only sets the JAX kernel's query tile; the CUDA kernel tiles
+  by 64 queries whatever it is.
+
+Unlike the JAX kernel, k is at most ``fused_topk.MAX_K`` (128, the KMAX of
+csrc/topk_keys.cuh): the wrapper raises above it.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from haconvdr_torch.ops import _build
+from haconvdr_torch.ops.fused_topk import (
+    _PLAIN_CHUNK,
+    MAX_K,
+    _finish,
+    _n_splits,
+    query_dtype,
+    scan_topk_keys,
+)
+
+# launches of the CUDA kernel (split + merge count once) / plain-twin calls
+COUNTS = {"kernel": 0, "plain": 0}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def resolve_p_chunk(p_chunk: int, dtype: torch.dtype) -> int:
+    """The JAX function's default chunk: 2048 rows for bfloat16, else 1024."""
+    if p_chunk:
+        return p_chunk
+    return 2048 if dtype == torch.bfloat16 else 1024
+
+
+def _check(queries, passages, k, q_tile, p_chunk, group):
+    if queries.dim() != 2 or passages.dim() != 2:
+        raise ValueError("queries [Q, D] and passages [N, D] must be 2-d")
+    if queries.shape[1] != passages.shape[1]:
+        raise ValueError(
+            f"dim mismatch: queries {tuple(queries.shape)}, passages {tuple(passages.shape)}"
+        )
+    if passages.dtype not in _DTYPE_CODE:
+        raise ValueError(f"streaming top-k takes float32/bfloat16 passages, got {passages.dtype}")
+    if not 0 < k <= MAX_K:
+        raise ValueError(
+            f"streaming top-k takes 0 < k <= {MAX_K} (KMAX of csrc/topk_keys.cuh), got {k}"
+        )
+    if q_tile <= 0 or p_chunk <= 0 or group <= 0:
+        raise ValueError(f"q_tile, p_chunk and group must be > 0, got {q_tile, p_chunk, group}")
+    N = passages.shape[0]
+    if N % (p_chunk * group):
+        raise ValueError(
+            f"passage rows ({N}) must be a multiple of p_chunk * group "
+            f"({p_chunk} * {group}): pad the passages"
+        )
+    if N >= 2**31:
+        raise ValueError("passage rows exceed int32 ids")
+
+
+def topk_block_v2_plain(
+    queries: torch.Tensor,
+    passages: torch.Tensor,
+    n_valid: int,
+    k: int,
+    q_tile: int = 256,
+    p_chunk: int = 0,
+    group: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's contract in plain PyTorch (see the module docstring)."""
+    p_chunk = resolve_p_chunk(p_chunk, passages.dtype)
+    _check(queries, passages, k, q_tile, p_chunk, group)
+    COUNTS["plain"] += 1
+    return _finish(scan_topk_keys(queries, passages, n_valid, k, _PLAIN_CHUNK))
+
+
+def topk_block_v2(
+    queries: torch.Tensor,  # [Q, D]
+    passages: torch.Tensor,  # [N, D], N % (p_chunk * group) == 0
+    n_valid: int,
+    k: int,
+    q_tile: int = 256,
+    p_chunk: int = 0,
+    group: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact (scores [Q, k] float32, ids [Q, k] int32) top-k of one block,
+    ordered (score desc, id asc); see the module docstring."""
+    if passages.device.type == "cpu":
+        return topk_block_v2_plain(queries, passages, n_valid, k, q_tile, p_chunk, group)
+    if passages.device.type != "cuda":
+        raise ValueError(f"unsupported device {passages.device}")
+    p_chunk = resolve_p_chunk(p_chunk, passages.dtype)
+    _check(queries, passages, k, q_tile, p_chunk, group)
+    if queries.device != passages.device:
+        raise ValueError("queries and passages must be on one device")
+    if not passages.is_contiguous():
+        raise ValueError("passages must be contiguous")
+    D = passages.shape[1]
+    if D % (16 // passages.element_size()):
+        raise ValueError(f"rows must be 16-byte multiples for cp.async, got D = {D}")
+    lib = _build.library()
+    dev = passages.device
+    q = queries.to(query_dtype(passages.dtype)).contiguous()
+    if q.data_ptr() % 16 or passages.data_ptr() % 16:
+        raise ValueError("queries and passages must start on a 16-byte boundary for cp.async")
+    Q, N = q.shape[0], passages.shape[0]
+    rows = max(0, min(int(n_valid), N))
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out_s, out_i
+    splits, per = _n_splits(dev, -(-Q // 64), rows)
+    cand = torch.empty((splits, Q, k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.hc_topk_stream(
+            q.data_ptr(), passages.data_ptr(), Q, N, D, rows, k, per, splits,
+            cand.data_ptr(), _DTYPE_CODE[passages.dtype], stream,
+        )
+        _build.check(err, "hc_topk_stream")
+        err = lib.hc_topk_merge(
+            cand.data_ptr(), splits, Q, k, None, 0, out_s.data_ptr(), out_i.data_ptr(), stream,
+        )
+        _build.check(err, "hc_topk_merge")
+    COUNTS["kernel"] += 1
+    return out_s, out_i

@@ -111,6 +111,48 @@ def test_topk_kernel_small_and_tied(dev):
     assert bool((i[:, 7:] == -1).all()) and bool(torch.isneginf(s[:, 7:]).all())
 
 
+# --- the streaming top-k (ops/topk_stream.py) ------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k, n_valid", [(100, 49_000), (37, 49_000), (128, 53_248), (10, 5)])
+def test_topk_stream_kernel_matches_plain_and_v3(dev, gen, dtype, k, n_valid):
+    """Against its plain twin (scores within 1e-4 relative, plus 1e-4 for
+    the near-0 scores that k past n_valid returns; ids identical) and bit
+    for bit against the unseeded v3 kernel: both form every score with the
+    same fmaf chain."""
+    from haconvdr_torch.ops import fused_topk as ft
+    from haconvdr_torch.ops import topk_stream as ts
+
+    q = torch.randn(70, 768, device=dev, generator=gen)
+    p = torch.randn(13 * 4096, 768, device=dev, generator=gen).to(dtype)  # p_chunk * group
+    p[n_valid:] *= 100.0  # past n_valid: must never surface
+    before = dict(ts.COUNTS)
+    s, i = ts.topk_block_v2(q, p, n_valid, k)
+    torch.cuda.synchronize()
+    assert ts.COUNTS == {"kernel": before["kernel"] + 1, "plain": before["plain"]}
+    rs, ri = ts.topk_block_v2_plain(q, p, n_valid, k)
+    fin = torch.isfinite(rs)
+    assert torch.equal(fin, torch.isfinite(s))
+    assert bool(((s[fin] - rs[fin]).abs() <= 1e-4 * rs[fin].abs() + 1e-4).all())
+    assert torch.equal(i, ri)
+    vs, vi = ft.fused_topk_block(q, p, n_valid, k)
+    assert torch.equal(s, vs) and torch.equal(i, vi)
+    if k > n_valid:
+        assert bool((i[:, n_valid:] == -1).all())
+
+
+def test_topk_stream_rejects_unsupported(dev):
+    from haconvdr_torch.ops.topk_stream import topk_block_v2
+
+    q = torch.zeros(4, 768, device=dev)
+    with pytest.raises(ValueError, match="k <= 128"):
+        topk_block_v2(q, torch.zeros(2048, 768, device=dev), 2048, 129)
+    with pytest.raises(ValueError, match="p_chunk"):
+        topk_block_v2(q, torch.zeros(2000, 768, device=dev), 2000, 10)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        topk_block_v2(q, torch.zeros(2048, 768, device=dev, dtype=torch.int8), 2048, 10)
+
+
 # --- the v3 kernel's int8 mode and the v4 kernels (ops/topk_v4.py) --------
 
 def _int8_index(gen, dev, N, D):

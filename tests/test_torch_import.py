@@ -14,7 +14,7 @@ import torch
 
 import haconvdr_torch
 from haconvdr_torch.device import resolve_device, to_numpy, to_torch
-from haconvdr_torch.ops import _build, fused_attention, fused_topk
+from haconvdr_torch.ops import _build, fused_attention, fused_topk, topk_stream
 
 PKG = pathlib.Path(haconvdr_torch.__file__).parent
 SMOKE = PKG.parent / "chip_smoke.py"
@@ -42,6 +42,13 @@ def _smoke_imports():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "haconvdr_torch.serve" in mods and "haconvdr_torch.train.trainer" in mods
+    assert {
+        "haconvdr_torch.ops.topk_stream", "haconvdr_torch.eval", "haconvdr_torch.eval.metrics",
+        "haconvdr_torch.eval.trec", "haconvdr_torch.eval.analysis",
+        "haconvdr_torch.data.topiocqa", "haconvdr_torch.data.qrecc", "haconvdr_torch.data.cast",
+        "haconvdr_torch.data.prj", "haconvdr_torch.mine", "haconvdr_torch.mine.prj",
+        "haconvdr_torch.retrieval",
+    } <= set(mods)
     smoke = _smoke_imports()
     assert "haconvdr_torch.train.trainer" in smoke
     code = (
@@ -107,16 +114,18 @@ def test_tf32_is_off():
 
 def test_cpu_tensors_take_only_the_plain_twins():
     rng = np.random.RandomState(0)
-    for mod in (fused_attention, fused_topk):
+    for mod in (fused_attention, fused_topk, topk_stream):
         for key in mod.COUNTS:
             mod.COUNTS[key] = 0
     qkv = torch.from_numpy(rng.randn(2, 8, 3 * 16).astype(np.float32))
     fused_attention.fused_attention_qkv(qkv, torch.ones(2, 8, dtype=torch.int32), 2)
     q = torch.from_numpy(rng.randn(3, 8).astype(np.float32))
-    p = torch.from_numpy(rng.randn(50, 8).astype(np.float32))
+    p = torch.from_numpy(rng.randn(64, 8).astype(np.float32))
     fused_topk.fused_topk_block(q, p, 50, 5)
+    topk_stream.topk_block_v2(q, p, 50, 5, p_chunk=32)
     assert fused_attention.COUNTS == {"kernel": 0, "plain": 1}
     assert fused_topk.COUNTS == {"kernel": 0, "plain": 1}
+    assert topk_stream.COUNTS == {"kernel": 0, "plain": 1}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
