@@ -29,7 +29,10 @@ order; any failure raises and the script exits non-zero:
    both); the streaming top-k (row 7, on no path) at Q = 256 over the
    first 2,498,560 rows (a multiple of both dtypes' p_chunk * group),
    n_valid = N - 1,000, float32 and bfloat16, also bit for bit against the
-   unseeded v3 kernel on the same rows;
+   unseeded v3 kernel on the same rows; attention (row 1) in bfloat16 at
+   the frozen passage towers' shape (B 64, L 384, lengths 32-384);
+   then one line per bf16 row of the tensor-core attention forward (rows 1
+   and 11): ms, SDPA ms, bound ms and ms / SDPA;
    each row also carries its bound (bytes over 3.35 TB/s or operations
    over the peak of the type the work could run in) and, where one
    PyTorch call computes the same function, that call's time;
@@ -51,7 +54,8 @@ order; any failure raises and the script exits non-zero:
    requests and a few single ones.  Each forward launches LayerNorm-quant
    13 times and the MLP kernel 12 times; the searches equal the plain
    search of the same embeddings, and the embeddings agree with the
-   plain-twin tower on the same batches;
+   plain-twin tower on the same batches; then the embed of the 64
+   requests' batch is timed (median of 3, host clock, synchronized);
 8. corpus encode: encode_corpus through the same int8 bf16 tower over
    2,048 passages (lengths 32-384, seed), batch 256, blocks of 1,024, into
    int8 blocks.  Offsets come out in corpus order, each block's codes equal
@@ -74,7 +78,8 @@ order; any failure raises and the script exits non-zero:
    examples of the micro steps after TRAIN_WARM over their wall time, the
    median step's rate beside it), peak memory, the device idle share of
    one profiled accumulation window (1 - kernel time / that window's
-   wall time) and the top device operations;
+   wall time), the attention kernels' share of that device time and the
+   top device operations;
 10. offline evaluation (retrieval.py) at full width: 64 TopiOCQA-format
    conversations of 8 turns (512 test queries, convqp inputs up to 512
    tokens, HashTokenizer) through the float32 tower at batch 64, then
@@ -168,6 +173,7 @@ DIM = 768
 TOP_K = 100
 Q_KERNEL = 256
 ATTN_B, ATTN_L = 8, 512
+ATTN_REPS = 30  # timed launches of an attention forward and of its SDPA yardstick
 N_BATCHED = 128  # two full max_batch=64 dispatches
 N_BATCHED_INT8 = 64
 N_SINGLE = 4
@@ -189,6 +195,7 @@ TRAIN_MICRO, TRAIN_ACC, TRAIN_WARM = 8, 2, 2
 TRAIN_LR = 2e-6
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 0.01, 0.05
 FLASH_MAIN = f"bfloat16, drop 0.1, B {TRAIN_B}"  # rows 11-12 at phase 9's shape
+ROW1_FROZEN = f"bfloat16, B {TRAIN_B} L {TRAIN_PLEN}"  # row 1 at the frozen towers' shape
 # row 7 (phase 3): the first rows of the index, a multiple of both dtypes'
 # p_chunk * group (1220 x 2048 = 610 x 4096)
 N_STREAM = 2_498_560
@@ -346,43 +353,49 @@ def int8_plain(q_folded, codes, n_valid):
 # phase 3: each kernel against its plain twin
 # ---------------------------------------------------------------------------
 
-def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
+def attention_row(qkv, lengths, config: str, rows) -> None:
+    """Row 1 on qkv [B, L, 3H] with prefix masks of ``lengths``: the kernel
+    against its twin (float32 within 1e-4, bfloat16 within 2**-6 + 2**-8
+    |ref|), its time, the twin's, SDPA's and the bound."""
     from haconvdr_torch.ops.fused_attention import (
         fused_attention_qkv,
         fused_attention_qkv_plain,
     )
+
+    B, L, _ = qkv.shape
+    mask = torch.from_numpy(
+        (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)).to(qkv.device)
+    out = fused_attention_qkv(qkv, mask, 12)
+    torch.cuda.synchronize()
+    ref = fused_attention_qkv_plain(qkv, mask, 12)
+    diff = (out.float() - ref.float()).abs()
+    if qkv.dtype == torch.float32:
+        check(float(diff.max()) <= 1e-4, f"attention {config}: {float(diff.max())}")
+    else:
+        check(bool((diff <= 2.0**-6 + 2.0**-8 * ref.float().abs()).all()),
+              f"attention {config}: beyond one bf16 ulp ({float(diff.max())})")
+    ms = cuda_ms(lambda: fused_attention_qkv(qkv, mask, 12), reps=ATTN_REPS)
+    pms = cuda_ms(lambda: fused_attention_qkv_plain(qkv, mask, 12), reps=10)
+    q, k, v, bias = sdpa_operands(qkv, mask)
+    lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+                  reps=ATTN_REPS)
+    rows.append(dict(kernel="fused_attention", config=config, max_abs_err=float(diff.max()),
+                     ms=ms, plain_ms=pms, library_ms=lms, shape=list(qkv.shape),
+                     **bound_row(attention_flops(lengths, L, DIM, 2),
+                                 B * L * (4 * DIM * qkv.element_size() + 4),
+                                 PEAK_OF[str(qkv.dtype).split(".")[1]])))
+
+
+def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
     from haconvdr_torch.ops.fused_topk import fused_topk_block, fused_topk_block_plain
 
     # -- attention at B=8, L=512, H=768, 12 heads, random padding lengths
     lengths = rng.integers(1, ATTN_L + 1, ATTN_B)
     lengths[0] = ATTN_L
-    mask = torch.from_numpy(
-        (np.arange(ATTN_L)[None, :] < lengths[:, None]).astype(np.int32)
-    ).to(dev)
     for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
         qkv = torch.randn(ATTN_B, ATTN_L, 3 * DIM, device=dev, generator=g).to(dt)
-        out = fused_attention_qkv(qkv, mask, 12)
-        torch.cuda.synchronize()
-        ref = fused_attention_qkv_plain(qkv, mask, 12)
-        diff = (out.float() - ref.float()).abs()
-        if dt == torch.float32:
-            check(float(diff.max()) <= 1e-4, f"attention {name}: {float(diff.max())}")
-        else:
-            check(
-                bool((diff <= 2.0**-6 + 2.0**-8 * ref.float().abs()).all()),
-                f"attention {name}: beyond one bf16 ulp ({float(diff.max())})",
-            )
-        ms = cuda_ms(lambda: fused_attention_qkv(qkv, mask, 12), reps=10)
-        pms = cuda_ms(lambda: fused_attention_qkv_plain(qkv, mask, 12), reps=10)
-        q, k, v, bias = sdpa_operands(qkv, mask)
-        lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps=10)
-        isz = qkv.element_size()
-        rows.append(dict(kernel="fused_attention", config=name, max_abs_err=float(diff.max()),
-                         ms=ms, plain_ms=pms, library_ms=lms, shape=[ATTN_B, ATTN_L, 3 * DIM],
-                         **bound_row(attention_flops(lengths, ATTN_L, DIM, 2),
-                                     ATTN_B * ATTN_L * (4 * DIM * isz + 4),
-                                     "f32" if dt == torch.float32 else "bf16")))
-        del qkv, out, ref, q, k, v, bias
+        attention_row(qkv, lengths, name, rows)
+        del qkv
     # -- v3 top-k: f32, bf16, and the int8 mode (folded float queries)
     q = torch.randn(Q_KERNEL, DIM, device=dev, generator=g)
     extra = torch.randn(100_000, DIM, device=dev, generator=g)
@@ -415,6 +428,28 @@ def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
         del p
     del extra
     torch.cuda.empty_cache()
+
+
+def kernels_attention_frozen(seed: int, dev, rows):
+    """Row 1, bf16, at the frozen passage towers' shape of phase 9 (B 64,
+    L 384, passage lengths 32-384); its own generators, so the other rows
+    see the data they always saw."""
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    lengths = np.random.default_rng(seed + 3).integers(TRAIN_PLEN // 12, TRAIN_PLEN + 1, TRAIN_B)
+    qkv = torch.randn(TRAIN_B, TRAIN_PLEN, 3 * DIM, device=dev, generator=g).to(torch.bfloat16)
+    attention_row(qkv, lengths, ROW1_FROZEN, rows)
+    del qkv
+    torch.cuda.empty_cache()
+
+
+def print_redesigned(rows, card: str) -> None:
+    """One line per bf16 row of the tensor-core forward (rows 1 and 11):
+    its time, SDPA's, the bound and the kernel's time over SDPA's."""
+    for r in rows:
+        if r["kernel"] in ("fused_attention", "flash_attention_fwd") and "bfloat16" in r["config"]:
+            print(f"redesigned {r['kernel']} [{r['config']}]: {r['ms']:.4f} ms, SDPA "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                  f"ms / SDPA {r['ms'] / r['library_ms']:.2f} [{card}]")
 
 
 def kernels_stream(dev, g, passages_f32, rows):
@@ -745,14 +780,14 @@ def kernels_flash(dev, g, rng, rows):
         m32 = mask.contiguous()
         with torch.no_grad():
             _, stats = fa._fwd_kernel(qkv, m32, 12, seed, rate)
-            fwd_ms = cuda_ms(lambda: fa._fwd_kernel(qkv, m32, 12, seed, rate), 10)
+            fwd_ms = cuda_ms(lambda: fa._fwd_kernel(qkv, m32, 12, seed, rate), ATTN_REPS)
             bwd_ms = cuda_ms(lambda: fa._bwd_kernel(qkv, m32, stats, go, 12, seed, rate), 10)
             pf_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(qkv, mask, 12, seed, rate), 5)
             pb_ms = cuda_ms(
                 lambda: fa.flash_attention_bwd_plain(qkv, mask, go, 12, seed, rate), 5)
             q, k, v, bias = sdpa_operands(qkv, mask)
             lf_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias, dropout_p=rate), 10)
+                q, k, v, attn_mask=bias, dropout_p=rate), ATTN_REPS)
         xl = qkv.clone().requires_grad_(True)
         ql, kl, vl, _ = sdpa_operands(xl, mask)
         gh = go.view(B, ATTN_L, 12, 64).transpose(1, 2)
@@ -792,6 +827,7 @@ def phase_kernels(seed: int, dev, passages_f32, codes, scale):
     kernels_int8_tower(dev, g, rows)
     kernels_flash(dev, g, rng, rows)
     kernels_stream(dev, g, passages_f32, rows)
+    kernels_attention_frozen(seed, dev, rows)
     return rows
 
 
@@ -1086,6 +1122,14 @@ def phase_int8_tower(seed: int, dev, passages_f32, params, cfg, card: str):
     ref_q, _ = encode_batches(ref_enc, batch_iter(examples, 64), "conv_qp", "conv_qp_mask")
     got_q = retriever.embed(examples)  # per_device_test_batch_size 64
     err, cos = tower_agreement(got_q, ref_q, "int8 tower query embeddings")
+    embed_ms = []  # one batch of the 64 concurrent requests through the tower
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        retriever.embed(examples[:N_BATCHED_INT8])
+        embed_ms.append((time.perf_counter() - t) * 1e3)
+    print(f"int8 tower embed: B {N_BATCHED_INT8} in {float(np.median(embed_ms)):.2f} ms "
+          f"(median of {embed_ms}) [{card}]")
     f32_enc = AnceEncoder.from_jax_params(params, dataclasses.replace(cfg, dtype="float32"), dev)
     f32_q, _ = encode_batches(f32_enc, batch_iter(examples, 64), "conv_qp", "conv_qp_mask")
 
@@ -1101,7 +1145,8 @@ def phase_int8_tower(seed: int, dev, passages_f32, params, cfg, card: str):
           f"{cos_p:.7f} (twins)")
     del retriever, index, ref_enc, f32_enc, calls
     torch.cuda.empty_cache()
-    return counts, metrics, dict(max_abs_err=err, min_cos=cos, f32_cos=cos_k, f32_cos_plain=cos_p)
+    return counts, metrics, dict(max_abs_err=err, min_cos=cos, f32_cos=cos_k, f32_cos_plain=cos_p,
+                                 embed_ms=embed_ms)
 
 
 def phase_corpus_encode(seed: int, dev, params, cfg, card: str):
@@ -1356,6 +1401,15 @@ def phase_training(seed: int, dev, card: str):
             by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
     dev_ms = sum(by_name.values())
     check(dev_ms > 0, "training: the profiler saw no device time")
+
+    def share(*names):
+        return sum(ms for key, ms in by_name.items() if any(n in key for n in names)) / dev_ms
+
+    attention_share = {"frozen towers' attention (row 1)": share("tc_attention_fwd<false>"),
+                       "flash forward (row 11)": share("tc_attention_fwd<true>"),
+                       "flash backward (row 12)": share("bwd_dq_kernel", "bwd_dkdv_kernel")}
+    print("training attention share of device time:",
+          ", ".join(f"{k} {v:.1%}" for k, v in attention_share.items()), f"[{card}]")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
     timed = secs[TRAIN_WARM:]  # every micro step after the warm-up ones
     med = float(np.median(timed))
@@ -1368,7 +1422,7 @@ def phase_training(seed: int, dev, card: str):
                    unprofiled_window_wall_ms=sum(secs[-TRAIN_ACC:]) * 1e3,
                    kernel_vs_plain=dict(loss=[lk, lp], grad_rel=grad_rel),
                    other_draws=dict(loss=lo, grad_rel=other_rel),
-                   top_device_ms=dict(top))
+                   attention_share=attention_share, top_device_ms=dict(top))
     print(f"training (b): {TRAIN_MICRO} micro steps of B {TRAIN_B} (query {TRAIN_QLEN}, "
           f"passages {TRAIN_PLEN}, 4 int8 frozen towers), losses "
           + ", ".join(f"{x:.4f}" for x in losses) + f" at lr {TRAIN_LR}; eval loss (no "
@@ -1697,6 +1751,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     for r in rows:
         print("kernel vs plain:", json.dumps(r), f"[{card}]")
+    print_redesigned(rows, card)
 
     cfg = ModelConfig()  # ANCE RoBERTa-base: 12 x 768, 12 heads, 3072, 50265
     params = init_params_numpy(cfg, args.seed)

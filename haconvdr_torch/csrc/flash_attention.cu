@@ -17,24 +17,29 @@
 //
 // Residuals: JAX keeps only the primal inputs.  The forward here also
 // saves each query row's softmax max and sum (float2 [B, nh, L]), so the
-// backward rebuilds P with the forward's exact operations (the same fmaf
-// chain for the scores, the same expf and division) instead of rerunning
-// the row reductions: P in the backward equals the forward's bit for bit.
+// backward rebuilds P with the forward's exact operations (the same score
+// routine, the same expf and division, prob() of attention_tc.cuh) instead
+// of rerunning the row reductions: P in the backward equals the forward's
+// bit for bit.  bf16 forms its scores on the tensor cores (qk_dots: Q as
+// A, K as B, four k-steps in order), f32 through one fmaf chain.
 //
 // What bounds it on the H100: at the reference geometry (B 64, L 512, 12
 // heads, d 64, bf16) the forward does 4 B L^2 H = 51.5 GFLOP against ~0.2 GB
 // of qkv and output (a bound of ~0.06 ms, bytes-bound at tensor-core
-// rates), the backward ~2.5x those FLOPs.  This first version runs on the
-// CUDA cores (fmaf), so it is bounded by the f32 FMA rate (67 TFLOP/s) and
-// by shared-memory bandwidth, far above that bound; tensor-core tiles
-// (mma.sync / wgmma) are later work.
+// rates), the backward ~2.5x those FLOPs.
 //
 // Design:
-// - forward: one block per (32-query tile, head, batch row), as
-//   fused_attention.cu: the block keeps its 32 x L score rows in shared
-//   memory and streams K, then V, through one 64-key tile, so the softmax
-//   sees whole rows and P is normalised (and dropped) before it is rounded.
-// - backward, two launches on one stream:
+// - bf16 forward: the tensor-core forward of attention_tc.cuh (its head
+//   says what bounds it, why it takes two passes to normalise P before it
+//   rounds it, and why skipping all-masked key tiles is exact), with the
+//   dropout mask and the row stats on.
+// - f32 forward (not yet redesigned: TF32 would break its 1e-5 agreement):
+//   one block per (32-query tile, head, batch row) on the CUDA cores: the
+//   block keeps its 32 x L score rows in shared memory and streams K, then
+//   V, through one 64-key tile, so the softmax sees whole rows and P is
+//   normalised (and dropped) before it is rounded.
+// - backward, two launches on one stream, on the CUDA cores (fmaf) apart
+//   from the bf16 scores:
 //   dQ kernel, one block per (32-query tile, head, batch row): streams K and
 //   V tiles, keeps the block's P and dP rows in shared memory (2 x 32 x L
 //   f32), reduces D per row (written out for the second kernel), forms dS
@@ -45,89 +50,51 @@
 //   No atomics: each output element has one writer, and the run is
 //   deterministic.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "attention_tc.cuh"
 
 namespace {
 
-constexpr int HD = 64;   // head dim taken by the kernels
 constexpr int HP = HD + 1;
-constexpr int QT = 32;   // query rows per block (forward, dQ)
-constexpr int KT = 64;   // keys per streamed K / V tile (forward, dQ)
+constexpr int QT = 32;   // query rows per block (f32 forward, dQ)
+constexpr int KT = 64;   // keys per streamed K / V tile (f32 forward, dQ)
 constexpr int CT = 32;   // keys per block (dK / dV)
 constexpr int RT = 64;   // query rows per streamed Q / dO tile (dK / dV)
 constexpr int NT = 256;  // threads per block (16 x 16)
-constexpr int MAXL = 512;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// bf16 backward: the operands are staged raw by cp.async (copy_rows, no
+// per-element global load whose latency a branch would expose) and widened
+// to the f32 panels in shared memory; the scores go through the forward's
+// tensor-core routine from the raw Q and K tiles
+template <typename T> constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+constexpr int tc_dq_floats = (QT + 2 * KT) * TC_LD / 2;    // Qb, Kb, Vb
+constexpr int tc_dkdv_floats = (CT + 2 * RT) * TC_LD / 2;  // Kb, Qb, Ob
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ void cp_async_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
 }
 
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// one score: the dot product's f32 sum times the scale, plus the padding
-// bias, each rounded on its own (no contraction), identically in all kernels
-__device__ __forceinline__ float score(float dot, float scale, float bias) {
-  return __fadd_rn(__fmul_rn(dot, scale), bias);
-}
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// attention-probs dropout of one (b, h) tile (JAX _seed_for / _keep_mask)
-struct Drop {
-  int on;
-  uint32_t s0, s1, thresh;
-  float inv;
-
-  __device__ Drop(int on_, int seed0, int seed1, unsigned thresh_, float inv_, int bh)
-      : on(on_), thresh(thresh_), inv(inv_) {
-    const uint32_t idx = (uint32_t)bh;  // b * num_heads + h
-    s0 = (uint32_t)seed0 + idx * 0x9E3779B9u;
-    s1 = (uint32_t)seed1 ^ ((idx + 1u) * 0x85EBCA6Bu);
+// the f32 panel (row stride HP) of n rows of a raw bf16 tile
+__device__ __forceinline__ void widen_rows(float* dst, const __nv_bfloat16* src, int n, int tid) {
+  for (int e = tid; e < n * HD; e += NT) {
+    const int r = e / HD, d = e % HD;
+    dst[r * HP + d] = __bfloat162float(src[r * TC_LD + d]);
   }
-  __device__ __forceinline__ bool keep(int r, int c, int L) const {
-    uint32_t h = fmix32((uint32_t)(r * L + c) ^ s0);
-    return fmix32(h ^ s1) < thresh;
-  }
-  // Pt or dP from P or dPt: where(keep, x / (1 - rate), 0)
-  __device__ __forceinline__ float apply(float x, int r, int c, int L) const {
-    if (!on) return x;
-    return keep(r, c, L) ? __fmul_rn(x, inv) : 0.0f;
-  }
-};
-
-__device__ __forceinline__ float mask_bias(const int* mask, int b, int L, int j) {
-  return (1.0f - (float)mask[(size_t)b * L + j]) * -1e9f;
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ qkv,
+__global__ void __launch_bounds__(NT) fwd_kernel(const float* __restrict__ qkv,
                                                  const int* __restrict__ mask,
-                                                 T* __restrict__ out,
+                                                 float* __restrict__ out,
                                                  float2* __restrict__ stats, int L, int H,
                                                  int nh, float scale, int drop_on, int seed0,
                                                  int seed1, unsigned thresh, float inv) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int SP = L + 1;
   float* S = smem;                 // [QT][SP] scores, then probabilities
   float* Qs = S + QT * SP;         // [QT][HP]
@@ -140,14 +107,14 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ qkv,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t rs = 3 * (size_t)H;
-  const T* base = qkv + (size_t)b * L * rs;
+  const float* base = qkv + (size_t)b * L * rs;
   const Drop dr(drop_on, seed0, seed1, thresh, inv, b * nh + h);
 
   for (int j = tid; j < L; j += NT) bias[j] = mask_bias(mask, b, L, j);
   for (int e = tid; e < QT * HD; e += NT) {
     const int r = e / HD, d = e % HD;
     const int qr = q0 + r;
-    Qs[r * HP + d] = qr < L ? to_f(base[qr * rs + h * HD + d]) : 0.0f;
+    Qs[r * HP + d] = qr < L ? base[qr * rs + h * HD + d] : 0.0f;
   }
 
   const int n_kt = (L + KT - 1) / KT;
@@ -156,7 +123,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ qkv,
     for (int e = tid; e < KT * HD; e += NT) {
       const int r = e / HD, d = e % HD;
       const int key = kt * KT + r;
-      KV[r * HP + d] = key < L ? to_f(base[key * rs + H + h * HD + d]) : 0.0f;
+      KV[r * HP + d] = key < L ? base[key * rs + H + h * HD + d] : 0.0f;
     }
     __syncthreads();
     float acc[2][4] = {};
@@ -182,7 +149,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ qkv,
   }
   __syncthreads();
 
-  // softmax per row (one warp per 4 rows), f32; dropout; P rounded to V's dtype
+  // softmax per row (one warp per 4 rows); dropout
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < QT; r += NT / 32) {
     float* row = S + r * SP;
@@ -200,7 +167,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ qkv,
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
     const int qr = q0 + r;
     if (lane == 0 && qr < L) stats[((size_t)b * nh + h) * L + qr] = make_float2(m, sum);
-    for (int j = lane; j < L; j += 32) row[j] = round_to<T>(dr.apply(row[j] / sum, qr, j, L));
+    for (int j = lane; j < L; j += 32) row[j] = dr.apply(row[j] / sum, qr, j, L);
   }
 
   float acc[2][4] = {};
@@ -209,7 +176,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ qkv,
     for (int e = tid; e < KT * HD; e += NT) {
       const int r = e / HD, d = e % HD;
       const int key = kt * KT + r;
-      KV[r * HP + d] = key < L ? to_f(base[key * rs + 2 * H + h * HD + d]) : 0.0f;
+      KV[r * HP + d] = key < L ? base[key * rs + 2 * H + h * HD + d] : 0.0f;
     }
     __syncthreads();
     const int nk = min(KT, L - kt * KT);
@@ -231,7 +198,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ qkv,
     if (qr >= L) continue;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      out[((size_t)b * L + qr) * H + h * HD + tx + 16 * c] = from_f<T>(acc[a][c]);
+      out[((size_t)b * L + qr) * H + h * HD + tx + 16 * c] = acc[a][c];
   }
 }
 
@@ -248,9 +215,14 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
                                                     T* __restrict__ dqkv, int L, int H, int nh,
                                                     float scale, int drop_on, int seed0,
                                                     int seed1, unsigned thresh, float inv) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kTC = kTensorCores<T>;
+  // bf16: the raw Q tile, K tile and V tile
+  __nv_bfloat16* Qb = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][TC_LD]
+  __nv_bfloat16* Kb = Qb + QT * TC_LD;                          // [KT][TC_LD]
+  __nv_bfloat16* Vb = Kb + KT * TC_LD;                          // [KT][TC_LD]
   const int SP = L + 1;
-  float* P = smem;                 // [QT][SP] probabilities (unrounded, undropped)
+  float* P = smem + (kTC ? tc_dq_floats : 0);  // [QT][SP] probabilities (unrounded, undropped)
   float* dP = P + QT * SP;         // [QT][SP] dP, then dS rounded to T
   float* Qs = dP + QT * SP;        // [QT][HP]
   float* dOs = Qs + QT * HP;       // [QT][HP]
@@ -262,6 +234,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * QT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -277,21 +250,51 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
     rmax[r] = st.x;
     rsum[r] = st.y;
   }
-  for (int e = tid; e < QT * HD; e += NT) {
-    const int r = e / HD, d = e % HD;
-    const int qr = q0 + r;
-    Qs[r * HP + d] = qr < L ? to_f(base[qr * rs + h * HD + d]) : 0.0f;
-    dOs[r * HP + d] = qr < L ? to_f(obase[qr * (size_t)H + h * HD + d]) : 0.0f;
+  if constexpr (kTC) {  // Q raw; dO through Kb into its panel
+    copy_rows<NT>(Qb, base, rs, q0, QT, h * HD, L, tid);
+    copy_rows<NT>(Kb, obase, H, q0, QT, h * HD, L, tid);
+    cp_async_all();
+    __syncthreads();
+    widen_rows(dOs, Kb, QT, tid);
+  } else {
+    for (int e = tid; e < QT * HD; e += NT) {
+      const int r = e / HD, d = e % HD;
+      const int qr = q0 + r;
+      Qs[r * HP + d] = qr < L ? to_f(base[qr * rs + h * HD + d]) : 0.0f;
+      dOs[r * HP + d] = qr < L ? to_f(obase[qr * (size_t)H + h * HD + d]) : 0.0f;
+    }
   }
 
   const int n_kt = (L + KT - 1) / KT;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    for (int e = tid; e < KT * HD; e += NT) {
-      const int r = e / HD, d = e % HD;
-      const int key = kt * KT + r;
-      Ks[r * HP + d] = key < L ? to_f(base[key * rs + H + h * HD + d]) : 0.0f;
-      Vs[r * HP + d] = key < L ? to_f(base[key * rs + 2 * H + h * HD + d]) : 0.0f;
+    if constexpr (kTC) {
+      copy_rows<NT>(Kb, base, rs, kt * KT, KT, H + h * HD, L, tid);
+      copy_rows<NT>(Vb, base, rs, kt * KT, KT, 2 * H + h * HD, L, tid);
+      cp_async_all();
+      __syncthreads();
+      widen_rows(Vs, Vb, KT, tid);
+      // the forward's score routine: warp w takes query rows 16 (w % 2) ..
+      // +15 against keys 16 (w / 2) .. +15 of the tile; the dots go to P
+      uint32_t qa[4][4];
+      load_q_frags(qa, Qb, 16 * (warp & 1), lane);
+      float c[2][4];
+      qk_dots<2>(qa, Kb, 16 * (warp >> 1), lane, c);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * (warp & 1) + lane / 4 + 8 * (e >> 1);
+          const int key = kt * KT + 16 * (warp >> 1) + 8 * i + 2 * (lane % 4) + (e & 1);
+          if (key < L) P[r * SP + key] = c[i][e];
+        }
+    } else {
+      for (int e = tid; e < KT * HD; e += NT) {
+        const int r = e / HD, d = e % HD;
+        const int key = kt * KT + r;
+        Ks[r * HP + d] = key < L ? to_f(base[key * rs + H + h * HD + d]) : 0.0f;
+        Vs[r * HP + d] = key < L ? to_f(base[key * rs + 2 * H + h * HD + d]) : 0.0f;
+      }
     }
     __syncthreads();
     float sacc[2][4] = {}, dacc[2][4] = {};
@@ -300,19 +303,19 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
       float qa[2], oa[2], kc[4], vc[4];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
-        qa[a] = Qs[(ty + 16 * a) * HP + d];
+        if constexpr (!kTC) qa[a] = Qs[(ty + 16 * a) * HP + d];
         oa[a] = dOs[(ty + 16 * a) * HP + d];
       }
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        kc[c] = Ks[(tx + 16 * c) * HP + d];
+        if constexpr (!kTC) kc[c] = Ks[(tx + 16 * c) * HP + d];
         vc[c] = Vs[(tx + 16 * c) * HP + d];
       }
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          sacc[a][c] = fmaf(qa[a], kc[c], sacc[a][c]);
+          if constexpr (!kTC) sacc[a][c] = fmaf(qa[a], kc[c], sacc[a][c]);
           dacc[a][c] = fmaf(oa[a], vc[c], dacc[a][c]);
         }
     }
@@ -323,8 +326,8 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
       for (int c = 0; c < 4; ++c) {
         const int key = kt * KT + tx + 16 * c;
         if (key >= L) continue;
-        const float e = expf(score(sacc[a][c], scale, bias[key]) - rmax[r]);
-        P[r * SP + key] = e / rsum[r];
+        const float dot = kTC ? P[r * SP + key] : sacc[a][c];
+        P[r * SP + key] = prob(score(dot, scale, bias[key]), rmax[r], rsum[r]);
         dP[r * SP + key] = dr.apply(dacc[a][c], q0 + r, key, L);
       }
     }
@@ -332,7 +335,6 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
   __syncthreads();
 
   // D = rowsum(dP * P), then dS = P (dP - D) rounded to T, one warp per row
-  const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < QT; r += NT / 32) {
     const float* prow = P + r * SP;
     float* drow = dP + r * SP;
@@ -348,10 +350,17 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
   float acc[2][4] = {};
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    for (int e = tid; e < KT * HD; e += NT) {
-      const int r = e / HD, d = e % HD;
-      const int key = kt * KT + r;
-      Ks[r * HP + d] = key < L ? to_f(base[key * rs + H + h * HD + d]) : 0.0f;
+    if constexpr (kTC) {
+      copy_rows<NT>(Kb, base, rs, kt * KT, KT, H + h * HD, L, tid);
+      cp_async_all();
+      __syncthreads();
+      widen_rows(Ks, Kb, KT, tid);
+    } else {
+      for (int e = tid; e < KT * HD; e += NT) {
+        const int r = e / HD, d = e % HD;
+        const int key = kt * KT + r;
+        Ks[r * HP + d] = key < L ? to_f(base[key * rs + H + h * HD + d]) : 0.0f;
+      }
     }
     __syncthreads();
     const int nk = min(KT, L - kt * KT);
@@ -390,9 +399,14 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
                                                       T* __restrict__ dqkv, int L, int H, int nh,
                                                       float scale, int drop_on, int seed0,
                                                       int seed1, unsigned thresh, float inv) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kTC = kTensorCores<T>;
   constexpr int TP = RT + 1;
-  float* Ks = smem;                // [CT][HP]
+  // bf16: the block's raw K rows, the raw Q tile and the raw dO tile
+  __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smem);  // [CT][TC_LD]
+  __nv_bfloat16* Qb = Kb + CT * TC_LD;                          // [RT][TC_LD]
+  __nv_bfloat16* Ob = Qb + RT * TC_LD;                          // [RT][TC_LD]
+  float* Ks = smem + (kTC ? tc_dkdv_floats : 0);  // [CT][HP]
   float* Vs = Ks + CT * HP;        // [CT][HP]
   float* Qs = Vs + CT * HP;        // [RT][HP]
   float* dOs = Qs + RT * HP;       // [RT][HP]
@@ -421,16 +435,23 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
     Vs[r * HP + d] = key < L ? to_f(base[key * rs + 2 * H + h * HD + d]) : 0.0f;
   }
   for (int c = tid; c < CT; c += NT) kb[c] = c0 + c < L ? mask_bias(mask, b, L, c0 + c) : 0.0f;
+  if constexpr (kTC) copy_rows<NT>(Kb, base, rs, c0, CT, H + h * HD, L, tid);
+  const int warp = tid / 32, lane = tid % 32;
 
   float dk[2][4] = {}, dv[2][4] = {};
   const int n_rt = (L + RT - 1) / RT;
   for (int rt = 0; rt < n_rt; ++rt) {
     __syncthreads();
-    for (int e = tid; e < RT * HD; e += NT) {
-      const int r = e / HD, d = e % HD;
-      const int qr = rt * RT + r;
-      Qs[r * HP + d] = qr < L ? to_f(base[qr * rs + h * HD + d]) : 0.0f;
-      dOs[r * HP + d] = qr < L ? to_f(obase[qr * (size_t)H + h * HD + d]) : 0.0f;
+    if constexpr (kTC) {
+      copy_rows<NT>(Qb, base, rs, rt * RT, RT, h * HD, L, tid);
+      copy_rows<NT>(Ob, obase, H, rt * RT, RT, h * HD, L, tid);
+    } else {
+      for (int e = tid; e < RT * HD; e += NT) {
+        const int r = e / HD, d = e % HD;
+        const int qr = rt * RT + r;
+        Qs[r * HP + d] = qr < L ? to_f(base[qr * rs + h * HD + d]) : 0.0f;
+        dOs[r * HP + d] = qr < L ? to_f(obase[qr * (size_t)H + h * HD + d]) : 0.0f;
+      }
     }
     for (int r = tid; r < RT; r += NT) {
       const int qr = rt * RT + r;
@@ -439,28 +460,48 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
       rsum[r] = st.y;
       rd[r] = qr < L ? dvec[(size_t)bh * L + qr] : 0.0f;
     }
+    if constexpr (kTC) {
+      cp_async_all();
+      __syncthreads();
+      widen_rows(Qs, Qb, RT, tid);
+      widen_rows(dOs, Ob, RT, tid);
+      // the forward's score routine (Q as A, K as B): warp w takes queries
+      // 16 (w % 4) .. +15 against keys 16 (w / 4) .. +15 of the block; the
+      // dots go to the Pt panel as (key, query)
+      uint32_t qa[4][4];
+      load_q_frags(qa, Qb, 16 * (warp & 3), lane);
+      float c[2][4];
+      qk_dots<2>(qa, Kb, 16 * (warp >> 2), lane, c);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 16 * (warp & 3) + lane / 4 + 8 * (e >> 1);
+          Pt[(16 * (warp >> 2) + 8 * i + 2 * (lane % 4) + (e & 1)) * TP + ql] = c[i][e];
+        }
+    }
     __syncthreads();
-    // keys ty + 16a against queries tx + 16j: the same fmaf chains as the
-    // forward's scores and the dQ kernel's dPt
+    // keys ty + 16a against queries tx + 16j: the dQ kernel's fmaf chains
+    // for dPt; f32: the forward's fmaf chains for the scores
     float sacc[2][4] = {}, dacc[2][4] = {};
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
       float ka[2], va[2], qj[4], oj[4];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
-        ka[a] = Ks[(ty + 16 * a) * HP + d];
+        if constexpr (!kTC) ka[a] = Ks[(ty + 16 * a) * HP + d];
         va[a] = Vs[(ty + 16 * a) * HP + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        qj[j] = Qs[(tx + 16 * j) * HP + d];
+        if constexpr (!kTC) qj[j] = Qs[(tx + 16 * j) * HP + d];
         oj[j] = dOs[(tx + 16 * j) * HP + d];
       }
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          sacc[a][j] = fmaf(qj[j], ka[a], sacc[a][j]);
+          if constexpr (!kTC) sacc[a][j] = fmaf(qj[j], ka[a], sacc[a][j]);
           dacc[a][j] = fmaf(oj[j], va[a], dacc[a][j]);
         }
     }
@@ -472,8 +513,8 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
         const int ql = tx + 16 * j, qr = rt * RT + ql;
         float pt = 0.0f, ds = 0.0f;
         if (key < L && qr < L) {
-          const float e = expf(score(sacc[a][j], scale, kb[kl]) - rmax[ql]);
-          const float p = e / rsum[ql];
+          const float dot = kTC ? Pt[kl * TP + ql] : sacc[a][j];
+          const float p = prob(score(dot, scale, kb[kl]), rmax[ql], rsum[ql]);
           pt = round_to<T>(dr.apply(p, qr, key, L));
           ds = round_to<T>(p * (dr.apply(dacc[a][j], qr, key, L) - rd[ql]));
         }
@@ -519,11 +560,13 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
 size_t fwd_smem(int L) {
   return sizeof(float) * ((size_t)QT * (L + 1) + QT * HP + KT * HP + L);
 }
-size_t dq_smem(int L) {
-  return sizeof(float) * ((size_t)2 * QT * (L + 1) + 2 * QT * HP + 2 * KT * HP + L + 2 * QT);
+template <typename T> size_t dq_smem(int L) {
+  return sizeof(float) * ((kTensorCores<T> ? tc_dq_floats : 0) + (size_t)2 * QT * (L + 1) +
+                          2 * QT * HP + 2 * KT * HP + L + 2 * QT);
 }
-size_t dkdv_smem() {
-  return sizeof(float) * ((size_t)2 * CT * HP + 2 * RT * HP + 2 * CT * (RT + 1) + 3 * RT + CT);
+template <typename T> size_t dkdv_smem() {
+  return sizeof(float) * ((kTensorCores<T> ? tc_dkdv_floats : 0) + (size_t)2 * CT * HP +
+                          2 * RT * HP + 2 * CT * (RT + 1) + 3 * RT + CT);
 }
 
 template <typename K>
@@ -531,16 +574,15 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* qkv, const void* mask, void* out, void* stats, int B, int L,
-                       int H, int nh, int drop_on, int seed0, int seed1, unsigned thresh,
-                       float inv, cudaStream_t stream) {
+cudaError_t launch_fwd_f32(const void* qkv, const void* mask, void* out, void* stats, int B,
+                           int L, int H, int nh, int drop_on, int seed0, int seed1,
+                           unsigned thresh, float inv, cudaStream_t stream) {
   const size_t smem = fwd_smem(L);
-  cudaError_t err = allow_smem(fwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(fwd_kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + QT - 1) / QT, nh, B);
-  fwd_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int*>(mask), static_cast<T*>(out),
+  fwd_kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const int*>(mask), static_cast<float*>(out),
       static_cast<float2*>(stats), L, H, nh, 1.0f / sqrtf((float)HD), drop_on, seed0, seed1,
       thresh, inv);
   return cudaGetLastError();
@@ -550,6 +592,8 @@ template <typename T>
 cudaError_t launch_bwd(const void* qkv, const void* mask, const void* dout, const void* stats,
                        void* dvec, void* dqkv, int B, int L, int H, int nh, int drop_on,
                        int seed0, int seed1, unsigned thresh, float inv, cudaStream_t stream) {
+  if (kTensorCores<T> && ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout)) % 16))
+    return cudaErrorInvalidValue;  // copy_rows moves 16-byte chunks
   const float scale = 1.0f / sqrtf((float)HD);
   const T* q = static_cast<const T*>(qkv);
   const int* m = static_cast<const int*>(mask);
@@ -557,14 +601,14 @@ cudaError_t launch_bwd(const void* qkv, const void* mask, const void* dout, cons
   const float2* st = static_cast<const float2*>(stats);
   float* dv = static_cast<float*>(dvec);
   T* dx = static_cast<T*>(dqkv);
-  size_t smem = dq_smem(L);
+  size_t smem = dq_smem<T>(L);
   cudaError_t err = allow_smem(bwd_dq_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   bwd_dq_kernel<T><<<dim3((L + QT - 1) / QT, nh, B), NT, smem, stream>>>(
       q, m, g, st, dv, dx, L, H, nh, scale, drop_on, seed0, seed1, thresh, inv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  smem = dkdv_smem();
+  smem = dkdv_smem<T>();
   err = allow_smem(bwd_dkdv_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   bwd_dkdv_kernel<T><<<dim3((L + CT - 1) / CT, nh, B), NT, smem, stream>>>(
@@ -587,11 +631,11 @@ extern "C" int hc_flash_fwd(const void* qkv, const void* mask, void* out, void* 
   if (bad_shape(B, L, H, nh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_fwd<float>(qkv, mask, out, stats, B, L, H, nh, drop_on, seed0, seed1,
-                                  thresh, inv, s);
-  if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(qkv, mask, out, stats, B, L, H, nh, drop_on, seed0,
-                                          seed1, thresh, inv, s);
+    return (int)launch_fwd_f32(qkv, mask, out, stats, B, L, H, nh, drop_on, seed0, seed1,
+                               thresh, inv, s);
+  if (dtype == 1)  // the tensor-core forward of attention_tc.cuh
+    return (int)launch_tc_fwd<true>(qkv, mask, out, stats, B, L, H, nh, drop_on, seed0, seed1,
+                                    thresh, inv, s);
   return (int)cudaErrorInvalidValue;
 }
 

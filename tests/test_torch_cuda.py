@@ -464,6 +464,124 @@ def test_flash_attention_kernels_match_plain(dev, gen, dtype, rate, L):
         assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+# --- the bf16 tensor-core forward (csrc/attention_tc.cuh) of rows 1 and 11 --
+
+TC_LENGTHS = [1, 16, 77, 130, 384, 512]
+
+
+def _tc_mask(L, dev):
+    """[6, L]: a full row, a prefix, holes, valid keys only at both ends
+    (all-padded key tiles between them), one valid key, no valid key."""
+    m = torch.zeros(6, L, dtype=torch.int32)
+    m[0] = 1
+    m[1, : max(1, 2 * L // 3)] = 1
+    m[2, ::7] = 1
+    m[3, :5] = 1
+    m[3, max(0, L - 3) :] = 1
+    m[4, L // 2] = 1
+    return m.to(dev)
+
+
+def _ragged_mask(gen, dev, B, L):
+    lengths = torch.randint(L // 8, L + 1, (B,), device=dev, generator=gen)
+    return (torch.arange(L, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
+
+
+def _check_tc_inference(qkv, mask):
+    from haconvdr_torch.ops import flash_attention as fl
+    from haconvdr_torch.ops import fused_attention as fa
+
+    before = fa.COUNTS["kernel"]
+    out = fa.fused_attention_qkv(qkv, mask, 12)
+    torch.cuda.synchronize()
+    assert fa.COUNTS["kernel"] == before + 1
+    ref = fa.fused_attention_qkv_plain(qkv, mask, 12)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= 2.0**-6 + 2.0**-8 * ref.float().abs()).all()), float(diff.max())
+    # the flash forward without dropout runs the same kernel body
+    assert torch.equal(out, fl._fwd_kernel(qkv, mask.contiguous(), 12, None, 0.0)[0])
+
+
+def _check_tc_flash(qkv, mask, go, rate):
+    from haconvdr_torch.ops import flash_attention as fa
+
+    seed = (-(2**31) + 11, 2**31 - 7)
+    before = dict(fa.COUNTS)
+    x = qkv.clone().requires_grad_(True)
+    out = fa.flash_attention(x, mask, 12, seed=seed, drop_rate=rate)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert fa.COUNTS["fwd"] == before["fwd"] + 1 and fa.COUNTS["bwd"] == before["bwd"] + 1
+    ref = fa.flash_attention_fwd_plain(qkv, mask, 12, seed, rate)
+    rdq = fa.flash_attention_bwd_plain(qkv, mask, go, 12, seed, rate)
+    for got, want in ((out.detach(), ref), (x.grad, rdq)):
+        assert float((got.float() - want.float()).abs().max()) <= _bf16_ulp_of_max(want)
+
+
+@pytest.mark.parametrize("L", TC_LENGTHS)
+def test_tc_inference_attention_edges(dev, gen, L):
+    """Row 1, bf16: within 2**-6 + 2**-8 |ref| of the twin on holes,
+    all-padded key tiles, one valid key and a row with none."""
+    qkv = torch.randn(6, L, 3 * 768, device=dev, generator=gen).to(torch.bfloat16)
+    _check_tc_inference(qkv, _tc_mask(L, dev))
+
+
+@pytest.mark.parametrize("L", TC_LENGTHS)
+def test_tc_flash_attention_edges(dev, gen, L):
+    """Rows 11-12, bf16, dropout 0.1: forward and dqkv within one bf16 ulp
+    of the largest magnitude of the twins on the same masks."""
+    qkv = (torch.randn(6, L, 3 * 768, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+    go = torch.randn(6, L, 768, device=dev, generator=gen).to(torch.bfloat16)
+    _check_tc_flash(qkv, _tc_mask(L, dev), go, 0.1)
+
+
+@pytest.mark.parametrize("row", ["inference", "flash"])
+def test_tc_forward_at_the_frozen_tower_shape(dev, gen, row):
+    """B 64, L 384 (the frozen passage towers' shape), ragged lengths."""
+    B, L = 64, 384
+    qkv = (torch.randn(B, L, 3 * 768, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+    mask = _ragged_mask(gen, dev, B, L)
+    if row == "inference":
+        _check_tc_inference(qkv, mask)
+    else:
+        go = torch.randn(B, L, 768, device=dev, generator=gen).to(torch.bfloat16)
+        _check_tc_flash(qkv, mask, go, 0.1)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("qk_scale", [1.0, 8.0, 24.0])
+def test_tc_backward_rebuilds_the_forwards_probabilities_bit_for_bit(dev, gen, rate, qk_scale):
+    """With V the identity of each head (L 64 = d) the forward's output row
+    q0 is bf16(Pt[q0, :]) exactly, and with a grad_out whose only nonzero
+    row is q0 (all ones) every column of dV is the backward's bf16(Pt[q0,
+    :]): the two must be equal bit for bit.  qk_scale spreads the scores
+    (row std ~0.25, 2 and 6): the forward's division (div_rn, or IEEE where
+    a probability falls below 2^-64) against the backward's IEEE one."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    B, L, nh, q0 = 2, 64, 12, 5
+    qkv = torch.randn(B, L, 3 * 768, device=dev, generator=gen) * 0.5
+    qkv[:, :, : 2 * 768] *= qk_scale
+    qkv = qkv.to(torch.bfloat16)
+    qkv[:, :, 2 * 768 :] = torch.eye(L, device=dev, dtype=torch.bfloat16).repeat(1, nh)
+    mask = torch.ones(B, L, dtype=torch.int32, device=dev)
+    mask[1, 40:] = 0
+    go = torch.zeros(B, L, 768, device=dev, dtype=torch.bfloat16)
+    go[:, q0] = 1
+    x = qkv.clone().requires_grad_(True)
+    out = fa.flash_attention(x, mask, nh, seed=(97, -5), drop_rate=rate)
+    out.backward(go)
+    torch.cuda.synchronize()
+    fwd = out.detach()[:, q0].view(B, nh, L)  # [b, h, key]
+    dv = x.grad[:, :, 2 * 768 :].view(B, L, nh, 64)  # [b, key, h, d]
+    assert torch.equal(dv, dv[..., :1].expand_as(dv))
+    assert torch.equal(fwd, dv[..., 0].permute(0, 2, 1))
+    assert bool((fwd[0] > 0).any()) and bool((fwd[1, :, 40:] == 0).all())
+    if rate > 0:
+        assert bool((fwd[0] == 0).any())  # dropped keys
+
+
 def test_flash_attention_rejects_unsupported(dev):
     from haconvdr_torch.ops.flash_attention import flash_attention
 

@@ -23,6 +23,7 @@ from haconvdr_tpu.ops.flash_attention import (
     flash_attention_qkv_vjp,
 )
 from haconvdr_torch.ops import flash_attention as fa
+from haconvdr_torch.ops.fused_attention import fused_attention_qkv_plain
 
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
@@ -78,6 +79,56 @@ def test_forward_and_dqkv_match_jax_interpret(L, heads, rate, dtype):
     assert fa.COUNTS == {"fwd": 0, "bwd": 0, "plain_fwd": 1, "plain_bwd": 1}
     _close(out.detach().float().numpy(), ref_out, dtype)
     _close(x.grad.float().numpy(), ref_dq, dtype)
+
+
+def _edge_mask(case, L):
+    """[2, L] masks of the edge cases the tensor-core forward's key-tile
+    skipping and fragment edges must get right: holes (not a prefix),
+    one valid key, and lengths that are not multiples of 16."""
+    mask = np.zeros((2, L), np.int32)
+    if case == "holes":  # valid keys at 0, 3-5 and 33-47 only
+        mask[0, [0, 3, 4, 5, 33, 34, 47]] = 1
+        mask[1, 10:] = 1
+    elif case == "one_key":
+        mask[0, 37] = 1
+        mask[1, 0] = 1
+    else:  # a full row and a ragged one
+        mask[0] = 1
+        mask[1, : L // 3] = 1
+    return mask
+
+
+EDGES = [("holes", 48), ("one_key", 64), ("ragged", 77), ("ragged", 130)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case, L", EDGES)
+def test_edge_masks_match_jax_interpret(case, L, dtype):
+    heads, rate = 2, 0.25
+    qkv, _, g = _inputs(2, L, heads, dtype, seed=L + 7)
+    mask = _edge_mask(case, L)
+    seed = (-123, 456789)
+    ref_out, ref_dq = _jax(qkv, mask, g, heads, seed, rate, dtype)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(qkv).to(tdt).requires_grad_(True)
+    out = fa.flash_attention(x, torch.from_numpy(mask), heads, seed=seed, drop_rate=rate)
+    out.backward(torch.from_numpy(g).to(tdt))
+    _close(out.detach().float().numpy(), ref_out, dtype)
+    _close(x.grad.float().numpy(), ref_dq, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case, L", [("ragged", 77), ("holes", 48)])
+def test_plain_forward_without_dropout_equals_inference_twin(case, L, dtype):
+    """At drop rate 0 the trained tower's forward twin and the inference
+    twin compute one function bit for bit, so one kernel body serves both."""
+    qkv, _, _ = _inputs(2, L, 3, "float32", seed=L)
+    x = torch.from_numpy(qkv).to(dtype)
+    mask = torch.from_numpy(_edge_mask(case, L))
+    a = fa.flash_attention_fwd_plain(x, mask, 3, seed=(1, 2), drop_rate=0.0)
+    b = fused_attention_qkv_plain(x, mask, 3)
+    assert a.dtype == b.dtype == dtype
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize(

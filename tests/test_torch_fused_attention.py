@@ -29,10 +29,15 @@ BF16_RTOL = 2.0**-8
 
 
 def _inputs(rng, B, L, heads, d, lengths):
+    """lengths[b]: an int n (the first n keys valid) or a tuple of the
+    valid key positions (a mask with holes)."""
     qkv = rng.randn(B, L, 3 * heads * d).astype(np.float32)
     mask = np.zeros((B, L), np.int32)
     for b, n in enumerate(lengths):
-        mask[b, :n] = 1
+        if isinstance(n, tuple):
+            mask[b, list(n)] = 1
+        else:
+            mask[b, :n] = 1
     return qkv, mask
 
 
@@ -57,7 +62,13 @@ CASES = {
     "full": ([32, 32], 32),
     "padded": ([20, 7], 32),
     "mostly_padded": ([1, 3], 64),
+    # the edges of the tensor-core route's key-tile skipping and fragments
+    "holes": ([(0, 3, 4, 5, 70, 71, 90), 50], 96),
+    "one_key": ([(37,), (0,)], 64),
+    "len77": ([77, 30], 77),
+    "len130": ([130, (1, 2, 64, 129)], 130),
 }
+EDGE_CASES = ["holes", "one_key", "len77", "len130"]
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -89,6 +100,19 @@ def test_plain_matches_jax_kernel_bf16(rng):
         torch.from_numpy(qkv).to(torch.bfloat16), torch.from_numpy(mask), 2
     )
     assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(ref, np.float32), rtol=BF16_RTOL, atol=BF16_ATOL
+    )
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_plain_matches_jax_kernel_bf16_edges(rng, case):
+    lengths, L = CASES[case]
+    qkv, mask = _inputs(rng, 2, L, 2, 64, lengths)
+    ref = jax_fused_qkv(jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(mask), 2, interpret=True)
+    out = fused_attention_qkv_plain(
+        torch.from_numpy(qkv).to(torch.bfloat16), torch.from_numpy(mask), 2
+    )
     np.testing.assert_allclose(
         out.float().numpy(), np.asarray(ref, np.float32), rtol=BF16_RTOL, atol=BF16_ATOL
     )
