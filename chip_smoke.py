@@ -25,14 +25,17 @@ order; any failure raises and the script exits non-zero:
    block; the trained
    tower's flash-attention forward and backward at B 8, L 512, 12 heads,
    float32 and bfloat16, dropout 0 and 0.1, and at phase 9's shape (B 64,
-   query lengths 64-512, bfloat16, dropout 0.1; the same seed words to
-   both); the streaming top-k (row 7, on no path) at Q = 256 over the
+   query lengths 64-512, bfloat16, dropout 0.1 and 0; the same seed words
+   to both); the streaming top-k (row 7, on no path) at Q = 256 over the
    first 2,498,560 rows (a multiple of both dtypes' p_chunk * group),
    n_valid = N - 1,000, float32 and bfloat16, also bit for bit against the
    unseeded v3 kernel on the same rows; attention (row 1) in bfloat16 at
    the frozen passage towers' shape (B 64, L 384, lengths 32-384);
-   then one line per bf16 row of the tensor-core attention forward (rows 1
-   and 11): ms, SDPA ms, bound ms and ms / SDPA;
+   then one `redesigned ...` line per row of a redesigned route (rows 1,
+   11 and 12 in bf16 on the tensor cores, row 1's f32 route in 3xTF32):
+   ms, SDPA ms (row 12: SDPA's backward alone, then forward + backward
+   against SDPA's forward + backward), bound ms and ms / SDPA, with the
+   card's name and power limit;
    each row also carries its bound (bytes over 3.35 TB/s or operations
    over the peak of the type the work could run in) and, where one
    PyTorch call computes the same function, that call's time;
@@ -40,7 +43,8 @@ order; any failure raises and the script exits non-zero:
    from the seed) over a resident 2,500,000 x 768 float32 index made on
    the card, searched by the v4 kernels; a BatchingRetriever(max_batch=64)
    answers concurrent conversational requests and Retriever.retrieve a
-   few single ones.  Answers are held against the plain twins;
+   few single ones.  Answers are held against the plain twins; then the
+   embed of 64 requests is timed (median of 3, host clock, synchronized);
 5. int8 resident path: the same tower, Retriever(store_dtype="int8") over
    the same rows quantized on the card; 64 concurrent requests and a few
    single ones.  Every search's answer equals the plain int8 scoring of
@@ -100,7 +104,9 @@ after: each kernel of that path must have launched, and no plain twin may
 have run.
 
 Tolerances (kernel vs plain twin on the same inputs):
-  attention float32  max |diff| <= 1e-4
+  attention float32  max |diff| <= 1e-4 (3xTF32 products, ~2^-21 relative
+                     each, at the level of an f32 fmaf chain; one-term
+                     TF32 would not hold it)
   attention bfloat16 |diff| <= 2**-6 + 2**-8 |ref| (one bf16 ulp: both
                      round P and the output to bf16)
   float scores       |diff| <= 1e-4 |ref| (top-k, window maxima; both
@@ -118,8 +124,9 @@ Tolerances (kernel vs plain twin on the same inputs):
                      exactly the quantization of the kernel's own y; codes
                      within 1 of the twin's at under 0.1% of positions
   flash attention    float32 out and dqkv max |diff| <= 1e-5; bfloat16
-                     within one bf16 ulp of the tensor's largest magnitude
-                     (both round P, dS and the outputs to bf16)
+                     out within one bf16 ulp of its largest magnitude,
+                     and dQ, dK and dV each within one bf16 ulp of its
+                     own (both round P, dS and the outputs to bf16)
   int8 MLP block     the JAX package's bounds for its kernel
                      (tests/test_fused_mlp.py): |diff| <= 2**-6 |ref| +
                      0.07, under 0.2% past 2**-6 (1 + |ref|); yq, ys and
@@ -206,8 +213,9 @@ EVAL_CONVS, EVAL_TURNS = 64, 8
 EVAL_BLOCKS = (2_500_000, 500_000)
 PRJ_CONVS, PRJ_PLANTED = 32, 24
 WORDS = [f"w{i}" for i in range(5000)]
-# the card's peaks (NVIDIA H100 SXM data sheet, dense) and memory rate
-PEAK = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# the card's peaks (NVIDIA H100 SXM data sheet, dense) and memory rate;
+# f32 is the CUDA cores' rate, tf32 the tensor cores'
+PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -240,7 +248,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def bound(flops: float, nbytes: float, peak: str):
     """(least ms, "operations" or "bytes"): the larger of the operations
-    over the peak of their type and the bytes over the memory rate."""
+    over the peak of the type they run in and the bytes over the memory
+    rate."""
     t_ops = flops / PEAK[peak] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -356,7 +365,9 @@ def int8_plain(q_folded, codes, n_valid):
 def attention_row(qkv, lengths, config: str, rows) -> None:
     """Row 1 on qkv [B, L, 3H] with prefix masks of ``lengths``: the kernel
     against its twin (float32 within 1e-4, bfloat16 within 2**-6 + 2**-8
-    |ref|), its time, the twin's, SDPA's and the bound."""
+    |ref|), its time, the twin's, SDPA's and the bound.  The float32 route
+    runs each product as three TF32 products (3xTF32), so its operations
+    are three times the products' at the TF32 peak."""
     from haconvdr_torch.ops.fused_attention import (
         fused_attention_qkv,
         fused_attention_qkv_plain,
@@ -379,11 +390,12 @@ def attention_row(qkv, lengths, config: str, rows) -> None:
     q, k, v, bias = sdpa_operands(qkv, mask)
     lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
                   reps=ATTN_REPS)
+    flops, peak = attention_flops(lengths, L, DIM, 2), PEAK_OF[str(qkv.dtype).split(".")[1]]
+    if peak == "f32":
+        flops, peak = 3 * flops, "tf32"
     rows.append(dict(kernel="fused_attention", config=config, max_abs_err=float(diff.max()),
                      ms=ms, plain_ms=pms, library_ms=lms, shape=list(qkv.shape),
-                     **bound_row(attention_flops(lengths, L, DIM, 2),
-                                 B * L * (4 * DIM * qkv.element_size() + 4),
-                                 PEAK_OF[str(qkv.dtype).split(".")[1]])))
+                     **bound_row(flops, B * L * (4 * DIM * qkv.element_size() + 4), peak)))
 
 
 def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
@@ -443,13 +455,24 @@ def kernels_attention_frozen(seed: int, dev, rows):
 
 
 def print_redesigned(rows, card: str) -> None:
-    """One line per bf16 row of the tensor-core forward (rows 1 and 11):
-    its time, SDPA's, the bound and the kernel's time over SDPA's."""
+    """One line per row of a redesigned route: the bf16 tensor-core
+    attention (rows 1, 11 and 12) and row 1's 3xTF32 f32 route.  Each gives
+    the kernel's time, SDPA's, the bound and the kernel's time over SDPA's;
+    row 12 against SDPA's backward alone, then its forward + backward
+    against SDPA's forward + backward."""
     for r in rows:
-        if r["kernel"] in ("fused_attention", "flash_attention_fwd") and "bfloat16" in r["config"]:
-            print(f"redesigned {r['kernel']} [{r['config']}]: {r['ms']:.4f} ms, SDPA "
-                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
-                  f"ms / SDPA {r['ms'] / r['library_ms']:.2f} [{card}]")
+        flash = r["kernel"] in ("flash_attention_fwd", "flash_attention_bwd")
+        if not (r["kernel"] == "fused_attention" or flash and "bfloat16" in r["config"]):
+            continue
+        sdpa = "SDPA backward" if r["kernel"] == "flash_attention_bwd" else "SDPA"
+        line = (f"redesigned {r['kernel']} [{r['config']}]: {r['ms']:.4f} ms, {sdpa} "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                f"ms / SDPA {r['ms'] / r['library_ms']:.2f}")
+        if r["kernel"] == "flash_attention_bwd":
+            line += (f"; forward + backward {r['fwd_plus_bwd_ms']:.4f} ms, SDPA forward + "
+                     f"backward {r['library_fwd_bwd_ms']:.4f} ms, ratio "
+                     f"{r['fwd_plus_bwd_ms'] / r['library_fwd_bwd_ms']:.2f}")
+        print(f"{line} [{card}]")
 
 
 def kernels_stream(dev, g, passages_f32, rows):
@@ -737,15 +760,26 @@ def kernels_int8_tower(dev, g, rows):
 
 
 def bf16_ulp_of_max(ref: torch.Tensor) -> float:
-    return float(2.0 ** (np.floor(np.log2(float(ref.float().abs().max()))) - 7))
+    """One bf16 ulp of ref's largest magnitude (0 where ref is all zero)."""
+    top = float(ref.float().abs().max())
+    return float(2.0 ** (np.floor(np.log2(top)) - 7)) if top > 0 else 0.0
+
+
+def check_dqkv_parts(got, want, what: str) -> None:
+    """dQ, dK and dV of a bf16 dqkv [B, L, 3H] each within one bf16 ulp of
+    its own largest magnitude."""
+    for i, part in enumerate("QKV"):
+        g, w = got[..., i * DIM:(i + 1) * DIM], want[..., i * DIM:(i + 1) * DIM]
+        err, tol = float((g.float() - w.float()).abs().max()), bf16_ulp_of_max(w)
+        check(err <= tol, f"{what}: d{part} {err} > {tol}")
 
 
 def kernels_flash(dev, g, rng, rows):
     """Rows 11-12: the trained tower's attention forward and backward at
     B 8, L 512, H 768, 12 heads (float32 and bfloat16, dropout 0 and 0.1),
     and at phase 9's own shape (B 64, query lengths 64-512, bfloat16,
-    dropout 0.1), against the plain twins on the same qkv, mask, output
-    cotangent and seed words."""
+    dropout 0.1 and 0), against the plain twins on the same qkv, mask,
+    output cotangent and seed words."""
     from haconvdr_torch.ops import flash_attention as fa
 
     def ragged_mask(B, lo):
@@ -759,7 +793,9 @@ def kernels_flash(dev, g, rng, rows):
     cases = [(small, dt, rate, f"{name}, drop {rate}")
              for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"))
              for rate in (0.0, 0.1)]
-    cases.append((ragged_mask(TRAIN_B, TRAIN_QLEN // 8), torch.bfloat16, 0.1, FLASH_MAIN))
+    big = ragged_mask(TRAIN_B, TRAIN_QLEN // 8)
+    cases.append((big, torch.bfloat16, 0.1, FLASH_MAIN))
+    cases.append((big, torch.bfloat16, 0.0, f"bfloat16, drop 0.0, B {TRAIN_B}"))
     for (lengths, mask), dt, rate, config in cases:
         B = len(lengths)
         name = "float32" if dt == torch.float32 else "bfloat16"
@@ -777,6 +813,8 @@ def kernels_flash(dev, g, rng, rows):
             tol = 1e-5 if dt == torch.float32 else bf16_ulp_of_max(want)
             check(err <= tol, f"flash {what} {config}: {err} > {tol}")
             errs.append(err)
+        if dt == torch.bfloat16:
+            check_dqkv_parts(x.grad, rdq, f"flash dqkv {config}")
         m32 = mask.contiguous()
         with torch.no_grad():
             _, stats = fa._fwd_kernel(qkv, m32, 12, seed, rate)
@@ -935,6 +973,14 @@ def phase_main_path(seed: int, dev, passages_f32, params, cfg, card: str):
     check(np.isfinite(got_q).all() and got_q.shape == (len(examples), cfg.embedding_dim),
           "query embeddings not finite or of the wrong shape")
     check(emb_err <= 1e-3, f"query embeddings: kernel vs plain {emb_err}")
+    embed_ms = []  # one batch of 64 requests through the f32 tower
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        retriever.embed(examples[:64])
+        embed_ms.append((time.perf_counter() - t) * 1e3)
+    print(f"f32 tower embed: B 64 in {float(np.median(embed_ms)):.2f} ms "
+          f"(median of {embed_ms}) [{card}]")
     rs, ri = fused_topk.fused_topk_block_plain(
         torch.from_numpy(ref_q).to(dev), passages_f32, N_ROWS, TOP_K
     )
@@ -1407,7 +1453,8 @@ def phase_training(seed: int, dev, card: str):
 
     attention_share = {"frozen towers' attention (row 1)": share("tc_attention_fwd<false>"),
                        "flash forward (row 11)": share("tc_attention_fwd<true>"),
-                       "flash backward (row 12)": share("bwd_dq_kernel", "bwd_dkdv_kernel")}
+                       "flash backward (row 12)": share("tc_bwd_dq", "tc_bwd_dkdv"),
+                       "of which dQ": share("tc_bwd_dq("), "of which dK/dV": share("tc_bwd_dkdv")}
     print("training attention share of device time:",
           ", ".join(f"{k} {v:.1%}" for k, v in attention_share.items()), f"[{card}]")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
@@ -1798,10 +1845,11 @@ def main(argv=None) -> int:
               "haconvdr_tpu/ops/fused_ln.py:91", "fused_ln", "ln_quant", "bf16 + residual"),
         entry("fused_mlp", "haconvdr_torch/csrc/fused_mlp.cu",
               "haconvdr_tpu/ops/fused_mlp.py:56", "fused_mlp", "kernel", "bf16"),
-        entry("flash_attention_fwd", "haconvdr_torch/csrc/flash_attention.cu",
+        # rows 11-12 at phase 9's bf16 shape: the tensor-core kernels
+        entry("flash_attention_fwd", "haconvdr_torch/csrc/attention_tc.cuh",
               "haconvdr_tpu/ops/flash_attention.py:105", "flash_attention", "fwd",
               FLASH_MAIN),
-        entry("flash_attention_bwd", "haconvdr_torch/csrc/flash_attention.cu",
+        entry("flash_attention_bwd", "haconvdr_torch/csrc/attention_tc_bwd.cuh",
               "haconvdr_tpu/ops/flash_attention.py:174", "flash_attention", "bwd",
               FLASH_MAIN),
         # row 7 lies on no path of either package: phase 3 checks it alone

@@ -1,5 +1,11 @@
 // Tensor-core attention forward for bf16, and the helpers every attention
-// kernel of the port shares.
+// kernel of the port shares: the score and dropout arithmetic, the
+// cp.async / ldmatrix / mma.sync primitives, the key-tile skipping
+// (key_tiles) and the normalisation (probs) that the bf16 backward
+// (attention_tc_bwd.cuh) repeats bit for bit.  The f32 routes of rows 11-12
+// (csrc/flash_attention.cu) stay on the CUDA cores, not yet redesigned: the
+// 3xTF32 split that row 1's f32 route uses (csrc/fused_attention.cu) is the
+// way to move them to the tensor cores within their 1e-5 agreement.
 //
 // Replaces, for bfloat16 inputs: haconvdr_tpu/ops/fused_attention.py:30
 // _attn_kernel (inference attention, through csrc/fused_attention.cu) and
@@ -35,29 +41,29 @@
 //   ldmatrix.trans.  ~48 KB of shared memory a block.
 // - two passes over the key tiles.  Pass 1 forms the scores and keeps each
 //   row's running max and sum.  Pass 2 forms the same scores again, then
-//   p = expf(s - m) / l (div_rn: the IEEE quotient bit for bit; the backward
-//   divides with '/'), applies the dropout keep mask at each element's
-//   own (row, column), rounds to bf16 and multiplies by V, with the C
-//   fragments of the scores repacked as the A operand of P V (the two
-//   share a layout).  The reference normalises (and drops) P in f32 before
-//   it rounds it to bf16; a one-pass online softmax would round the
-//   unnormalised exp(s - m_running) and rescale O at the end, which is
-//   another function.  The second pass is the price of the reference's
-//   function: 1.5x the products of one pass.
+//   P = probs() (expf(s - m) / l, the quotient through div_rn), applies the
+//   dropout keep mask at each element's own (row, column), rounds to bf16
+//   and multiplies by V, with the C fragments of the scores repacked as the
+//   A operand of P V (the two share a layout).  The reference normalises
+//   (and drops) P in f32 before it rounds it to bf16; a one-pass online
+//   softmax would round the unnormalised exp(s - m_running) and rescale O
+//   at the end, which is another function.  The second pass is the price
+//   of the reference's function: 1.5x the products of one pass.
 // - each score is one routine (qk_dots): Q as the A operand, K as B, the
 //   four k-steps of the head dim in order from a zero accumulator, then
-//   score() with its multiply and add rounded on their own.  The flash
-//   backward forms its scores through the same routine, so its P equals
-//   the forward's bit for bit.  The tensor cores sum the exact bf16
-//   products in their own order, so a score differs from a CUDA-core fmaf
-//   chain's by a few f32 ulps, far inside the bf16 tolerances.
+//   score() with its multiply and add rounded on their own, then probs().
+//   The flash backward (attention_tc_bwd.cuh) forms its probabilities
+//   through the same three routines from the saved row (max, sum), so its
+//   P equals the forward's bit for bit.  The tensor cores sum the exact
+//   bf16 products in their own order, so a score differs from a CUDA-core
+//   fmaf chain's by a few f32 ulps, far inside the bf16 tolerances.
 // - key tiles whose 64 mask entries are all 0 are skipped in both passes
-//   when the batch row has a valid key.  That is exact: the row max then
-//   comes from a valid key, so a masked score s = dot * scale - 1e9 gives
-//   expf(s - m) = 0.0f, which adds exactly 0 to the sum and to O.  Where a
-//   row has no valid key at all nothing is skipped, since the reference's
-//   softmax then runs over the masked scores.  Query tiles are never
-//   skipped: padded query rows are outputs of the reference too.
+//   when the batch row has a valid key (key_tiles).  That is exact: the row
+//   max then comes from a valid key, so a masked score s = dot * scale - 1e9
+//   gives expf(s - m) = 0.0f, which adds exactly 0 to the sum and to O.
+//   Where a row has no valid key at all nothing is skipped, since the
+//   reference's softmax then runs over the masked scores.  Query tiles are
+//   never skipped: padded query rows are outputs of the reference too.
 
 #pragma once
 
@@ -71,20 +77,6 @@ namespace {
 constexpr int HD = 64;     // head dim taken by the attention kernels
 constexpr int MAXL = 512;  // longest sequence
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// value rounded to T and widened back (P's cast to V's dtype)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 // one score: the dot product's f32 sum times the scale, plus the padding
 // bias, each rounded on its own (no contraction), identically in all kernels
 __device__ __forceinline__ float score(float dot, float scale, float bias) {
@@ -92,7 +84,7 @@ __device__ __forceinline__ float score(float dot, float scale, float bias) {
 }
 
 // one probability from its score and its row's (max, sum): IEEE expf and
-// division, identically in the forward and the backward
+// division (the f32 routes of rows 11-12, on the CUDA cores)
 __device__ __forceinline__ float prob(float s, float m, float l) { return expf(s - m) / l; }
 
 // RN(e / l), the IEEE quotient, without the division's slow-path branch,
@@ -144,6 +136,10 @@ struct Drop {
     if (!on) return x;
     return keep(r, c, L) ? __fmul_rn(x, inv) : 0.0f;
   }
+  // apply() in two halves, so that one hash serves Pt and dP of an element:
+  // apply(x) == (kept(r, c, L) ? scaled(x) : 0)
+  __device__ __forceinline__ bool kept(int r, int c, int L) const { return !on || keep(r, c, L); }
+  __device__ __forceinline__ float scaled(float x) const { return on ? __fmul_rn(x, inv) : x; }
 };
 
 // ---------------------------------------------------------------------------
@@ -230,30 +226,122 @@ __device__ __forceinline__ void qk_dots(const uint32_t (&qa)[4][4], const __nv_b
   }
 }
 
-// rows row0..row0+n-1 of one head's 64 columns (col0) of a bf16 matrix with
-// row stride rs into a [n][TC_LD] tile by 16-byte cp.async (no registers,
-// no branch), zero-filled past L; the caller commits, waits and syncs
-template <int NTHREADS>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* tile, const __nv_bfloat16* base,
-                                          size_t rs, int row0, int n, int col0, int L, int tid) {
+// rows row0..row0+n-1 of one head's 64 columns (col0) of a matrix with row
+// stride rs into a [n][LD] tile by 16-byte cp.async (no registers, no
+// branch), zero-filled past L; the caller commits, waits and syncs
+template <int NTHREADS, int LD = TC_LD, typename T>
+__device__ __forceinline__ void copy_rows(T* tile, const T* base, size_t rs, int row0, int n,
+                                          int col0, int L, int tid) {
+  constexpr int CPR = HD * (int)sizeof(T) / 16;  // 16-byte chunks a row
+  constexpr int EPC = 16 / (int)sizeof(T);       // elements a chunk
 #pragma unroll
-  for (int i = 0; i < (n * 8 + NTHREADS - 1) / NTHREADS; ++i) {
+  for (int i = 0; i < (n * CPR + NTHREADS - 1) / NTHREADS; ++i) {
     const int c = tid + i * NTHREADS;
-    if (n * 8 % NTHREADS != 0 && c >= n * 8) break;
-    const int r = c >> 3, k = (c & 7) * 8;
+    if (n * CPR % NTHREADS != 0 && c >= n * CPR) break;
+    const int r = c / CPR, k = (c % CPR) * EPC;
     const bool ok = row0 + r < L;
-    cp_async16(tile + r * TC_LD + k, base + (ok ? (size_t)(row0 + r) * rs : 0) + col0 + k, ok);
+    cp_async16(tile + r * LD + k, base + (ok ? (size_t)(row0 + r) * rs : 0) + col0 + k, ok);
+  }
+}
+
+constexpr int TC_BM = 64;   // query rows per block
+constexpr int TC_BN = 64;   // keys per tile
+constexpr int TC_NT = 128;  // four warps
+constexpr int TC_MAXT = MAXL / TC_BN;
+
+// The padding bias of row b's keys, bias[n_kt * 64] (-inf past L, so a key
+// past L scores -inf and adds 0), and the row's active 64-key tiles in
+// order: those with a valid key, or all of them where the row has none;
+// their count at tiles[TC_MAXT].  The caller syncs before reading either.
+template <int NTHREADS>
+__device__ __forceinline__ void key_tiles(const int* mask, int b, int L, float* bias, int* tiles,
+                                          int tid) {
+  const int n_kt = (L + TC_BN - 1) / TC_BN;
+  const int* mrow = mask + (size_t)b * L;
+  for (int j = tid; j < n_kt * TC_BN; j += NTHREADS)
+    bias[j] = j < L ? mask_bias(mask, b, L, j) : -INFINITY;
+  if (tid < 32) {
+    const int lane = tid;
+    int n = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int j0 = kt * TC_BN + lane, j1 = j0 + 32;
+      const bool v = (j0 < L && mrow[j0] != 0) || (j1 < L && mrow[j1] != 0);
+      if (__any_sync(0xffffffffu, v)) {
+        if (lane == 0) tiles[n] = kt;
+        ++n;
+      }
+    }
+    if (n == 0) {
+      for (int kt = lane; kt < n_kt; kt += 32) tiles[kt] = kt;
+      n = n_kt;
+    }
+    if (lane == 0) tiles[TC_MAXT] = n;
+  }
+}
+
+// s[n][e] = score(dot, scale, bias) for the C fragments of 8N keys starting
+// at key tile offset kbias (bias in shared memory, see key_tiles)
+template <int N>
+__device__ __forceinline__ void add_bias(float (&s)[N][4], const float* kbias, float scale,
+                                         int t) {
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt) {
+    const float2 kb = *reinterpret_cast<const float2*>(kbias + nt * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = score(s[nt][e], scale, e & 1 ? kb.y : kb.x);
+  }
+}
+
+// P = expf(s - m) / l in place on C fragments (rows g and g + 8 take m[0],
+// l[0], y[0] and m[1], l[1], y[1]; y = RN(1 / l)): the quotient through
+// div_rn, unless a lane of the warp holds an e below its range (a score
+// more than 44 below its row's max), where the warp takes the IEEE
+// division.  Either way each element is RN(expf(s - m) / l), the same bits
+// in every kernel that calls this.
+template <int N>
+__device__ __forceinline__ void probs(float (&s)[N][4], const float (&m)[2], const float (&l)[2],
+                                      const float (&y)[2]) {
+  bool tiny = false;
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = expf(s[nt][e] - m[e >> 1]);
+      s[nt][e] = x;
+      tiny |= x != 0.0f && x < kDivMin;
+    }
+  if (__any_sync(0xffffffffu, tiny)) {
+#pragma unroll
+    for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = s[nt][e] / l[e >> 1];
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = div_rn(s[nt][e], l[e >> 1], y[e >> 1]);
+  }
+}
+
+// the B fragments of a [k][n] bf16 tile (row stride TC_LD) for k rows
+// ks*16 .. +15, read with ldmatrix.trans: c[dn] += a b over the tile's 64
+// columns (the forward's P V, the backward's dS K, Pt^T dO and dS^T Q)
+__device__ __forceinline__ void mma_kn_tile(float (&c)[8][4], const uint32_t (&a)[4],
+                                            const __nv_bfloat16* tile, int ks, int lane) {
+  const __nv_bfloat16* row =
+      tile + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * TC_LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int dn = 0; dn < 8; dn += 2) {
+    uint32_t vb[4];
+    ldsm_x4_t(vb, row + dn * 8);
+    mma16816(c[dn], a, vb[0], vb[1]);
+    mma16816(c[dn + 1], a, vb[2], vb[3]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // the forward
 // ---------------------------------------------------------------------------
-
-constexpr int TC_BM = 64;   // query rows per block
-constexpr int TC_BN = 64;   // keys per tile
-constexpr int TC_NT = 128;  // four warps
-constexpr int TC_MAXT = MAXL / TC_BN;
 
 size_t tc_fwd_smem(int L) {
   return sizeof(__nv_bfloat16) * 5 * TC_BM * TC_LD +
@@ -287,25 +375,7 @@ __global__ void __launch_bounds__(TC_NT, 4) tc_attention_fwd(
 
   copy_rows<TC_NT>(Qs, base, rs, q0, TC_BM, h * HD, L, tid);
   cp_async_commit();
-  for (int j = tid; j < n_kt * TC_BN; j += TC_NT)
-    bias[j] = j < L ? mask_bias(mask, b, L, j) : -INFINITY;
-  if (warp == 0) {  // key tiles with a valid key; all of them if the row has none
-    const int* mrow = mask + (size_t)b * L;
-    int n = 0;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int j0 = kt * TC_BN + lane, j1 = j0 + 32;
-      const bool v = (j0 < L && mrow[j0] != 0) || (j1 < L && mrow[j1] != 0);
-      if (__any_sync(0xffffffffu, v)) {
-        if (lane == 0) tiles[n] = kt;
-        ++n;
-      }
-    }
-    if (n == 0) {
-      for (int kt = lane; kt < n_kt; kt += 32) tiles[kt] = kt;
-      n = n_kt;
-    }
-    if (lane == 0) tiles[TC_MAXT] = n;
-  }
+  key_tiles<TC_NT>(mask, b, L, bias, tiles, tid);
   __syncthreads();
   const int n_act = tiles[TC_MAXT];
   const int n_steps = 2 * n_act;  // pass 1 over the active tiles, then pass 2
@@ -340,12 +410,7 @@ __global__ void __launch_bounds__(TC_NT, 4) tc_attention_fwd(
     const __nv_bfloat16* Kt = Ks + buf * TC_BN * TC_LD;
     float s[8][4];
     qk_dots<8>(qa, Kt, 0, lane, s);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float2 kb = *reinterpret_cast<const float2*>(bias + kt * TC_BN + nt * 8 + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = score(s[nt][e], scale, e & 1 ? kb.y : kb.x);
-    }
+    add_bias<8>(s, bias + kt * TC_BN, scale, t);
     if (!pass2) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -373,29 +438,7 @@ __global__ void __launch_bounds__(TC_NT, 4) tc_attention_fwd(
         }
       }
     } else {
-      // P = prob(s, m, l) = expf(s - m) / l: the quotient through div_rn,
-      // unless a lane of the warp holds an e below its range (a score more
-      // than 44 below its row's max), where the tile takes the IEEE division
-      bool tiny = false;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = expf(s[nt][e] - m[e >> 1]);
-          s[nt][e] = x;
-          tiny |= x != 0.0f && x < kDivMin;
-        }
-      if (__any_sync(0xffffffffu, tiny)) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = s[nt][e] / l[e >> 1];
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = div_rn(s[nt][e], l[e >> 1], y[e >> 1]);
-      }
+      probs<8>(s, m, l, y);
       const __nv_bfloat16* Vt = Vs + buf * TC_BN * TC_LD;
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {  // keys ks*16 .. ks*16 + 15 of the tile
@@ -413,15 +456,7 @@ __global__ void __launch_bounds__(TC_NT, 4) tc_attention_fwd(
           pa[2 * half] = pack_bf16(p[0], p[1]);
           pa[2 * half + 1] = pack_bf16(p[2], p[3]);
         }
-        const __nv_bfloat16* vrow =
-            Vt + (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * TC_LD + (lane >> 4) * 8;
-#pragma unroll
-        for (int dn = 0; dn < 8; dn += 2) {
-          uint32_t vb[4];
-          ldsm_x4_t(vb, vrow + dn * 8);
-          mma16816(o[dn], pa, vb[0], vb[1]);
-          mma16816(o[dn + 1], pa, vb[2], vb[3]);
-        }
+        mma_kn_tile(o, pa, Vt, ks, lane);
       }
     }
     __syncthreads();  // the buffer of this step is free for step + 2

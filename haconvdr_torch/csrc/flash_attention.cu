@@ -17,11 +17,9 @@
 //
 // Residuals: JAX keeps only the primal inputs.  The forward here also
 // saves each query row's softmax max and sum (float2 [B, nh, L]), so the
-// backward rebuilds P with the forward's exact operations (the same score
-// routine, the same expf and division, prob() of attention_tc.cuh) instead
-// of rerunning the row reductions: P in the backward equals the forward's
-// bit for bit.  bf16 forms its scores on the tensor cores (qk_dots: Q as
-// A, K as B, four k-steps in order), f32 through one fmaf chain.
+// backward rebuilds P with the forward's exact operations instead of
+// rerunning the row reductions: P in the backward equals the forward's bit
+// for bit.
 //
 // What bounds it on the H100: at the reference geometry (B 64, L 512, 12
 // heads, d 64, bf16) the forward does 4 B L^2 H = 51.5 GFLOP against ~0.2 GB
@@ -33,56 +31,38 @@
 //   says what bounds it, why it takes two passes to normalise P before it
 //   rounds it, and why skipping all-masked key tiles is exact), with the
 //   dropout mask and the row stats on.
-// - f32 forward (not yet redesigned: TF32 would break its 1e-5 agreement):
-//   one block per (32-query tile, head, batch row) on the CUDA cores: the
-//   block keeps its 32 x L score rows in shared memory and streams K, then
-//   V, through one 64-key tile, so the softmax sees whole rows and P is
-//   normalised (and dropped) before it is rounded.
-// - backward, two launches on one stream, on the CUDA cores (fmaf) apart
-//   from the bf16 scores:
-//   dQ kernel, one block per (32-query tile, head, batch row): streams K and
-//   V tiles, keeps the block's P and dP rows in shared memory (2 x 32 x L
-//   f32), reduces D per row (written out for the second kernel), forms dS
-//   in place and streams K again for dQ;
-//   dK/dV kernel, one block per (32-key tile, head, batch row): streams
-//   64-query tiles of Q and dO, rebuilds P and dP for its keys from the
-//   saved row stats and D, and accumulates dK and dV in registers.
-//   No atomics: each output element has one writer, and the run is
-//   deterministic.
+// - bf16 backward: the tensor-core backward of attention_tc_bwd.cuh (all
+//   five products on mma.sync; a dQ kernel that also sums D, then a dK/dV
+//   kernel; its head says what bounds it).
+// - f32 forward and backward (not yet redesigned): on the CUDA cores
+//   (fmaf), as ported.  Their agreement with the twin is 1e-5, and plain
+//   TF32 keeps about 3 digits; the 3xTF32 split of fused_attention.cu's
+//   f32 route would keep it, and is the next step for these kernels.
+//   Forward: one block per (32-query tile, head, batch row) keeps its 32 x L
+//   score rows in shared memory and streams K, then V, through one 64-key
+//   tile, so the softmax sees whole rows and P is normalised (and dropped)
+//   before P V.  Backward, two launches on one stream: a dQ kernel, one
+//   block per (32-query tile, head, batch row), streams K and V tiles, keeps
+//   the block's P and dP rows in shared memory (2 x 32 x L f32), reduces D
+//   per row (written out for the second kernel), forms dS in place and
+//   streams K again for dQ; a dK/dV kernel, one block per (32-key tile,
+//   head, batch row), streams 64-query tiles of Q and dO, rebuilds P and dP
+//   for its keys from the saved row stats and D, and accumulates dK and dV
+//   in registers.
+// No atomics in either route: each output element has one writer, and the
+// run is deterministic.
 
-#include <type_traits>
-
-#include "attention_tc.cuh"
+#include "attention_tc_bwd.cuh"
 
 namespace {
 
 constexpr int HP = HD + 1;
-constexpr int QT = 32;   // query rows per block (f32 forward, dQ)
-constexpr int KT = 64;   // keys per streamed K / V tile (f32 forward, dQ)
+// the f32 kernels
+constexpr int QT = 32;   // query rows per block (forward, dQ)
+constexpr int KT = 64;   // keys per streamed K / V tile (forward, dQ)
 constexpr int CT = 32;   // keys per block (dK / dV)
 constexpr int RT = 64;   // query rows per streamed Q / dO tile (dK / dV)
 constexpr int NT = 256;  // threads per block (16 x 16)
-
-// bf16 backward: the operands are staged raw by cp.async (copy_rows, no
-// per-element global load whose latency a branch would expose) and widened
-// to the f32 panels in shared memory; the scores go through the forward's
-// tensor-core routine from the raw Q and K tiles
-template <typename T> constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-constexpr int tc_dq_floats = (QT + 2 * KT) * TC_LD / 2;    // Qb, Kb, Vb
-constexpr int tc_dkdv_floats = (CT + 2 * RT) * TC_LD / 2;  // Kb, Qb, Ob
-
-__device__ __forceinline__ void cp_async_all() {
-  cp_async_commit();
-  cp_async_wait<0>();
-}
-
-// the f32 panel (row stride HP) of n rows of a raw bf16 tile
-__device__ __forceinline__ void widen_rows(float* dst, const __nv_bfloat16* src, int n, int tid) {
-  for (int e = tid; e < n * HD; e += NT) {
-    const int r = e / HD, d = e % HD;
-    dst[r * HP + d] = __bfloat162float(src[r * TC_LD + d]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -203,27 +183,21 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const float* __restrict__ qkv,
 }
 
 // ---------------------------------------------------------------------------
-// backward 1: dQ and the row sums D, per 32-query tile
+// f32 backward 1: dQ and the row sums D, per 32-query tile
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
+__global__ void __launch_bounds__(NT) bwd_dq_kernel(const float* __restrict__ qkv,
                                                     const int* __restrict__ mask,
-                                                    const T* __restrict__ dout,
+                                                    const float* __restrict__ dout,
                                                     const float2* __restrict__ stats,
                                                     float* __restrict__ dvec,
-                                                    T* __restrict__ dqkv, int L, int H, int nh,
+                                                    float* __restrict__ dqkv, int L, int H, int nh,
                                                     float scale, int drop_on, int seed0,
                                                     int seed1, unsigned thresh, float inv) {
   extern __shared__ __align__(16) float smem[];
-  constexpr bool kTC = kTensorCores<T>;
-  // bf16: the raw Q tile, K tile and V tile
-  __nv_bfloat16* Qb = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][TC_LD]
-  __nv_bfloat16* Kb = Qb + QT * TC_LD;                          // [KT][TC_LD]
-  __nv_bfloat16* Vb = Kb + KT * TC_LD;                          // [KT][TC_LD]
   const int SP = L + 1;
-  float* P = smem + (kTC ? tc_dq_floats : 0);  // [QT][SP] probabilities (unrounded, undropped)
-  float* dP = P + QT * SP;         // [QT][SP] dP, then dS rounded to T
+  float* P = smem;                 // [QT][SP] probabilities (undropped)
+  float* dP = P + QT * SP;         // [QT][SP] dP, then dS
   float* Qs = dP + QT * SP;        // [QT][HP]
   float* dOs = Qs + QT * HP;       // [QT][HP]
   float* Ks = dOs + QT * HP;       // [KT][HP]
@@ -240,8 +214,8 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
   const int b = blockIdx.z;
   const int bh = b * nh + h;
   const size_t rs = 3 * (size_t)H;
-  const T* base = qkv + (size_t)b * L * rs;
-  const T* obase = dout + (size_t)b * L * H;
+  const float* base = qkv + (size_t)b * L * rs;
+  const float* obase = dout + (size_t)b * L * H;
   const Drop dr(drop_on, seed0, seed1, thresh, inv, bh);
 
   for (int j = tid; j < L; j += NT) bias[j] = mask_bias(mask, b, L, j);
@@ -250,51 +224,21 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
     rmax[r] = st.x;
     rsum[r] = st.y;
   }
-  if constexpr (kTC) {  // Q raw; dO through Kb into its panel
-    copy_rows<NT>(Qb, base, rs, q0, QT, h * HD, L, tid);
-    copy_rows<NT>(Kb, obase, H, q0, QT, h * HD, L, tid);
-    cp_async_all();
-    __syncthreads();
-    widen_rows(dOs, Kb, QT, tid);
-  } else {
-    for (int e = tid; e < QT * HD; e += NT) {
-      const int r = e / HD, d = e % HD;
-      const int qr = q0 + r;
-      Qs[r * HP + d] = qr < L ? to_f(base[qr * rs + h * HD + d]) : 0.0f;
-      dOs[r * HP + d] = qr < L ? to_f(obase[qr * (size_t)H + h * HD + d]) : 0.0f;
-    }
+  for (int e = tid; e < QT * HD; e += NT) {
+    const int r = e / HD, d = e % HD;
+    const int qr = q0 + r;
+    Qs[r * HP + d] = qr < L ? base[qr * rs + h * HD + d] : 0.0f;
+    dOs[r * HP + d] = qr < L ? obase[qr * (size_t)H + h * HD + d] : 0.0f;
   }
 
   const int n_kt = (L + KT - 1) / KT;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    if constexpr (kTC) {
-      copy_rows<NT>(Kb, base, rs, kt * KT, KT, H + h * HD, L, tid);
-      copy_rows<NT>(Vb, base, rs, kt * KT, KT, 2 * H + h * HD, L, tid);
-      cp_async_all();
-      __syncthreads();
-      widen_rows(Vs, Vb, KT, tid);
-      // the forward's score routine: warp w takes query rows 16 (w % 2) ..
-      // +15 against keys 16 (w / 2) .. +15 of the tile; the dots go to P
-      uint32_t qa[4][4];
-      load_q_frags(qa, Qb, 16 * (warp & 1), lane);
-      float c[2][4];
-      qk_dots<2>(qa, Kb, 16 * (warp >> 1), lane, c);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 16 * (warp & 1) + lane / 4 + 8 * (e >> 1);
-          const int key = kt * KT + 16 * (warp >> 1) + 8 * i + 2 * (lane % 4) + (e & 1);
-          if (key < L) P[r * SP + key] = c[i][e];
-        }
-    } else {
-      for (int e = tid; e < KT * HD; e += NT) {
-        const int r = e / HD, d = e % HD;
-        const int key = kt * KT + r;
-        Ks[r * HP + d] = key < L ? to_f(base[key * rs + H + h * HD + d]) : 0.0f;
-        Vs[r * HP + d] = key < L ? to_f(base[key * rs + 2 * H + h * HD + d]) : 0.0f;
-      }
+    for (int e = tid; e < KT * HD; e += NT) {
+      const int r = e / HD, d = e % HD;
+      const int key = kt * KT + r;
+      Ks[r * HP + d] = key < L ? base[key * rs + H + h * HD + d] : 0.0f;
+      Vs[r * HP + d] = key < L ? base[key * rs + 2 * H + h * HD + d] : 0.0f;
     }
     __syncthreads();
     float sacc[2][4] = {}, dacc[2][4] = {};
@@ -303,19 +247,19 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
       float qa[2], oa[2], kc[4], vc[4];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
-        if constexpr (!kTC) qa[a] = Qs[(ty + 16 * a) * HP + d];
+        qa[a] = Qs[(ty + 16 * a) * HP + d];
         oa[a] = dOs[(ty + 16 * a) * HP + d];
       }
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        if constexpr (!kTC) kc[c] = Ks[(tx + 16 * c) * HP + d];
+        kc[c] = Ks[(tx + 16 * c) * HP + d];
         vc[c] = Vs[(tx + 16 * c) * HP + d];
       }
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          if constexpr (!kTC) sacc[a][c] = fmaf(qa[a], kc[c], sacc[a][c]);
+          sacc[a][c] = fmaf(qa[a], kc[c], sacc[a][c]);
           dacc[a][c] = fmaf(oa[a], vc[c], dacc[a][c]);
         }
     }
@@ -326,15 +270,14 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
       for (int c = 0; c < 4; ++c) {
         const int key = kt * KT + tx + 16 * c;
         if (key >= L) continue;
-        const float dot = kTC ? P[r * SP + key] : sacc[a][c];
-        P[r * SP + key] = prob(score(dot, scale, bias[key]), rmax[r], rsum[r]);
+        P[r * SP + key] = prob(score(sacc[a][c], scale, bias[key]), rmax[r], rsum[r]);
         dP[r * SP + key] = dr.apply(dacc[a][c], q0 + r, key, L);
       }
     }
   }
   __syncthreads();
 
-  // D = rowsum(dP * P), then dS = P (dP - D) rounded to T, one warp per row
+  // D = rowsum(dP * P), then dS = P (dP - D), one warp per row
   for (int r = warp; r < QT; r += NT / 32) {
     const float* prow = P + r * SP;
     float* drow = dP + r * SP;
@@ -343,24 +286,17 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
     if (lane == 0 && q0 + r < L) dvec[(size_t)bh * L + q0 + r] = dsum;
-    for (int j = lane; j < L; j += 32) drow[j] = round_to<T>(prow[j] * (drow[j] - dsum));
+    for (int j = lane; j < L; j += 32) drow[j] = prow[j] * (drow[j] - dsum);
   }
 
   // dQ = dS K * scale
   float acc[2][4] = {};
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    if constexpr (kTC) {
-      copy_rows<NT>(Kb, base, rs, kt * KT, KT, H + h * HD, L, tid);
-      cp_async_all();
-      __syncthreads();
-      widen_rows(Ks, Kb, KT, tid);
-    } else {
-      for (int e = tid; e < KT * HD; e += NT) {
-        const int r = e / HD, d = e % HD;
-        const int key = kt * KT + r;
-        Ks[r * HP + d] = key < L ? to_f(base[key * rs + H + h * HD + d]) : 0.0f;
-      }
+    for (int e = tid; e < KT * HD; e += NT) {
+      const int r = e / HD, d = e % HD;
+      const int key = kt * KT + r;
+      Ks[r * HP + d] = key < L ? base[key * rs + H + h * HD + d] : 0.0f;
     }
     __syncthreads();
     const int nk = min(KT, L - kt * KT);
@@ -382,36 +318,31 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const T* __restrict__ qkv,
     if (qr >= L) continue;
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      dqkv[((size_t)b * L + qr) * rs + h * HD + tx + 16 * c] = from_f<T>(acc[a][c] * scale);
+      dqkv[((size_t)b * L + qr) * rs + h * HD + tx + 16 * c] = acc[a][c] * scale;
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward 2: dK and dV, per 32-key tile
+// f32 backward 2: dK and dV, per 32-key tile
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
+__global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const float* __restrict__ qkv,
                                                       const int* __restrict__ mask,
-                                                      const T* __restrict__ dout,
+                                                      const float* __restrict__ dout,
                                                       const float2* __restrict__ stats,
                                                       const float* __restrict__ dvec,
-                                                      T* __restrict__ dqkv, int L, int H, int nh,
-                                                      float scale, int drop_on, int seed0,
-                                                      int seed1, unsigned thresh, float inv) {
+                                                      float* __restrict__ dqkv, int L, int H,
+                                                      int nh, float scale, int drop_on,
+                                                      int seed0, int seed1, unsigned thresh,
+                                                      float inv) {
   extern __shared__ __align__(16) float smem[];
-  constexpr bool kTC = kTensorCores<T>;
   constexpr int TP = RT + 1;
-  // bf16: the block's raw K rows, the raw Q tile and the raw dO tile
-  __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smem);  // [CT][TC_LD]
-  __nv_bfloat16* Qb = Kb + CT * TC_LD;                          // [RT][TC_LD]
-  __nv_bfloat16* Ob = Qb + RT * TC_LD;                          // [RT][TC_LD]
-  float* Ks = smem + (kTC ? tc_dkdv_floats : 0);  // [CT][HP]
+  float* Ks = smem;                // [CT][HP]
   float* Vs = Ks + CT * HP;        // [CT][HP]
   float* Qs = Vs + CT * HP;        // [RT][HP]
   float* dOs = Qs + RT * HP;       // [RT][HP]
-  float* Pt = dOs + RT * HP;       // [CT][TP] round(Pt) of (key, query)
-  float* dS = Pt + CT * TP;        // [CT][TP] round(dS)
+  float* Pt = dOs + RT * HP;       // [CT][TP] Pt of (key, query)
+  float* dS = Pt + CT * TP;        // [CT][TP]
   float* rmax = dS + CT * TP;      // [RT]
   float* rsum = rmax + RT;         // [RT]
   float* rd = rsum + RT;           // [RT]
@@ -424,34 +355,27 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
   const int b = blockIdx.z;
   const int bh = b * nh + h;
   const size_t rs = 3 * (size_t)H;
-  const T* base = qkv + (size_t)b * L * rs;
-  const T* obase = dout + (size_t)b * L * H;
+  const float* base = qkv + (size_t)b * L * rs;
+  const float* obase = dout + (size_t)b * L * H;
   const Drop dr(drop_on, seed0, seed1, thresh, inv, bh);
 
   for (int e = tid; e < CT * HD; e += NT) {
     const int r = e / HD, d = e % HD;
     const int key = c0 + r;
-    Ks[r * HP + d] = key < L ? to_f(base[key * rs + H + h * HD + d]) : 0.0f;
-    Vs[r * HP + d] = key < L ? to_f(base[key * rs + 2 * H + h * HD + d]) : 0.0f;
+    Ks[r * HP + d] = key < L ? base[key * rs + H + h * HD + d] : 0.0f;
+    Vs[r * HP + d] = key < L ? base[key * rs + 2 * H + h * HD + d] : 0.0f;
   }
   for (int c = tid; c < CT; c += NT) kb[c] = c0 + c < L ? mask_bias(mask, b, L, c0 + c) : 0.0f;
-  if constexpr (kTC) copy_rows<NT>(Kb, base, rs, c0, CT, H + h * HD, L, tid);
-  const int warp = tid / 32, lane = tid % 32;
 
   float dk[2][4] = {}, dv[2][4] = {};
   const int n_rt = (L + RT - 1) / RT;
   for (int rt = 0; rt < n_rt; ++rt) {
     __syncthreads();
-    if constexpr (kTC) {
-      copy_rows<NT>(Qb, base, rs, rt * RT, RT, h * HD, L, tid);
-      copy_rows<NT>(Ob, obase, H, rt * RT, RT, h * HD, L, tid);
-    } else {
-      for (int e = tid; e < RT * HD; e += NT) {
-        const int r = e / HD, d = e % HD;
-        const int qr = rt * RT + r;
-        Qs[r * HP + d] = qr < L ? to_f(base[qr * rs + h * HD + d]) : 0.0f;
-        dOs[r * HP + d] = qr < L ? to_f(obase[qr * (size_t)H + h * HD + d]) : 0.0f;
-      }
+    for (int e = tid; e < RT * HD; e += NT) {
+      const int r = e / HD, d = e % HD;
+      const int qr = rt * RT + r;
+      Qs[r * HP + d] = qr < L ? base[qr * rs + h * HD + d] : 0.0f;
+      dOs[r * HP + d] = qr < L ? obase[qr * (size_t)H + h * HD + d] : 0.0f;
     }
     for (int r = tid; r < RT; r += NT) {
       const int qr = rt * RT + r;
@@ -460,48 +384,28 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
       rsum[r] = st.y;
       rd[r] = qr < L ? dvec[(size_t)bh * L + qr] : 0.0f;
     }
-    if constexpr (kTC) {
-      cp_async_all();
-      __syncthreads();
-      widen_rows(Qs, Qb, RT, tid);
-      widen_rows(dOs, Ob, RT, tid);
-      // the forward's score routine (Q as A, K as B): warp w takes queries
-      // 16 (w % 4) .. +15 against keys 16 (w / 4) .. +15 of the block; the
-      // dots go to the Pt panel as (key, query)
-      uint32_t qa[4][4];
-      load_q_frags(qa, Qb, 16 * (warp & 3), lane);
-      float c[2][4];
-      qk_dots<2>(qa, Kb, 16 * (warp >> 2), lane, c);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = 16 * (warp & 3) + lane / 4 + 8 * (e >> 1);
-          Pt[(16 * (warp >> 2) + 8 * i + 2 * (lane % 4) + (e & 1)) * TP + ql] = c[i][e];
-        }
-    }
     __syncthreads();
     // keys ty + 16a against queries tx + 16j: the dQ kernel's fmaf chains
-    // for dPt; f32: the forward's fmaf chains for the scores
+    // for the scores and dPt
     float sacc[2][4] = {}, dacc[2][4] = {};
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
       float ka[2], va[2], qj[4], oj[4];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
-        if constexpr (!kTC) ka[a] = Ks[(ty + 16 * a) * HP + d];
+        ka[a] = Ks[(ty + 16 * a) * HP + d];
         va[a] = Vs[(ty + 16 * a) * HP + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if constexpr (!kTC) qj[j] = Qs[(tx + 16 * j) * HP + d];
+        qj[j] = Qs[(tx + 16 * j) * HP + d];
         oj[j] = dOs[(tx + 16 * j) * HP + d];
       }
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if constexpr (!kTC) sacc[a][j] = fmaf(qj[j], ka[a], sacc[a][j]);
+          sacc[a][j] = fmaf(qj[j], ka[a], sacc[a][j]);
           dacc[a][j] = fmaf(oj[j], va[a], dacc[a][j]);
         }
     }
@@ -513,10 +417,9 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
         const int ql = tx + 16 * j, qr = rt * RT + ql;
         float pt = 0.0f, ds = 0.0f;
         if (key < L && qr < L) {
-          const float dot = kTC ? Pt[kl * TP + ql] : sacc[a][j];
-          const float p = prob(score(dot, scale, kb[kl]), rmax[ql], rsum[ql]);
-          pt = round_to<T>(dr.apply(p, qr, key, L));
-          ds = round_to<T>(p * (dr.apply(dacc[a][j], qr, key, L) - rd[ql]));
+          const float p = prob(score(sacc[a][j], scale, kb[kl]), rmax[ql], rsum[ql]);
+          pt = dr.apply(p, qr, key, L);
+          ds = p * (dr.apply(dacc[a][j], qr, key, L) - rd[ql]);
         }
         Pt[kl * TP + ql] = pt;
         dS[kl * TP + ql] = ds;
@@ -548,11 +451,11 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
   for (int a = 0; a < 2; ++a) {
     const int key = c0 + ty + 16 * a;
     if (key >= L) continue;
-    T* row = dqkv + ((size_t)b * L + key) * rs + h * HD + tx;
+    float* row = dqkv + ((size_t)b * L + key) * rs + h * HD + tx;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      row[H + 16 * c] = from_f<T>(dk[a][c] * scale);
-      row[2 * H + 16 * c] = from_f<T>(dv[a][c]);
+      row[H + 16 * c] = dk[a][c] * scale;
+      row[2 * H + 16 * c] = dv[a][c];
     }
   }
 }
@@ -560,13 +463,11 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(const T* __restrict__ qkv,
 size_t fwd_smem(int L) {
   return sizeof(float) * ((size_t)QT * (L + 1) + QT * HP + KT * HP + L);
 }
-template <typename T> size_t dq_smem(int L) {
-  return sizeof(float) * ((kTensorCores<T> ? tc_dq_floats : 0) + (size_t)2 * QT * (L + 1) +
-                          2 * QT * HP + 2 * KT * HP + L + 2 * QT);
+size_t dq_smem(int L) {
+  return sizeof(float) * ((size_t)2 * QT * (L + 1) + 2 * QT * HP + 2 * KT * HP + L + 2 * QT);
 }
-template <typename T> size_t dkdv_smem() {
-  return sizeof(float) * ((kTensorCores<T> ? tc_dkdv_floats : 0) + (size_t)2 * CT * HP +
-                          2 * RT * HP + 2 * CT * (RT + 1) + 3 * RT + CT);
+size_t dkdv_smem() {
+  return sizeof(float) * ((size_t)2 * CT * HP + 2 * RT * HP + 2 * CT * (RT + 1) + 3 * RT + CT);
 }
 
 template <typename K>
@@ -588,30 +489,28 @@ cudaError_t launch_fwd_f32(const void* qkv, const void* mask, void* out, void* s
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* qkv, const void* mask, const void* dout, const void* stats,
-                       void* dvec, void* dqkv, int B, int L, int H, int nh, int drop_on,
-                       int seed0, int seed1, unsigned thresh, float inv, cudaStream_t stream) {
-  if (kTensorCores<T> && ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout)) % 16))
-    return cudaErrorInvalidValue;  // copy_rows moves 16-byte chunks
+cudaError_t launch_bwd_f32(const void* qkv, const void* mask, const void* dout,
+                           const void* stats, void* dvec, void* dqkv, int B, int L, int H, int nh,
+                           int drop_on, int seed0, int seed1, unsigned thresh, float inv,
+                           cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)HD);
-  const T* q = static_cast<const T*>(qkv);
+  const float* q = static_cast<const float*>(qkv);
   const int* m = static_cast<const int*>(mask);
-  const T* g = static_cast<const T*>(dout);
+  const float* g = static_cast<const float*>(dout);
   const float2* st = static_cast<const float2*>(stats);
   float* dv = static_cast<float*>(dvec);
-  T* dx = static_cast<T*>(dqkv);
-  size_t smem = dq_smem<T>(L);
-  cudaError_t err = allow_smem(bwd_dq_kernel<T>, smem);
+  float* dx = static_cast<float*>(dqkv);
+  size_t smem = dq_smem(L);
+  cudaError_t err = allow_smem(bwd_dq_kernel, smem);
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<T><<<dim3((L + QT - 1) / QT, nh, B), NT, smem, stream>>>(
+  bwd_dq_kernel<<<dim3((L + QT - 1) / QT, nh, B), NT, smem, stream>>>(
       q, m, g, st, dv, dx, L, H, nh, scale, drop_on, seed0, seed1, thresh, inv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  smem = dkdv_smem<T>();
-  err = allow_smem(bwd_dkdv_kernel<T>, smem);
+  smem = dkdv_smem();
+  err = allow_smem(bwd_dkdv_kernel, smem);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<T><<<dim3((L + CT - 1) / CT, nh, B), NT, smem, stream>>>(
+  bwd_dkdv_kernel<<<dim3((L + CT - 1) / CT, nh, B), NT, smem, stream>>>(
       q, m, g, st, dv, dx, L, H, nh, scale, drop_on, seed0, seed1, thresh, inv);
   return cudaGetLastError();
 }
@@ -648,10 +547,10 @@ extern "C" int hc_flash_bwd(const void* qkv, const void* mask, const void* dout,
   if (bad_shape(B, L, H, nh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_bwd<float>(qkv, mask, dout, stats, dvec, dqkv, B, L, H, nh, drop_on,
-                                  seed0, seed1, thresh, inv, s);
-  if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(qkv, mask, dout, stats, dvec, dqkv, B, L, H, nh,
-                                          drop_on, seed0, seed1, thresh, inv, s);
+    return (int)launch_bwd_f32(qkv, mask, dout, stats, dvec, dqkv, B, L, H, nh, drop_on, seed0,
+                               seed1, thresh, inv, s);
+  if (dtype == 1)  // the tensor-core backward of attention_tc_bwd.cuh
+    return (int)launch_tc_bwd(qkv, mask, dout, stats, dvec, dqkv, B, L, H, nh, drop_on, seed0,
+                              seed1, thresh, inv, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -432,7 +432,17 @@ def test_int8_tower_wrappers_reject_unsupported(dev):
 def _bf16_ulp_of_max(t):
     import math
 
-    return 2.0 ** (math.floor(math.log2(float(t.float().abs().max()))) - 7)
+    top = float(t.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def _assert_dqkv_parts(got, want):
+    """dQ, dK and dV of a bf16 dqkv [B, L, 3 * 768] each within one bf16 ulp
+    of its own largest magnitude (exact where that is 0)."""
+    for i in range(3):
+        g, w = got[..., i * 768 : (i + 1) * 768], want[..., i * 768 : (i + 1) * 768]
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= _bf16_ulp_of_max(w), ("QKV"[i], err, _bf16_ulp_of_max(w))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -441,7 +451,7 @@ def _bf16_ulp_of_max(t):
 def test_flash_attention_kernels_match_plain(dev, gen, dtype, rate, L):
     """Rows 11-12: forward and dqkv against the plain twins on the same
     seed words: float32 within 1e-5, bfloat16 within one bf16 ulp of the
-    largest magnitude."""
+    largest magnitude (dQ, dK and dV each of its own)."""
     from haconvdr_torch.ops import flash_attention as fa
 
     qkv = (torch.randn(2, L, 3 * 768, device=dev, generator=gen) * 0.5).to(dtype)
@@ -462,6 +472,8 @@ def test_flash_attention_kernels_match_plain(dev, gen, dtype, rate, L):
         assert got.dtype == dtype and got.shape == want.shape
         tol = 1e-5 if dtype == torch.float32 else _bf16_ulp_of_max(want)
         assert float((got.float() - want.float()).abs().max()) <= tol
+    if dtype == torch.bfloat16:
+        _assert_dqkv_parts(x.grad, rdq)
 
 
 # --- the bf16 tensor-core forward (csrc/attention_tc.cuh) of rows 1 and 11 --
@@ -515,8 +527,8 @@ def _check_tc_flash(qkv, mask, go, rate):
     assert fa.COUNTS["fwd"] == before["fwd"] + 1 and fa.COUNTS["bwd"] == before["bwd"] + 1
     ref = fa.flash_attention_fwd_plain(qkv, mask, 12, seed, rate)
     rdq = fa.flash_attention_bwd_plain(qkv, mask, go, 12, seed, rate)
-    for got, want in ((out.detach(), ref), (x.grad, rdq)):
-        assert float((got.float() - want.float()).abs().max()) <= _bf16_ulp_of_max(want)
+    assert float((out.detach().float() - ref.float()).abs().max()) <= _bf16_ulp_of_max(ref)
+    _assert_dqkv_parts(x.grad, rdq)
 
 
 @pytest.mark.parametrize("L", TC_LENGTHS)
@@ -529,8 +541,9 @@ def test_tc_inference_attention_edges(dev, gen, L):
 
 @pytest.mark.parametrize("L", TC_LENGTHS)
 def test_tc_flash_attention_edges(dev, gen, L):
-    """Rows 11-12, bf16, dropout 0.1: forward and dqkv within one bf16 ulp
-    of the largest magnitude of the twins on the same masks."""
+    """Rows 11-12, bf16, dropout 0.1: the forward within one bf16 ulp of the
+    twin's largest magnitude, dQ, dK and dV each within one of its own, on
+    the same masks."""
     qkv = (torch.randn(6, L, 3 * 768, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
     go = torch.randn(6, L, 768, device=dev, generator=gen).to(torch.bfloat16)
     _check_tc_flash(qkv, _tc_mask(L, dev), go, 0.1)
@@ -580,6 +593,85 @@ def test_tc_backward_rebuilds_the_forwards_probabilities_bit_for_bit(dev, gen, r
     assert bool((fwd[0] > 0).any()) and bool((fwd[1, :, 40:] == 0).all())
     if rate > 0:
         assert bool((fwd[0] == 0).any())  # dropped keys
+
+
+# --- the bf16 tensor-core backward (csrc/attention_tc_bwd.cuh) of row 12 ----
+
+def _check_tc_backward(qkv, mask, go, rate):
+    """The backward kernels alone (row stats from the forward kernel) against
+    flash_attention_bwd_plain: dQ, dK and dV each within one bf16 ulp of
+    its own largest magnitude; returns dqkv."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    seed = (1234567, -7654321)
+    m = mask.contiguous()
+    _, stats = fa._fwd_kernel(qkv, m, 12, seed, rate)
+    before = dict(fa.COUNTS)
+    dqkv = fa._bwd_kernel(qkv, m, stats, go, 12, seed, rate)
+    torch.cuda.synchronize()
+    assert fa.COUNTS["bwd"] == before["bwd"] + 1 and fa.COUNTS["plain_bwd"] == before["plain_bwd"]
+    want = fa.flash_attention_bwd_plain(qkv, mask, go, 12, seed, rate)
+    assert dqkv.dtype == torch.bfloat16 and dqkv.shape == want.shape
+    _assert_dqkv_parts(dqkv, want)
+    return dqkv
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L", TC_LENGTHS)
+def test_tc_backward_matches_plain(dev, gen, L, rate):
+    """Row 12, bf16: dqkv on a full row, a prefix, holes, valid keys only at
+    both ends (all-masked key tiles between them), one valid key and no
+    valid key (nothing skipped there)."""
+    qkv = (torch.randn(6, L, 3 * 768, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+    go = torch.randn(6, L, 768, device=dev, generator=gen).to(torch.bfloat16)
+    _check_tc_backward(qkv, _tc_mask(L, dev), go, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tc_backward_at_the_training_shape(dev, gen, rate):
+    """B 64, L 512 with query lengths 64-512 (chip_smoke.py phase 9's shape)."""
+    B, L = 64, 512
+    qkv = (torch.randn(B, L, 3 * 768, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+    go = torch.randn(B, L, 768, device=dev, generator=gen).to(torch.bfloat16)
+    _check_tc_backward(qkv, _ragged_mask(gen, dev, B, L), go, rate)
+
+
+def test_tc_backward_is_deterministic(dev, gen):
+    """No atomics: two runs on the same inputs give equal dqkv bit for bit."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    B, L = 16, 512
+    qkv = (torch.randn(B, L, 3 * 768, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+    go = torch.randn(B, L, 768, device=dev, generator=gen).to(torch.bfloat16)
+    mask = _ragged_mask(gen, dev, B, L)
+    seed = (5, 6)
+    _, stats = fa._fwd_kernel(qkv, mask, 12, seed, 0.1)
+    a = fa._bwd_kernel(qkv, mask, stats, go, 12, seed, 0.1)
+    b = fa._bwd_kernel(qkv, mask, stats, go, 12, seed, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+# --- the f32 route of row 1 on 3xTF32 (csrc/fused_attention.cu) ------------
+
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+@pytest.mark.parametrize("L", [1, 77, 130, 512])
+def test_f32_inference_attention_edges(dev, gen, L, spread):
+    """Row 1, f32: within 1e-4 of the twin on holes, all-masked key tiles,
+    one valid key and a fully masked row; spread 3 scales Q and K (peaked
+    rows, larger scores)."""
+    from haconvdr_torch.ops import fused_attention as fa
+
+    qkv = torch.randn(6, L, 3 * 768, device=dev, generator=gen)
+    qkv[:, :, : 2 * 768] *= spread
+    mask = _tc_mask(L, dev)
+    before = fa.COUNTS["kernel"]
+    out = fa.fused_attention_qkv(qkv, mask, 12)
+    torch.cuda.synchronize()
+    assert fa.COUNTS["kernel"] == before + 1
+    ref = fa.fused_attention_qkv_plain(qkv, mask, 12)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 1e-4
 
 
 def test_flash_attention_rejects_unsupported(dev):

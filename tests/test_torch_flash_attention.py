@@ -131,6 +131,55 @@ def test_plain_forward_without_dropout_equals_inference_twin(case, L, dtype):
     assert torch.equal(a, b)
 
 
+def _skip_mask(L):
+    """[2, L]: valid keys in 0..40 and 100..110 only (key tiles of 16 and 64
+    wholly masked between them), and a prefix of 70."""
+    mask = np.zeros((2, L), np.int32)
+    mask[0, :41] = 1
+    mask[0, 100:111] = 1
+    mask[1, :70] = 1
+    return mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("backend", ["jax", "twin"])
+def test_masked_keys_get_zero_gradients_and_do_not_reach_dq(backend, rate, dtype):
+    """What the tensor-core backward's key-tile skipping relies on, in the
+    reference (the JAX kernel in interpret mode) and in the port's twin:
+    where the batch row has a valid key, dK and dV of every masked key are
+    exactly 0, and dQ is bit-identical when the masked keys' K and V are
+    replaced by other finite values (a masked probability is 0.0f, so its
+    dS is 0 and it adds nothing to D or dQ)."""
+    L, heads = 128, 2
+    H = heads * 64
+    qkv, _, g = _inputs(2, L, heads, dtype, seed=31)
+    mask = _skip_mask(L)
+    seed = (4242, -77)
+    other = qkv.copy()
+    masked = mask == 0
+    noise = np.random.default_rng(5).standard_normal(other.shape).astype(np.float32) * 3
+    if dtype == "bfloat16":
+        noise = torch.from_numpy(noise).bfloat16().float().numpy()
+    for part in (1, 2):  # K, then V
+        cols = slice(part * H, (part + 1) * H)
+        other[:, :, cols] = np.where(masked[:, :, None], noise[:, :, cols], other[:, :, cols])
+
+    def dqkv(x):
+        if backend == "jax":
+            return _jax(x, mask, g, heads, seed, rate, dtype)[1]
+        tdt = getattr(torch, dtype)
+        got = fa.flash_attention_bwd_plain(torch.from_numpy(x).to(tdt), torch.from_numpy(mask),
+                                           torch.from_numpy(g).to(tdt), heads, seed, rate)
+        return got.float().numpy()
+
+    a, b = dqkv(qkv), dqkv(other)
+    for d in (a, b):
+        assert not d[:, :, H:][masked].any()  # dK and dV of the masked keys
+        assert d[:, :, H:][~masked].any()
+    np.testing.assert_array_equal(a[..., :H], b[..., :H])  # dQ, bit for bit
+
+
 @pytest.mark.parametrize(
     "seed", [(0, 0), (1, 2), (INT32_MAX, INT32_MIN), (INT32_MIN, INT32_MAX), (-1, -1)]
 )

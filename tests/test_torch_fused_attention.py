@@ -124,3 +124,58 @@ def test_kernel_gate():
     assert not fused_attention_supported(513, 64, torch.float32)
     assert not fused_attention_supported(512, 8, torch.float32)
     assert not fused_attention_supported(512, 64, torch.float16)
+
+
+# --- why the f32 route's 3xTF32 products keep the 1e-4 agreement ---------
+
+
+def _tf32(x):
+    """RNA rounding of float32 to TF32 (10 mantissa bits), as
+    cvt.rna.tf32.f32: add half of the 13 dropped bits to the magnitude and
+    clear them."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b with each operand split x = big + small (both TF32) and the
+    product big*small + small*big + big*big summed in float32 (each TF32
+    product is exact in float32)."""
+    ab = _tf32(a)
+    as_ = _tf32(a - ab)
+    bb = _tf32(b)
+    bs = _tf32(b - bb)
+    return (as_ @ bb + ab @ bs + ab @ bb).astype(np.float32)
+
+
+def _mm_tf32(a, b):
+    return (_tf32(a) @ _tf32(b)).astype(np.float32)
+
+
+def _attention_head(q, k, v, mm):
+    s = mm(q, k.T) * np.float32(1.0 / 8.0)
+    e = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    return mm((e / e.sum(-1, keepdims=True)).astype(np.float32), v)
+
+
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+def test_3xtf32_products_keep_the_f32_route_within_1e4(spread):
+    """The CUDA kernel's f32 route forms both products in 3xTF32 on the
+    tensor cores, and chip_smoke.py / the card tests hold it to the twin
+    within max |diff| 1e-4.  That tolerance is why the split is needed: on
+    row 1's f32 data (randn qkv, d 64, L 512; spread 3 scales Q and K for
+    peaked softmax rows) a numpy emulation of 3xTF32 stays within 1e-4 of
+    the float64 reference, while one-term TF32 (about 3 decimal digits)
+    does not."""
+    rng = np.random.default_rng(11)
+    err3 = err1 = 0.0
+    for _ in range(2):  # heads
+        q, k, v = (rng.standard_normal((512, 64)).astype(np.float32) for _ in range(3))
+        q, k = q * np.float32(spread), k * np.float32(spread)
+        s = q.astype(np.float64) @ k.T.astype(np.float64) / 8.0
+        p = np.exp(s - s.max(-1, keepdims=True))
+        ref = (p / p.sum(-1, keepdims=True)) @ v.astype(np.float64)
+        err3 = max(err3, float(np.abs(_attention_head(q, k, v, _mm_3xtf32) - ref).max()))
+        err1 = max(err1, float(np.abs(_attention_head(q, k, v, _mm_tf32) - ref).max()))
+    assert err3 <= 1e-4, err3
+    assert err1 > 1e-4, err1
