@@ -24,15 +24,17 @@ order; any failure raises and the script exits non-zero:
    bf16 residual and with a float32 input and none, and the int8 MLP
    block; the trained
    tower's flash-attention forward and backward at B 8, L 512, 12 heads,
-   float32 and bfloat16, dropout 0 and 0.1, and at phase 9's shape (B 64,
-   query lengths 64-512, bfloat16, dropout 0.1 and 0; the same seed words
-   to both); the streaming top-k (row 7, on no path) at Q = 256 over the
-   first 2,498,560 rows (a multiple of both dtypes' p_chunk * group),
+   float32 and bfloat16, dropout 0 and 0.1, at phase 9's shape (B 64,
+   query lengths 64-512, bfloat16, dropout 0.1 and 0) and at phase 11's
+   (the same in float32, dropout 0.1; the same seed words to both); the streaming top-k (row 7, on no path) at Q =
+   256 over the first 2,498,560 rows (a multiple of both dtypes' p_chunk *
+   group),
    n_valid = N - 1,000, float32 and bfloat16, also bit for bit against the
-   unseeded v3 kernel on the same rows; attention (row 1) in bfloat16 at
-   the frozen passage towers' shape (B 64, L 384, lengths 32-384);
+   unseeded v3 kernel on the same rows; attention (row 1) in bfloat16 and
+   in float32 at the frozen passage towers' shape (B 64, L 384, lengths
+   32-384);
    then one `redesigned ...` line per row of a redesigned route (rows 1,
-   11 and 12 in bf16 on the tensor cores, row 1's f32 route in 3xTF32):
+   11 and 12: bf16 on the tensor cores, f32 in 3xTF32):
    ms, SDPA ms (row 12: SDPA's backward alone, then forward + backward
    against SDPA's forward + backward), bound ms and ms / SDPA, with the
    card's name and power limit;
@@ -97,8 +99,17 @@ order; any failure raises and the script exits non-zero:
    embeddings over the same rows.  Then run_prj_labeling, with its own
    encode, over 96 probes of 32 conversations (-0..-2), a seeded subset of
    the non-base probes planted with gold qrels: the labels must equal the
-   plants.  It prints seconds per stage, queries/s and peak memory.
-Each of phases 4-10 zeroes every launch count just before it (phase 10:
+   plants.  It prints seconds per stage, queries/s and peak memory;
+11. f32 training at the repo's own TOML geometry
+   (configs/topiocqa_train.toml through load_config: f32 trained and frozen towers, remat "mlp",
+   dropout 0.1, B 64, query 512, passages 384, is_prepos_neg: three frozen
+   forwards a micro step), cut to accumulation TRAIN_ACC (not 8) and
+   TRAIN_LR (not 1e-5): TRAIN_MICRO micro steps on one repeated batch with
+   exact launch counts (flash fwd and bwd 12 each, f32 inference attention
+   12 x 3, no int8 kernel, no plain twin), finite losses, the frozen tower
+   unchanged; examples/s, peak memory, and one profiled accumulation
+   window's idle share and the attention kernels' shares.
+Each of phases 4-11 zeroes every launch count just before it (phase 10:
 before the encode, the search and the labeling) and reads them just
 after: each kernel of that path must have launched, and no plain twin may
 have run.
@@ -123,7 +134,8 @@ Tolerances (kernel vs plain twin on the same inputs):
   LayerNorm (-quant) y within one bf16 ulp (2**-7 |ref| + 1e-5); yq, ys
                      exactly the quantization of the kernel's own y; codes
                      within 1 of the twin's at under 0.1% of positions
-  flash attention    float32 out and dqkv max |diff| <= 1e-5; bfloat16
+  flash attention    float32 out and dqkv max |diff| <= 1e-5 (3xTF32
+                     products; one-term TF32 would not hold it); bfloat16
                      out within one bf16 ulp of its largest magnitude,
                      and dQ, dK and dV each within one bf16 ulp of its
                      own (both round P, dS and the outputs to bf16)
@@ -165,6 +177,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import threading
@@ -173,6 +186,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+HERE = pathlib.Path(__file__).resolve().parent  # the checkout this script drives
 
 N_ROWS = 2_500_000
 N_PAD = 1_000  # rows past n_valid in phase 3
@@ -201,8 +216,12 @@ TRAIN_MICRO, TRAIN_ACC, TRAIN_WARM = 8, 2, 2
 # loss rose 3x after the first update), so the smoke steps gently
 TRAIN_LR = 2e-6
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 0.01, 0.05
+TRAIN_TOML = "configs/topiocqa_train.toml"  # phase 11, read beside this script
 FLASH_MAIN = f"bfloat16, drop 0.1, B {TRAIN_B}"  # rows 11-12 at phase 9's shape
-ROW1_FROZEN = f"bfloat16, B {TRAIN_B} L {TRAIN_PLEN}"  # row 1 at the frozen towers' shape
+FLASH_F32 = f"float32, drop 0.1, B {TRAIN_B}"  # rows 11-12 at phase 11's shape
+# row 1 at the frozen towers' shape: int8 bf16 towers (phase 9), f32 towers (phase 11)
+ROW1_FROZEN = f"bfloat16, B {TRAIN_B} L {TRAIN_PLEN}"
+ROW1_FROZEN_F32 = f"float32, B {TRAIN_B} L {TRAIN_PLEN}"
 # row 7 (phase 3): the first rows of the index, a multiple of both dtypes'
 # p_chunk * group (1220 x 2048 = 610 x 4096)
 N_STREAM = 2_498_560
@@ -443,26 +462,27 @@ def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
 
 
 def kernels_attention_frozen(seed: int, dev, rows):
-    """Row 1, bf16, at the frozen passage towers' shape of phase 9 (B 64,
-    L 384, passage lengths 32-384); its own generators, so the other rows
-    see the data they always saw."""
+    """Row 1 at the frozen passage towers' shape (B 64, L 384, passage
+    lengths 32-384): bf16 as phase 9's int8 towers run it, then f32 on the
+    same values as phase 11's f32 towers run it; its own generators, so
+    the other rows see the data they always saw."""
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     lengths = np.random.default_rng(seed + 3).integers(TRAIN_PLEN // 12, TRAIN_PLEN + 1, TRAIN_B)
-    qkv = torch.randn(TRAIN_B, TRAIN_PLEN, 3 * DIM, device=dev, generator=g).to(torch.bfloat16)
-    attention_row(qkv, lengths, ROW1_FROZEN, rows)
+    qkv = torch.randn(TRAIN_B, TRAIN_PLEN, 3 * DIM, device=dev, generator=g)
+    attention_row(qkv.to(torch.bfloat16), lengths, ROW1_FROZEN, rows)
+    attention_row(qkv, lengths, ROW1_FROZEN_F32, rows)
     del qkv
     torch.cuda.empty_cache()
 
 
 def print_redesigned(rows, card: str) -> None:
-    """One line per row of a redesigned route: the bf16 tensor-core
-    attention (rows 1, 11 and 12) and row 1's 3xTF32 f32 route.  Each gives
-    the kernel's time, SDPA's, the bound and the kernel's time over SDPA's;
-    row 12 against SDPA's backward alone, then its forward + backward
-    against SDPA's forward + backward."""
+    """One line per row of a redesigned route: rows 1, 11 and 12, the bf16
+    routes on the tensor cores and the f32 routes in 3xTF32.  Each gives the
+    kernel's time, SDPA's, the bound and the kernel's time over SDPA's; row
+    12 against SDPA's backward alone, then its forward + backward against
+    SDPA's forward + backward."""
     for r in rows:
-        flash = r["kernel"] in ("flash_attention_fwd", "flash_attention_bwd")
-        if not (r["kernel"] == "fused_attention" or flash and "bfloat16" in r["config"]):
+        if r["kernel"] not in ("fused_attention", "flash_attention_fwd", "flash_attention_bwd"):
             continue
         sdpa = "SDPA backward" if r["kernel"] == "flash_attention_bwd" else "SDPA"
         line = (f"redesigned {r['kernel']} [{r['config']}]: {r['ms']:.4f} ms, {sdpa} "
@@ -777,9 +797,10 @@ def check_dqkv_parts(got, want, what: str) -> None:
 def kernels_flash(dev, g, rng, rows):
     """Rows 11-12: the trained tower's attention forward and backward at
     B 8, L 512, H 768, 12 heads (float32 and bfloat16, dropout 0 and 0.1),
-    and at phase 9's own shape (B 64, query lengths 64-512, bfloat16,
-    dropout 0.1 and 0), against the plain twins on the same qkv, mask,
-    output cotangent and seed words."""
+    at phase 9's own shape (B 64, query lengths 64-512, bfloat16, dropout
+    0.1 and 0) and at phase 11's (the same in float32, dropout 0.1),
+    against the plain twins on the same qkv, mask, output cotangent and
+    seed words."""
     from haconvdr_torch.ops import flash_attention as fa
 
     def ragged_mask(B, lo):
@@ -796,6 +817,7 @@ def kernels_flash(dev, g, rng, rows):
     big = ragged_mask(TRAIN_B, TRAIN_QLEN // 8)
     cases.append((big, torch.bfloat16, 0.1, FLASH_MAIN))
     cases.append((big, torch.bfloat16, 0.0, f"bfloat16, drop 0.0, B {TRAIN_B}"))
+    cases.append((big, torch.float32, 0.1, FLASH_F32))  # phase 11's route
     for (lengths, mask), dt, rate, config in cases:
         B = len(lengths)
         name = "float32" if dt == torch.float32 else "bfloat16"
@@ -837,11 +859,14 @@ def kernels_flash(dev, g, rng, rows):
                                            ).backward(gh)
 
         lfb_ms = cuda_ms(library_fwd_bwd, 10)
+        # the f32 route runs each product as three TF32 products (3xTF32)
         isz, peak = qkv.element_size(), PEAK_OF[name]
+        ops = 3 if peak == "f32" else 1
+        peak = "tf32" if peak == "f32" else peak
         shape = [B, ATTN_L, 3 * DIM]
         rows.append(dict(kernel="flash_attention_fwd", config=config, max_abs_err=errs[0],
                          ms=fwd_ms, plain_ms=pf_ms, library_ms=lf_ms, shape=shape,
-                         **bound_row(attention_flops(lengths, ATTN_L, DIM, 2),
+                         **bound_row(ops * attention_flops(lengths, ATTN_L, DIM, 2),
                                      B * ATTN_L * (4 * DIM * isz + 4), peak)))
         # the backward recomputes S (one L x L product) and forms dV,
         # dP, dQ and dK; its library figure is SDPA's backward alone (to
@@ -850,7 +875,7 @@ def kernels_flash(dev, g, rng, rows):
                          ms=bwd_ms, plain_ms=pb_ms, library_ms=lb_ms,
                          fwd_plus_bwd_ms=fwd_ms + bwd_ms, library_fwd_bwd_ms=lfb_ms,
                          shape=shape,
-                         **bound_row(attention_flops(lengths, ATTN_L, DIM, 5),
+                         **bound_row(ops * attention_flops(lengths, ATTN_L, DIM, 5),
                                      B * ATTN_L * (7 * DIM * isz + 4), peak)))
         del qkv, go, x, out, ref, rdq, stats, q, k, v, bias, xl, ql, kl, vl, gh, ol
     torch.cuda.empty_cache()
@@ -1310,9 +1335,9 @@ def train_batch(seed: int, B: int, vocab: int):
 
 def train_setup(seed: int, dev, cfg, tcfg, plain: bool = False, rng_seed=None):
     """The train step, a fresh train state (dropout generator from
-    ``rng_seed``, default ``seed``) and the int8 frozen tower; ``plain``
-    runs the trained tower's plain twins (the frozen tower always runs
-    the kernels)."""
+    ``rng_seed``, default ``seed``) and the frozen tower (``tcfg``'s
+    frozen dtype); ``plain`` runs the trained tower's plain twins (the
+    frozen tower always runs the kernels)."""
     from haconvdr_torch.models.convert import init_params_numpy
     from haconvdr_torch.models.encoder import AnceEncoder
     from haconvdr_torch.train.trainer import (
@@ -1338,19 +1363,45 @@ def eval_loss(state, frozen, batch, tcfg, dev) -> float:
                                 trainable=False))
 
 
-def check_train_counts(counts, layers: int, n_frozen: int, n_micro: int) -> None:
+def check_train_counts(counts, layers: int, n_frozen: int, n_micro: int, int8: bool = True,
+                       what: str = "training") -> None:
     """Per micro step: flash fwd and bwd once a layer (remat "mlp" reruns
-    no attention), and per frozen int8 bf16 forward 1 + layers
-    LayerNorm-quant, layers MLP and layers inference attention launches."""
+    no attention) and layers inference attention launches per frozen
+    forward; an int8 bf16 frozen forward adds 1 + layers LayerNorm-quant
+    and layers MLP launches, an f32 one none."""
     want = {("flash_attention", "fwd"): layers, ("flash_attention", "bwd"): layers,
-            ("fused_ln", "ln_quant"): (1 + layers) * n_frozen, ("fused_ln", "ln"): 0,
-            ("fused_mlp", "kernel"): layers * n_frozen,
-            ("fused_attention", "kernel"): layers * n_frozen}
+            ("fused_attention", "kernel"): layers * n_frozen,
+            ("fused_ln", "ln_quant"): (1 + layers) * n_frozen if int8 else 0,
+            ("fused_ln", "ln"): 0, ("fused_mlp", "kernel"): layers * n_frozen if int8 else 0}
     for (mod, key), n in want.items():
         check(counts[mod][key] == n * n_micro,
-              f"training: {mod} {key} launched {counts[mod][key]} times in {n_micro} micro "
+              f"{what}: {mod} {key} launched {counts[mod][key]} times in {n_micro} micro "
               f"steps, not {n} each")
-    check_counts(counts, list(want)[:2], "training")
+    check_counts(counts, list(want)[:3], what)
+
+
+def profile_window(run, n: int):
+    """Device time of ``n`` calls of ``run`` (one accumulation window)
+    under torch.profiler, against that window's own wall time: (wall ms,
+    device ms, device ms by the first 70 characters of a kernel's name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:70]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(by_name.values())
+    check(dev_ms > 0, "training: the profiler saw no device time")
+    return wall_ms, dev_ms, by_name
 
 
 def phase_training(seed: int, dev, card: str):
@@ -1428,25 +1479,7 @@ def phase_training(seed: int, dev, card: str):
           f"{eval_before} -> {eval_after}; training losses {losses}")
     check(state.global_step == TRAIN_MICRO // TRAIN_ACC, "training: wrong update count")
     check(checksum() == before, "training: the frozen tower changed")
-    # ---- device time of one accumulation window (TRAIN_ACC micro steps)
-    # under torch.profiler, against that window's own wall time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(TRAIN_ACC):
-            step(state, frozen, batch)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = {}  # device ms by the first 70 characters of the kernel's name
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name[:70]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
-    dev_ms = sum(by_name.values())
-    check(dev_ms > 0, "training: the profiler saw no device time")
+    prof_wall_ms, dev_ms, by_name = profile_window(lambda: step(state, frozen, batch), TRAIN_ACC)
 
     def share(*names):
         return sum(ms for key, ms in by_name.items() if any(n in key for n in names)) / dev_ms
@@ -1475,6 +1508,85 @@ def phase_training(seed: int, dev, card: str):
           + ", ".join(f"{x:.4f}" for x in losses) + f" at lr {TRAIN_LR}; eval loss (no "
           f"dropout) {eval_before:.4f} -> {eval_after:.4f}; frozen tower unchanged")
     print("training e2e:", json.dumps(metrics), f"[{card}]")
+    del step, state, frozen
+    torch.cuda.empty_cache()
+    return counts, metrics
+
+
+# ---------------------------------------------------------------------------
+# phase 11: f32 training at the repo's own TOML geometry
+# ---------------------------------------------------------------------------
+
+def phase_train_f32(seed: int, dev, card: str):
+    """Phase 11: make_train_step at configs/topiocqa_train.toml's geometry
+    in f32 (the TOML through the port's load_config; it sets no dtype), cut
+    to accumulation TRAIN_ACC and TRAIN_LR; returns (launch counts,
+    metrics)."""
+    from haconvdr_torch.config import load_config
+    from haconvdr_torch.train.trainer import frozen_config
+
+    exp = load_config(str(HERE / TRAIN_TOML))
+    cfg, data = exp.model, exp.data
+    tcfg = dataclasses.replace(exp.train, accumulation_steps=TRAIN_ACC, learning_rate=TRAIN_LR)
+    check(cfg.dtype == "float32" and frozen_config(cfg, tcfg).dtype == "float32"
+          and cfg.remat == "mlp" and cfg.attention_probs_dropout_prob == 0.1,
+          f"train-f32: {TRAIN_TOML} no longer gives f32 towers with remat mlp, dropout 0.1")
+    check((tcfg.per_device_train_batch_size, data.max_concat_length, data.max_doc_length)
+          == (TRAIN_B, TRAIN_QLEN, TRAIN_PLEN)
+          and tcfg.is_prepos_neg and not tcfg.is_pseudo_prepos,
+          f"train-f32: {TRAIN_TOML}'s geometry is not B {TRAIN_B}, query {TRAIN_QLEN}, "
+          f"passages {TRAIN_PLEN} with prepos negatives only")
+    L, n_frozen = cfg.num_hidden_layers, 3  # pos, neg, prepos_neg
+    step, state, frozen = train_setup(seed + 70, dev, cfg, tcfg)
+
+    def checksum():
+        return sum(float(t.double().sum()) for t in frozen.state_dict().values())
+
+    before = checksum()
+    batch = train_batch(seed + 80, TRAIN_B, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    zero_counts()
+    for _ in range(TRAIN_MICRO):
+        t = time.perf_counter()
+        _, loss = step(state, frozen, batch)
+        losses.append(float(loss))  # a host sync: the step has finished
+        secs.append(time.perf_counter() - t)
+    counts = read_counts()
+    print("train-f32 launch counts:", json.dumps(counts), f"({TRAIN_MICRO} micro steps)")
+    check_train_counts(counts, L, n_frozen, TRAIN_MICRO, int8=False, what="train-f32")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"train-f32: non-finite loss {losses}")
+    check(state.global_step == TRAIN_MICRO // TRAIN_ACC, "train-f32: wrong update count")
+    check(checksum() == before, "train-f32: the frozen tower changed")
+    prof_wall_ms, dev_ms, by_name = profile_window(lambda: step(state, frozen, batch), TRAIN_ACC)
+
+    def share(*names):
+        return sum(ms for key, ms in by_name.items() if any(n in key for n in names)) / dev_ms
+
+    attention_share = {"frozen towers' attention (row 1)": share("tf32_attention_fwd<false>"),
+                       "flash forward (row 11)": share("tf32_attention_fwd<true>"),
+                       "flash backward (row 12)": share("tf32_bwd_dq", "tf32_bwd_dkdv"),
+                       "of which dQ": share("tf32_bwd_dq("),
+                       "of which dK/dV": share("tf32_bwd_dkdv")}
+    print("train-f32 attention share of device time:",
+          ", ".join(f"{k} {v:.1%}" for k, v in attention_share.items()), f"[{card}]")
+    timed = secs[TRAIN_WARM:]
+    med = float(np.median(timed))
+    metrics = dict(examples_per_s=TRAIN_B * len(timed) / sum(timed),
+                   examples_per_s_median_step=TRAIN_B / med, micro_step_ms_median=med * 1e3,
+                   micro_step_ms=[x * 1e3 for x in secs], losses=losses, lr=TRAIN_LR,
+                   peak_memory_gib=peak_gib, profiled_wall_ms=prof_wall_ms,
+                   device_ms=dev_ms, idle_share=1.0 - dev_ms / prof_wall_ms,
+                   attention_share=attention_share,
+                   top_device_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:14]))
+    print(f"train-f32: {TRAIN_MICRO} micro steps ({TRAIN_WARM} warm-up) of B {TRAIN_B} "
+          f"(query {TRAIN_QLEN}, passages {TRAIN_PLEN}, f32 trained tower with remat "
+          f"{cfg.remat!r} and dropout 0.1, {n_frozen} f32 frozen forwards) from {TRAIN_TOML}, "
+          f"cut to accumulation {TRAIN_ACC} (not 8) and lr {TRAIN_LR} (not 1e-5); losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; frozen tower unchanged")
+    print("train-f32 e2e:", json.dumps(metrics), f"[{card}]")
     del step, state, frozen
     torch.cuda.empty_cache()
     return counts, metrics
@@ -1544,14 +1656,12 @@ def store_dir(need: int):
     directory and the checkout's build/ with room for the store; if neither
     has room, the second block shrinks to fit the roomiest (the first
     block, the reference's faiss block, never does)."""
-    import pathlib
     import shutil
     import tempfile
 
     margin = 2 << 30
     row_bytes = DIM * 4 + 8
-    cands = [pathlib.Path(tempfile.gettempdir()),
-             pathlib.Path(__file__).resolve().parent / "build"]
+    cands = [pathlib.Path(tempfile.gettempdir()), HERE / "build"]
     cands[1].mkdir(exist_ok=True)
     free = [(shutil.disk_usage(c).free, c) for c in cands]
     for f, c in free:
@@ -1812,10 +1922,11 @@ def main(argv=None) -> int:
     c8, _ = phase_corpus_encode(args.seed, dev, params, cfg, card)
     c9, _ = phase_training(args.seed, dev, card)
     c10, _ = phase_offline_eval(args.seed, dev, params, cfg, card)
+    c11, _ = phase_train_f32(args.seed, dev, card)
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def launches(mod, key):
-        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10))
+        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10, c11))
 
     def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]

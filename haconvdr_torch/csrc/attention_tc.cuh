@@ -2,10 +2,9 @@
 // kernel of the port shares: the score and dropout arithmetic, the
 // cp.async / ldmatrix / mma.sync primitives, the key-tile skipping
 // (key_tiles) and the normalisation (probs) that the bf16 backward
-// (attention_tc_bwd.cuh) repeats bit for bit.  The f32 routes of rows 11-12
-// (csrc/flash_attention.cu) stay on the CUDA cores, not yet redesigned: the
-// 3xTF32 split that row 1's f32 route uses (csrc/fused_attention.cu) is the
-// way to move them to the tensor cores within their 1e-5 agreement.
+// (attention_tc_bwd.cuh) repeats bit for bit and the f32 backward
+// (attention_tf32_bwd.cuh) shares between its two kernels.  The f32 routes
+// of rows 1, 11 and 12 build on these in 3xTF32 (attention_tf32.cuh).
 //
 // Replaces, for bfloat16 inputs: haconvdr_tpu/ops/fused_attention.py:30
 // _attn_kernel (inference attention, through csrc/fused_attention.cu) and
@@ -82,10 +81,6 @@ constexpr int MAXL = 512;  // longest sequence
 __device__ __forceinline__ float score(float dot, float scale, float bias) {
   return __fadd_rn(__fmul_rn(dot, scale), bias);
 }
-
-// one probability from its score and its row's (max, sum): IEEE expf and
-// division (the f32 routes of rows 11-12, on the CUDA cores)
-__device__ __forceinline__ float prob(float s, float m, float l) { return expf(s - m) / l; }
 
 // RN(e / l), the IEEE quotient, without the division's slow-path branch,
 // for l >= 1, y = RN(1 / l) and e = 0 or 2^-64 <= e <= 1: q0 = RN(e y) is

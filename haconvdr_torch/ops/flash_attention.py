@@ -5,9 +5,14 @@
 seed=None, drop_rate=0.0)`` returns the context ``[B, L, H]`` in qkv's
 dtype and is a ``torch.autograd.Function``: on CUDA tensors its forward and
 backward are the kernels of csrc/flash_attention.cu, on CPU tensors the
-plain twins below, with nothing else in between.  ``flash_attention_plain``
-is the same function through the plain twins on any device (the reference
-a kernel run is held against).
+plain twins below, with nothing else in between.  Both dtypes run on the
+tensor cores: bfloat16 on mma.sync (csrc/attention_tc.cuh, _bwd.cuh),
+float32 in 3xTF32, each product split into three TF32 products
+(csrc/attention_tf32.cuh, _bwd.cuh), which keeps the float32 route within
+1e-5 of the twins where one TF32 product would not.  A qkv, grad_out or
+gradient buffer that is not 16-byte aligned is refused with an error.
+``flash_attention_plain`` is the same function through the plain twins on
+any device (the reference a kernel run is held against).
 
 Math (the JAX kernels' :105 and :174): per batch row and head, f32 scores
 ``q k^T / sqrt(d)`` plus the additive ``(1 - mask) * -1e9`` bias, an f32

@@ -6,9 +6,11 @@ JAX, run them without the JAX-side conftest:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
-Tolerances as in chip_smoke.py: attention float32 within 1e-4, bfloat16
-within one bf16 ulp; top-k scores within 1e-4 relative and ids identical
-(the inputs here have no near-ties).  int8 x int8 scores are exact
+Tolerances as in chip_smoke.py: inference attention float32 within 1e-4,
+flash attention float32 within 1e-5 (on the edge masks against the twins
+run in float64, see _check_f32_flash), bfloat16 within one bf16 ulp;
+top-k scores within 1e-4 relative and ids identical (the inputs here
+have no near-ties).  int8 x int8 scores are exact
 integers: equal, and ids identical at every position.  The rescore
 kernel equals the window kernel bit for bit (one arithmetic for both).
 """
@@ -652,7 +654,7 @@ def test_tc_backward_is_deterministic(dev, gen):
     assert torch.equal(a, b)
 
 
-# --- the f32 route of row 1 on 3xTF32 (csrc/fused_attention.cu) ------------
+# --- the f32 route of row 1 on 3xTF32 (csrc/attention_tf32.cuh) -----------
 
 @pytest.mark.parametrize("spread", [1.0, 3.0])
 @pytest.mark.parametrize("L", [1, 77, 130, 512])
@@ -672,6 +674,126 @@ def test_f32_inference_attention_edges(dev, gen, L, spread):
     ref = fa.fused_attention_qkv_plain(qkv, mask, 12)
     assert out.dtype == torch.float32 and out.shape == ref.shape
     assert float((out - ref).abs().max()) <= 1e-4
+
+
+def test_f32_inference_attention_is_the_f32_flash_forward_body(dev, gen):
+    """Rows 1 and 11 share one 3xTF32 forward (attention_tf32.cuh): row 1's
+    output equals row 11's f32 forward at dropout 0 bit for bit, on the edge
+    masks and at the frozen towers' B 64, L 384."""
+    from haconvdr_torch.ops import flash_attention as fl
+    from haconvdr_torch.ops import fused_attention as fa
+
+    for L, mask in ((130, _tc_mask(130, dev)), (384, _ragged_mask(gen, dev, 64, 384))):
+        qkv = torch.randn(mask.shape[0], L, 3 * 768, device=dev, generator=gen)
+        out = fa.fused_attention_qkv(qkv, mask, 12)
+        torch.cuda.synchronize()
+        assert torch.equal(out, fl._fwd_kernel(qkv, mask.contiguous(), 12, None, 0.0)[0])
+
+
+# --- the f32 route of rows 11-12 on 3xTF32 (attention_tf32.cuh, _bwd.cuh) ---
+
+def _check_f32_flash(qkv, mask, go, rate, f32_twin):
+    """Rows 11-12, f32, through flash_attention, one launch each.  The
+    forward, dQ, dK and dV are held element by element to the twins run in
+    float64 on the same values, within 1e-5 times the larger of 1 and that
+    element's magnitude, and, with ``f32_twin``, to the twins in float32
+    within 1e-5.
+
+    Why float64 and why scaled: a key with few valid rows sums up to L rows
+    of dO into its dV (one valid key at L 512: |dV| ~85, where 1e-5 is about
+    one float32 ulp), and no float32 sum holds that to 1e-5 absolute.  The
+    scale is the element's own, so every element below 1 in magnitude, the
+    ordinary rows beside such a key among them, is held to 1e-5 absolute.  On
+    the edge masks at L 512 the float32 twins' dV is up to 7.9e-5 off
+    float64 and the kernels' up to 1.1e-5, and with Q and K scaled by 3 the
+    3xTF32 scores put the kernels' forward 9.6e-6 off
+    (probes/probe_torch_f32_attention.py, NVIDIA H100 80GB HBM3, 700 W).
+    A batch row without a valid key takes the float32 twins as reference:
+    float32 rounds its scores s - 1e9 to one value (a uniform softmax, as
+    the reference computes it), float64 does not."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    seed = (-(2**31) + 11, 2**31 - 7)
+    before = dict(fa.COUNTS)
+    x = qkv.clone().requires_grad_(True)
+    out = fa.flash_attention(x, mask, 12, seed=seed, drop_rate=rate)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert fa.COUNTS["fwd"] == before["fwd"] + 1 and fa.COUNTS["bwd"] == before["bwd"] + 1
+    assert fa.COUNTS["plain_fwd"] == before["plain_fwd"]
+    assert out.dtype == x.grad.dtype == torch.float32
+
+    def twins(dt):
+        return (fa.flash_attention_fwd_plain(qkv.to(dt), mask, 12, seed, rate).double(),
+                fa.flash_attention_bwd_plain(qkv.to(dt), mask, go.to(dt), 12, seed, rate)
+                .double())
+
+    def parts(o, dqkv):  # out, dQ, dK, dV
+        return [o] + [dqkv[..., i * 768:(i + 1) * 768] for i in range(3)]
+
+    r32, r64 = twins(torch.float32), twins(torch.float64)
+    valid = mask.bool().any(1)[:, None, None]
+    ref = [torch.where(valid, a, b) for a, b in zip(r64, r32)]
+    got = parts(out.detach().double(), x.grad.double())
+    for name, g, w in zip(("out", "dQ", "dK", "dV"), got, parts(*ref)):
+        diff = (g - w).abs()
+        worst = float((diff / w.abs().clamp(min=1.0)).max())
+        assert worst <= 1e-5, (name, worst, float(diff.max()))
+    if f32_twin:
+        for name, g, w in zip(("out", "dQ", "dK", "dV"), got, parts(*r32)):
+            assert float((g - w).abs().max()) <= 1e-5, name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+@pytest.mark.parametrize("L", TC_LENGTHS)
+def test_f32_flash_attention_edges(dev, gen, L, spread, rate):
+    """Rows 11-12, f32: a full row, a prefix, holes, valid keys only at both
+    ends (all-masked key tiles between them), one valid key and none;
+    spread 3 scales Q and K (peaked rows).  Held to the float64 twins (see
+    _check_f32_flash)."""
+    qkv = torch.randn(6, L, 3 * 768, device=dev, generator=gen) * 0.5
+    qkv[:, :, : 2 * 768] *= spread
+    go = torch.randn(6, L, 768, device=dev, generator=gen)
+    _check_f32_flash(qkv, _tc_mask(L, dev), go, rate, f32_twin=False)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_flash_attention_at_the_training_shape(dev, gen, rate):
+    """B 64, L 512 with query lengths 64-512 (chip_smoke.py phase 11), held
+    to the float32 twins within 1e-5 as well."""
+    B, L = 64, 512
+    qkv = torch.randn(B, L, 3 * 768, device=dev, generator=gen) * 0.5
+    go = torch.randn(B, L, 768, device=dev, generator=gen)
+    _check_f32_flash(qkv, _ragged_mask(gen, dev, B, L), go, rate, f32_twin=True)
+
+
+def test_f32_backward_is_deterministic(dev, gen):
+    """No atomics: two runs of the f32 backward give equal dqkv bit for bit."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    B, L = 16, 512
+    qkv = torch.randn(B, L, 3 * 768, device=dev, generator=gen) * 0.5
+    go = torch.randn(B, L, 768, device=dev, generator=gen)
+    mask = _ragged_mask(gen, dev, B, L)
+    _, stats = fa._fwd_kernel(qkv, mask, 12, (5, 6), 0.1)
+    a = fa._bwd_kernel(qkv, mask, stats, go, 12, (5, 6), 0.1)
+    b = fa._bwd_kernel(qkv, mask, stats, go, 12, (5, 6), 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_f32_flash_kernels_refuse_unaligned_qkv(dev):
+    """cp.async moves 16-byte rows: an f32 qkv view that starts 4 bytes into
+    its storage is refused with an error, never run through a twin."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    buf = torch.zeros(1 * 8 * 3 * 768 + 1, device=dev)
+    qkv = buf[1:].view(1, 8, 3 * 768)
+    before = dict(fa.COUNTS)
+    with pytest.raises(RuntimeError, match="hc_flash_fwd"):
+        fa.flash_attention(qkv, torch.ones(1, 8, dtype=torch.int32, device=dev), 12)
+    assert fa.COUNTS == before
 
 
 def test_flash_attention_rejects_unsupported(dev):

@@ -227,3 +227,90 @@ def test_cuda_route_checks_shapes_before_launching():
         fa._check(x, torch.ones(1, 8), 3)
     with pytest.raises(ValueError, match="L <= 512"):
         fa._check(torch.zeros(1, 513, 3 * 64), torch.ones(1, 513), 1)
+
+
+# --- why rows 11-12's f32 route needs 3xTF32 products ----------------------
+
+
+def _tf32(x):
+    """RNA rounding of float32 to TF32 (10 mantissa bits), as
+    cvt.rna.tf32.f32 (the rounding of tests/test_torch_fused_attention.py)."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b with each operand split x = big + small (both TF32), the three
+    products small*big + big*small + big*big summed in float32."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return (as_ @ bb + ab @ bs + ab @ bb).astype(np.float32)
+
+
+def _mm_tf32(a, b):
+    return (_tf32(a) @ _tf32(b)).astype(np.float32)
+
+
+def _mm_f32(a, b):
+    return (a.astype(np.float32) @ b.astype(np.float32)).astype(np.float32)
+
+
+def _mm_f64(a, b):
+    return a.astype(np.float64) @ b.astype(np.float64)
+
+
+def _flash_head(q, k, v, do, keep, rate, mm):
+    """One head of the f32 route's forward and backward with every product
+    through ``mm`` (float32 elsewhere, float64 throughout for _mm_f64): O,
+    dQ, dK, dV."""
+    ft = np.float64 if mm is _mm_f64 else np.float32
+    q, k, v, do = (x.astype(ft) for x in (q, k, v, do))
+    scale = ft(1.0 / 8.0)
+    s = mm(q, k.T).astype(ft) * scale
+    e = np.exp(s - s.max(-1, keepdims=True))
+    p = e / e.sum(-1, keepdims=True)
+    inv = ft(np.float32(1.0 / (1.0 - rate)))
+    pt = np.where(keep, p * inv, ft(0)) if rate > 0 else p
+    o = mm(pt, v)
+    dv = mm(pt.T, do)
+    dp = mm(do, v.T).astype(ft)
+    if rate > 0:
+        dp = np.where(keep, dp * inv, ft(0))
+    ds = p * (dp - (dp * p).sum(-1, keepdims=True))
+    return o, mm(ds, k) * scale, mm(ds.T, q) * scale, dv
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+def test_3xtf32_products_keep_the_f32_flash_route_within_1e5(spread, rate):
+    """The CUDA kernels' f32 route of rows 11-12 forms all seven products
+    (S, P V; S again, dPt, dV, dQ, dK) in 3xTF32 on the tensor cores, and
+    chip_smoke.py / the card tests hold its output and dqkv to the twins
+    within max |diff| 1e-5.  On the card test's data (qkv std 0.5, dO std
+    1, L 512, d 64, three heads, the twin's keep mask) a numpy emulation
+    with exact TF32 products keeps O, dQ, dK and dV each within 1e-6 of
+    float64, as plain float32 products do; with spread 3 (Q and K scaled
+    for peaked rows) the float32 softmax alone is ~3e-6 off, and the split
+    stays within 1.5x of plain float32's error.  One-term TF32 lands beyond
+    1e-5."""
+    L, heads = 512, 3
+    rng = np.random.default_rng(12)
+    qkv = (rng.standard_normal((1, L, 3 * heads * 64)) * 0.5).astype(np.float32)
+    qkv[..., : 2 * heads * 64] *= np.float32(spread)
+    do = rng.standard_normal((1, L, heads * 64)).astype(np.float32)
+    keep = fa._heads_keep((77, -13), 1, heads, L, max(rate, 0.1), "cpu").numpy()[0]
+    err3, err1, err32 = np.zeros(4), np.zeros(4), np.zeros(4)
+    for h in range(heads):
+        cols = [slice(part * heads * 64 + h * 64, part * heads * 64 + (h + 1) * 64)
+                for part in range(3)]
+        q, k, v = (qkv[0, :, c] for c in cols)
+        args = (q, k, v, do[0, :, h * 64:(h + 1) * 64], keep[h], rate)
+        ref = _flash_head(*args, _mm_f64)
+        for mm, err in ((_mm_3xtf32, err3), (_mm_tf32, err1), (_mm_f32, err32)):
+            got = _flash_head(*args, mm)
+            err[:] = np.maximum(err, [np.abs(g - r).max() for g, r in zip(got, ref)])
+    # O, dQ, dK, dV each
+    assert (err3 <= np.maximum(1e-6, 1.5 * err32)).all(), (err3, err32)
+    if spread == 1.0:
+        assert err3.max() <= 1e-6, err3
+    assert err1.max() > 1e-5, err1
