@@ -15,9 +15,13 @@ order; any failure raises and the script exits non-zero:
    N - 1,000, D = 768, k = 100), with the max error and both times:
    attention; the v3 top-k in f32, bf16 and its int8 mode, unseeded and
    seeded; the v4 window and rescore kernels; the select kernel in both
-   layouts, cold at the path's pool [W + 8 sw, Q] and warm (a floor from
-   warm_floor) at the wider pool of a 1.7M-row search, where it must also
-   equal the cold answer; the whole v4 search in f32, bf16 and int8, and a
+   layouts at Q 256, 7 and 1, split (the path's route) and in one launch,
+   on the panels the path hands it: the window maxima v1T [W, Q] at k 100
+   and the flagged second maxima at k = budget (both cold), the pool
+   [W + 8 sw, Q] cold, and warm (a floor from warm_floor) at the wider pool
+   of a 1.7M-row search, where it must also equal the cold answer; then one
+   `redesigned select_topk[_t] ...` line per panel (device ms, torch.topk ms,
+   bound, ms / torch.topk); the whole v4 search in f32, bf16 and int8, and a
    forced fallback to v3 (planted duplicate rows); the int8 tower's kernels
    at the corpus-encode batch (256 x 384 = 98,304 rows, H 768, I 3072):
    LayerNorm with a bf16 residual and without one, LayerNorm-quant with a
@@ -201,6 +205,8 @@ N_BATCHED_INT8 = 64
 N_SINGLE = 4
 N_BLOCKS = 4  # phase 6: 625,000-row blocks
 WARM_POOL = 13_282 + 4 * 128  # the v4 pool of 1.7M float32 rows (sw 128)
+SELECT_QS = (Q_KERNEL, 7, 1)  # phase 3's select panels: all queries, a non-multiple of 8, one
+SELECT_REPS = 20
 INTER = 3072
 ENC_BATCH, ENC_LEN = 256, 384  # the corpus-encode batch (phases 3 and 8)
 N_CORPUS, ENC_BLOCK = 2_048, 1_024  # phase 8: 8 batches, 2 blocks
@@ -477,11 +483,20 @@ def kernels_attention_frozen(seed: int, dev, rows):
 
 def print_redesigned(rows, card: str) -> None:
     """One line per row of a redesigned route: rows 1, 11 and 12, the bf16
-    routes on the tensor cores and the f32 routes in 3xTF32.  Each gives the
-    kernel's time, SDPA's, the bound and the kernel's time over SDPA's; row
-    12 against SDPA's backward alone, then its forward + backward against
-    SDPA's forward + backward."""
+    routes on the tensor cores and the f32 routes in 3xTF32, and rows 4
+    and 6 (the split select) per panel.  Each gives the kernel's time, its
+    library call's (SDPA or torch.topk), the bound and the kernel's time
+    over the library call's; row 12 against SDPA's backward alone, then
+    its forward + backward against SDPA's forward + backward."""
     for r in rows:
+        if r["kernel"] in ("select_topk_t", "select_topk"):
+            C, Q, k = r["shape"]
+            print(f"redesigned {r['kernel']} [{r['config']}] [{C}, {Q}] k {k}: {r['ms']:.4f} ms "
+                  f"device (one split {r['one_split_ms']:.4f}; events, host included, "
+                  f"{r['events_ms']:.4f}), torch.topk {r['library_ms']:.4f} ms device, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}), ms / torch.topk "
+                  f"{r['ms'] / r['library_ms']:.2f} [{card}]")
+            continue
         if r["kernel"] not in ("fused_attention", "flash_attention_fwd", "flash_attention_bwd"):
             continue
         sdpa = "SDPA backward" if r["kernel"] == "flash_attention_bwd" else "SDPA"
@@ -605,14 +620,7 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
                                      * q.element_size() + win.numel() * 4 + resc.numel() * 4,
                                      PEAK_OF[name])))
         if name == "float32":  # select panels from real window scores
-            panels = {
-                # the path's pool [W + 8 sw, Q]: 93 segments of 128 rows,
-                # fewer than k, so the path's selects run cold
-                "cold": torch.cat([v1, r2[: 8 * sw]]).contiguous(),
-                # the pool of a 1.7M-row float32 search (sw 128, budget 4):
-                # [13,282 + 4 * 128, Q], 108 segments, so a floor applies
-                "warm": torch.cat([v1, r2[: WARM_POOL - W]]).contiguous(),
-            }
+            panels = select_panels(v1, r2, sw, budget)
         del v1, a1, v2, r1, ra, r2, resc, ref
         # -- the whole v4 search against the plain exact top-k
         s, i = v4.topk_block_v4(qf, p, n_valid, TOP_K)
@@ -640,42 +648,110 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
             compare_topk(s, i, rs, ri, "v4 forced fallback")
             print(f"v4 forced fallback: v3_fallback {before} -> {v4.COUNTS['v3_fallback']}, exact")
             p[:4096] = saved
-    # -- select: both layouts, cold at the path's pool, warm (with a floor)
-    # at a pool wide enough for warm_floor; a floor must change no answer
-    k = TOP_K
-    for temp, panel in panels.items():
-        fl = v4.warm_floor(panel, k) if temp == "warm" else None
-        if temp == "warm":
-            check(fl is not None, "warm select: warm_floor gave no floor")
-            admitted = float((panel > fl[None, :]).sum(0).double().mean())
-            print(f"warm select: the floor admits {admitted:.1f} of {panel.shape[0]} "
-                  "entries per query")
-        ids = torch.randperm(panel.shape[0], device=dev, generator=g).to(torch.int32)
-        ids_t = ids[:, None].expand(-1, Q_KERNEL).contiguous()
-        rowmajor, rowmajor_ids = panel.T.contiguous(), ids_t.T.contiguous()
-        cases = (  # (name, kernel(floor), plain twin(floor), library call, id bytes)
-            ("select_topk_t", lambda f: v4.select_topk_t(panel, k, floor=f),
-             lambda f: v4.select_plain(panel.T, k, f), lambda: torch.topk(panel, k, dim=0), 0),
-            ("select_topk", lambda f: v4.select_topk(rowmajor, k, floor=f, ids=rowmajor_ids),
-             lambda f: v4.select_plain(rowmajor, k, f, rowmajor_ids),
-             lambda: torch.topk(rowmajor, k, dim=1), rowmajor_ids.numel() * 4),
-        )
-        for kname, run, plain, library, id_bytes in cases:
-            got, ref, ref_cold = run(fl), plain(fl), plain(None)
-            torch.cuda.synchronize()
-            for want, what in ((ref, "the plain twin"), (ref_cold, "the cold plain twin")):
-                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                      f"{kname} {temp}: differs from {what}")
-            # a selection reads each score once: bytes-bound
-            row = dict(kernel=kname, config=temp, max_abs_err=0.0,
-                       ms=cuda_ms(lambda: run(fl), 5), plain_ms=cuda_ms(lambda: plain(fl), 5),
-                       library_ms=cuda_ms(library, 5), shape=list(panel.shape) + [k],
-                       **bound_row(panel.numel(), panel.numel() * 4 + id_bytes
-                                   + Q_KERNEL * k * 8, "f32"))
-            if temp == "warm":  # the same panel without the floor
-                row["cold_ms"] = cuda_ms(lambda: run(None), 5)
-            rows.append(row)
+    # -- select: both layouts at Q 256, 7 and 1, on the path's own panels
+    # (v1T cold at k 100; the flagged second maxima at k = budget), cold at
+    # the path's pool and warm (with a floor) at a pool wide enough for
+    # warm_floor; a floor must change no answer
+    for temp, (panel, k, warm) in panels.items():
+        for Q in SELECT_QS:
+            kernels_select(dev, g, temp, panel[:, :Q].contiguous(), k, warm, rows)
     torch.cuda.empty_cache()
+
+
+def select_panels(v1, v2, sw: int, budget: int) -> dict:
+    """The select kernel's panels at Q_KERNEL, from real window scores:
+    name -> ([C, Q] scores, k, warm)."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    W = v1.shape[0]
+    v_k = v4.select_plain(v1.T, TOP_K)[0][:, TOP_K - 1]  # what the path's first select gives
+    flag = (v2 >= v_k[None, :]) & torch.isfinite(v2)
+    return {
+        # the path's pool [W + 8 sw, Q]: 93 segments of 128 rows, fewer
+        # than k, so the path's selects run cold
+        "cold": (torch.cat([v1, v2[: 8 * sw]]).contiguous(), TOP_K, False),
+        # the pool of a 1.7M-row float32 search (sw 128, budget 4):
+        # [13,282 + 4 * 128, Q], 108 segments, so a floor applies
+        "warm": (torch.cat([v1, v2[: WARM_POOL - W]]).contiguous(), TOP_K, True),
+        # the path's first select: the window maxima v1T [W, Q], cold
+        "path-v1": (v1.contiguous(), TOP_K, False),
+        # its second: the flagged second maxima, nearly all -inf, k = budget
+        "path-flag": (torch.where(flag, v2, float("-inf")).contiguous(), budget, False),
+    }
+
+
+def kernels_select(dev, g, temp: str, panel, k: int, warm: bool, rows) -> None:
+    """Rows 4 and 6 on one [C, Q] panel: select_topk_t on it, select_topk
+    on its [Q, C] copy with a random permutation as tie-break ids; each bit
+    for bit against the plain twin and the cold plain twin, then timed
+    beside torch.topk on the same view."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    C, Q = panel.shape
+    fl = v4.warm_floor(panel, k) if warm else None
+    if warm:
+        check(fl is not None, "warm select: warm_floor gave no floor")
+        admitted = float((panel > fl[None, :]).sum(0).double().mean())
+        print(f"warm select Q {Q}: the floor admits {admitted:.1f} of {C} entries per query")
+    ids = torch.randperm(C, device=dev, generator=g).to(torch.int32)
+    rowmajor = panel.T.contiguous()  # [Q, C]; at Q = 1 the view of panel itself
+    rowmajor_ids = torch.empty_like(rowmajor, dtype=torch.int32).copy_(ids[None, :].expand(Q, -1))
+    cases = (  # (name, kernel(floor, splits), plain twin(floor), library call, id bytes)
+        ("select_topk_t", lambda f, sp=None: v4._select(panel.T, k, f, None, "select_t", sp),
+         lambda f: v4.select_plain(panel.T, k, f), lambda: torch.topk(panel, k, dim=0), 0),
+        ("select_topk", lambda f, sp=None: v4._select(rowmajor, k, f, rowmajor_ids, "select", sp),
+         lambda f: v4.select_plain(rowmajor, k, f, rowmajor_ids),
+         lambda: torch.topk(rowmajor, k, dim=1), rowmajor_ids.numel() * 4),
+    )
+    config = temp if Q == Q_KERNEL else f"{temp}, Q {Q}"
+    for kname, run, plain, library, id_bytes in cases:
+        got, ref, ref_cold = run(fl), plain(fl), plain(None)
+        # the single-launch route (one split) on the same panel
+        one = run(fl, 1)
+        torch.cuda.synchronize()
+        for have, want, what in ((got, ref, "the plain twin"), (got, ref_cold, "the cold plain twin"),
+                                 (one, ref, "the plain twin (one split)")):
+            check(torch.equal(have[0], want[0]) and torch.equal(have[1], want[1]),
+                  f"{kname} {config}: differs from {what}")
+        # a selection reads each score once: bytes-bound.  Device time
+        # (device_ms): back to back, a call's host time (~0.04-0.09 ms)
+        # exceeds its kernels' at small Q, and plain CUDA events would time
+        # the host; events_ms is that host-inclusive time
+        row = dict(kernel=kname, config=config, max_abs_err=0.0,
+                   ms=device_ms(lambda: run(fl)), plain_ms=cuda_ms(lambda: plain(fl), 5),
+                   library_ms=device_ms(library), shape=[C, Q, k],
+                   one_split_ms=device_ms(lambda: run(fl, 1)),
+                   events_ms=cuda_ms(lambda: run(fl), SELECT_REPS),
+                   **bound_row(panel.numel(), panel.numel() * 4 + id_bytes + Q * k * 8, "f32"))
+        if warm:  # the same panel without the floor
+            row["cold_ms"] = device_ms(lambda: run(None))
+        rows.append(row)
+
+
+def device_ms(fn, reps: int = SELECT_REPS) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls queued behind a
+    spin of the card (torch.cuda._sleep), so that it runs them back to
+    back however long the host takes to enqueue them, timed by CUDA events
+    around the calls.  The spin is lengthened until the host has enqueued
+    every call before the card reaches the first."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 20_000_000
+    for _ in range(4):
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        cycles *= 4
+    raise RuntimeError("device_ms: the host could not enqueue the calls ahead of the card")
 
 
 def int8_weight(g, dev, out_dim, in_dim):

@@ -54,6 +54,10 @@ SIGNATURES = {
     # scores, ids(int32 or NULL), floor(float [Q] or NULL), Q, C, stride_q,
     # stride_c, k, out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
     "hc_select_topk": [_P, _P, _P, _I, _I, _L, _L, _I, _P, _P, _P],
+    # the same, split `splits` ways along each query: ..., k, splits,
+    # cand_scores(float [Q, splits * k]), cand_ids(int32 [Q, splits * k]),
+    # out_scores, out_ids, stream
+    "hc_select_topk_split": [_P, _P, _P, _I, _I, _L, _L, _I, _I, _P, _P, _P, _P, _P],
     # x, residual (or NULL), scale, bias, eps, rows, H, x dtype, out dtype
     # (0 f32 / 1 bf16), y, yq (int8 or NULL), ys (float [rows] or NULL), stream
     "hc_fused_ln": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P],

@@ -21,6 +21,11 @@ and the glue between them, with a counted fallback to the v3 kernel.
 4. int8: scores dequantize once, after that choice, as
    ``s * (q_scale / 127)``.
 
+The two selects are one kernel: each query's panel column (or row) is
+cut into ``select_splits`` runs, one block each, whose exact top k a
+second launch merges; a run is read once, 512 entries a step, against a
+running top k (csrc/topk_v4.cu, section 3).
+
 Results are ordered (score desc, passage id asc) like the v3 kernel's, so
 the two paths return the same answer: the final selection breaks ties by
 passage id, not by position in the pool.  Each kernel wrapper launches
@@ -46,6 +51,7 @@ _MODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _TILE_ROWS = 64  # the window kernel's score tile: sw must be a multiple
 _PLAIN_ROWS = 65536  # rows per score tile of the plain twins
 _NO_KEY = torch.iinfo(torch.int64).min  # below every real key
+SEL_ROWS = 512  # entries of a query a select block stages per step (csrc/topk_v4.cu)
 
 
 def resolve_select_geometry(
@@ -260,11 +266,27 @@ def select_plain(
     return torch.where(hit, v, NEG_INF), torch.where(hit, i, -1)
 
 
-def _select(scores, k, floor, ids, counter):
+def select_splits(Q: int, C: int, sms: int, queries_fast: bool) -> int:
+    """Blocks along each query of a select: about eight warps an SM over
+    the grid (one warp a query and split; a block takes 8 queries when the
+    queries are the panel's fast axis, else one, and an SM holds one
+    8-warp block: the kernel's 173 registers a thread), each split at most
+    two tiles of SEL_ROWS entries.  Measured on the H100
+    (probes/probe_torch_select.py --splits): at Q 256 the warps' instruction rate
+    bounds the kernel and more splits only add steps; at small Q shorter
+    splits win over the merge of splits * k candidates."""
+    per_block = 8 if queries_fast else 1
+    wave = 8 * sms // (-(-max(Q, 1) // per_block) * per_block)
+    return max(1, min(wave, -(-C // (2 * SEL_ROWS)), 65535))
+
+
+def _select(scores, k, floor, ids, counter, splits=None):
     """Top-k of each row of a [Q, C] view: (values [Q, kk], ids [Q, kk]),
     kk = min(k, C), ordered (score desc, id asc); the id of entry c is
     ids[q, c], else c.  Only entries above ``floor`` (per query) enter;
-    empty slots are (-inf, -1)."""
+    empty slots are (-inf, -1).  On the card the kernel runs ``splits``
+    blocks along each query (default :func:`select_splits`) and merges
+    their top k; one split is a single launch."""
     if _device_kind(scores) == "cpu":
         return select_plain(scores, k, floor, ids)
     Q, C = scores.shape
@@ -274,8 +296,8 @@ def _select(scores, k, floor, ids, counter):
     if not 0 < kk <= MAX_K:
         raise ValueError(f"select kernel takes 0 < k <= {MAX_K}, got {k} over {C} entries")
     if ids is not None and (
-        ids.dtype != torch.int32 or ids.shape != scores.shape
-        or ids.stride() != scores.stride() or ids.device != scores.device
+        ids.dtype != torch.int32 or ids.shape != scores.shape or ids.device != scores.device
+        or any(a != b for a, b, n in zip(ids.stride(), scores.stride(), scores.shape) if n > 1)
     ):
         raise ValueError("ids must be int32 with the scores' shape, strides and device")
     if floor is not None:
@@ -287,13 +309,23 @@ def _select(scores, k, floor, ids, counter):
     out_i = torch.empty((Q, kk), dtype=torch.int32, device=scores.device)
     if Q == 0:
         return out_s, out_i
+    if splits is None:
+        sms = torch.cuda.get_device_properties(scores.device).multi_processor_count
+        splits = select_splits(Q, C, sms, scores.stride(0) < scores.stride(1))
+    head = (scores.data_ptr(), None if ids is None else ids.data_ptr(),
+            None if floor is None else floor.data_ptr(), Q, C, scores.stride(0),
+            scores.stride(1), kk)
     with torch.cuda.device(scores.device):
-        err = lib.hc_select_topk(
-            scores.data_ptr(), None if ids is None else ids.data_ptr(),
-            None if floor is None else floor.data_ptr(), Q, C,
-            scores.stride(0), scores.stride(1), kk, out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if splits == 1:
+            err = lib.hc_select_topk(*head, out_s.data_ptr(), out_i.data_ptr(), stream)
+        else:
+            cand_s = torch.empty((Q, splits * kk), dtype=torch.float32, device=scores.device)
+            cand_i = torch.empty((Q, splits * kk), dtype=torch.int32, device=scores.device)
+            err = lib.hc_select_topk_split(
+                *head, splits, cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(),
+                out_i.data_ptr(), stream,
+            )
     _build.check(err, "hc_select_topk")
     COUNTS[counter] += 1
     return out_s, out_i

@@ -12,7 +12,9 @@ run in float64, see _check_f32_flash), bfloat16 within one bf16 ulp;
 top-k scores within 1e-4 relative and ids identical (the inputs here
 have no near-ties).  int8 x int8 scores are exact
 integers: equal, and ids identical at every position.  The rescore
-kernel equals the window kernel bit for bit (one arithmetic for both).
+kernel equals the window kernel bit for bit (one arithmetic for both);
+the select kernel equals ``select_plain`` bit for bit (an exact
+selection), split or in one launch.
 """
 
 import pytest
@@ -261,6 +263,108 @@ def test_select_kernel_matches_plain(dev, gen, layout, warm):
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert torch.equal(got[0], cold[0]) and torch.equal(got[1], cold[1])  # a floor prunes only
+
+
+def _select_both(s, k, layout, floor=None, ids=None, splits=None):
+    """The select kernel on [C, Q] scores in one layout (select_topk_t on
+    s, or select_topk on its [Q, C] copy with ids), and select_plain."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    if layout == "t":
+        got = v4._select(s.T, k, floor, None, "select_t", splits)
+        ref = v4.select_plain(s.T, k, floor)
+    else:
+        st = s.T.contiguous()
+        if ids is None:
+            ids = torch.randperm(s.shape[0], device=s.device).to(torch.int32)
+        it = torch.empty_like(st, dtype=torch.int32).copy_(ids[None, :].expand(st.shape[0], -1))
+        got = v4._select(st, k, floor, it, "select", splits)
+        ref = v4.select_plain(st, k, floor, it)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def _assert_bit_equal(got, ref):
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("layout", ["t", "rows"])
+@pytest.mark.parametrize("Q", [1, 7, 64, 256])
+@pytest.mark.parametrize("C", [9766, 11_814, 13_794, 40_000])
+def test_select_kernel_shapes(dev, gen, layout, Q, C):
+    """The split select at the path's panel widths (v1T, the pool, the
+    1.7M-row pool) and wider, at one query, a non-multiple of 8 and more."""
+    s = torch.randn(C, Q, device=dev, generator=gen) * 27.0 + 60.0
+    s[C // 4: C // 4 + 300] = s[:300]  # exact duplicates: ties go to the lower id
+    _assert_bit_equal(*_select_both(s, 100, layout))
+
+
+@pytest.mark.parametrize("layout", ["t", "rows"])
+@pytest.mark.parametrize("k", [1, 8, 100, 128])
+def test_select_kernel_k(dev, gen, layout, k):
+    s = torch.randn(11_814, 64, device=dev, generator=gen)
+    _assert_bit_equal(*_select_both(s, k, layout))
+    _assert_bit_equal(*_select_both(s, k, layout, splits=1))  # the single-launch route
+
+
+@pytest.mark.parametrize("layout", ["t", "rows"])
+@pytest.mark.parametrize("case", ["straddle", "all-inf", "floor-above", "few-valid"])
+def test_select_kernel_edges(dev, gen, layout, case):
+    C, Q, k = 11_814, 64, 100
+    s = torch.randn(C, Q, device=dev, generator=gen).clamp(max=3.5)
+    floor = None
+    if case == "straddle":  # a tie class of 1,000 at the k-th score across every split
+        s[::12] = 4.0
+        s[5] = 5.0
+    elif case == "all-inf":  # whole columns, and the first half of every column
+        s[: C // 2] = float("-inf")
+        s[:, ::3] = float("-inf")
+    elif case == "floor-above":  # nothing enters
+        floor = torch.full((Q,), 100.0, device=dev)
+    else:  # fewer valid entries than k
+        s[40:] = float("-inf")
+    for splits in (None, 1, 5):
+        got, ref = _select_both(s, k, layout, floor, splits=splits)
+        _assert_bit_equal(got, ref)
+    if case == "straddle" and layout == "t":  # the lowest rows of the class
+        assert got[1][:, 0].eq(5).all()
+        assert torch.equal(got[1][:, 1:], torch.arange(0, 12 * (k - 1), 12, device=dev)
+                           .to(torch.int32)[None, :].expand(Q, -1))
+    if case in ("floor-above", "few-valid"):
+        n = 0 if case == "floor-above" else 40
+        assert bool((got[1][:, n:] == -1).all()) and bool(torch.isneginf(got[0][:, n:]).all())
+
+
+def test_select_ids_strides_at_one_query(dev, gen):
+    """At Q = 1 the [1, C] view of a [C, 1] panel has strides (1, 1) and
+    contiguous ids (C, 1): the stride of a size-1 dimension is never used."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    s = torch.randn(11_814, 1, device=dev, generator=gen)
+    ids = torch.randperm(11_814, device=dev, generator=gen).to(torch.int32)[None, :]
+    got = v4.select_topk(s.T, 100, ids=ids)
+    ref = v4.select_plain(s.T, 100, None, ids)
+    torch.cuda.synchronize()
+    _assert_bit_equal(got, ref)
+
+
+@pytest.mark.parametrize("layout", ["t", "rows"])
+def test_select_kernel_path_flag(dev, gen, layout):
+    """The v4 search's second select: the flagged second maxima of real
+    window scores, nearly all -inf, at k = budget."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    Q, D, sw, k = 64, 64, 256, 100
+    N = 9766 * sw
+    p = torch.randn(N, D, device=dev, generator=gen)
+    q = torch.randn(Q, D, device=dev, generator=gen)
+    v1, _, v2 = v4.window_top2(q, p, N - 1000, sw)
+    v_k = v4.select_topk_t(v1, k, floor=v4.warm_floor(v1, k))[0][:, k - 1]
+    flagged = torch.where((v2 >= v_k[None, :]) & torch.isfinite(v2), v2, float("-inf"))
+    assert 0 < int(torch.isfinite(flagged).sum()) < flagged.numel() // 100
+    budget = v4.resolve_select_geometry(N, torch.float32)[1]
+    _assert_bit_equal(*_select_both(flagged.contiguous(), budget, layout))
+    _assert_bit_equal(*_select_both(v1, k, layout))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])

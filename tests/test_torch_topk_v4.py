@@ -78,6 +78,18 @@ def test_geometry_matches_jax(n, dtype, sw, budget, want):
     assert got == want == jv4.resolve_select_geometry(n, jnp.dtype(dtype), sw, budget)
 
 
+@pytest.mark.parametrize(
+    "Q, C, queries_fast, want",
+    [(256, 11_814, True, 4), (256, 11_814, False, 4), (7, 11_814, True, 12),
+     (1, 9766, False, 10), (1, 2000, False, 2), (2048, 11_814, True, 1),
+     (1, 400_000, False, 391)],
+)
+def test_select_splits(Q, C, queries_fast, want):
+    """About eight warps an SM, at most two tiles of SEL_ROWS entries a
+    split."""
+    assert v4.select_splits(Q, C, 132, queries_fast) == want
+
+
 def test_geometry_drops_the_tpu_tiling_condition():
     # nothing is padded on the card, so 2M+ rows take sw 256 at any N
     assert v4.resolve_select_geometry(2_500_000, torch.float32) == (256, 8)
@@ -326,3 +338,160 @@ def test_v4_search_takes_the_kernels_dtype():
     p = torch.zeros(256, 8, dtype=torch.int8)
     with pytest.raises(ValueError, match="passages' dtype"):
         v4.v4_search(q, p, 256, 4)
+
+
+# ---------------------------------------------------------------------------
+# the split select (csrc/topk_v4.cu, select_kernel): an emulation in torch
+# ---------------------------------------------------------------------------
+
+def _split_select(scores, k, floor=None, ids=None, splits=3, rows=v4.SEL_ROWS):
+    """The select kernel's algorithm on a [Q, C] view: each of ``splits``
+    runs of entries walked ``rows`` at a time, keeping a running top k
+    (score desc, id asc) and, once more than k entries were admitted, the
+    k-th score as the admission bound of later steps (ties with it stay
+    in); then the top k of the splits' [Q, splits * k] candidates.  The
+    top k of one step is select_plain's."""
+    Q, C = scores.shape
+    idv = torch.arange(C, dtype=torch.int32)[None, :].expand(Q, -1) if ids is None else ids
+    thr = torch.full((Q,), NEG, dtype=torch.float32) if floor is None else floor
+    per = -(-C // splits)
+    kk = min(k, C)
+    cand_s, cand_i = [], []
+    for sp in range(splits):
+        run_s = torch.full((Q, 0), NEG)
+        run_i = torch.full((Q, 0), -1, dtype=torch.int32)
+        lo = torch.full((Q,), NEG)
+        end = min(C, (sp + 1) * per)
+        for c0 in range(sp * per, end, rows):
+            s = scores[:, c0:min(c0 + rows, end)]
+            admit = (s > thr[:, None]) & (s >= lo[:, None])
+            all_s = torch.cat([run_s, s.masked_fill(~admit, NEG)], 1)
+            all_i = torch.cat([run_i, idv[:, c0:min(c0 + rows, end)]], 1)
+            run_s, run_i = v4.select_plain(all_s, kk, None, all_i)
+            more = (all_s > NEG).sum(1) > kk
+            lo = torch.where(more, run_s[:, -1], lo)
+        pad = kk - run_s.shape[1]
+        cand_s.append(torch.nn.functional.pad(run_s, (0, pad), value=NEG))
+        cand_i.append(torch.nn.functional.pad(run_i, (0, pad), value=-1))
+    return v4.select_plain(torch.cat(cand_s, 1), kk, None, torch.cat(cand_i, 1))
+
+
+NEG = float("-inf")
+
+
+def _both(s_t, k, floor=None, ids_t=None, **kw):
+    """(select_plain, the emulation) on the [Q, C] view of [C, Q] scores."""
+    ids = None if ids_t is None else ids_t.T
+    return v4.select_plain(s_t.T, k, floor, ids), _split_select(s_t.T, k, floor, ids, **kw)
+
+
+def _assert_same(a, b):
+    np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
+    np.testing.assert_array_equal(a[1].numpy(), b[1].numpy())
+
+
+@pytest.mark.parametrize("k", [1, 8, 100])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("layout", ["t", "rows"])
+def test_split_select_matches_plain_and_jax(rng, layout, warm, k):
+    Q, C = 16, 2000
+    s = rng.randn(C, Q).astype(np.float32)
+    floor = jfloor = None
+    if warm:  # warm_floor where C has k segments, else a floor below the k-th value
+        floor = v4.warm_floor(T(s), k)
+        if floor is None:
+            floor = T(np.sort(s, axis=0)[-(k + 50)])
+        jfloor = jnp.asarray(floor.numpy())
+    splits = 3  # tiles of SEL_ROWS: 667 entries a split, two steps each
+    plain, emu = _both(T(s), k, floor, splits=splits)
+    _assert_same(emu, plain)
+    _assert_same(emu, _both(T(s), k, floor, splits=7, rows=128)[1])
+    if layout == "t":
+        js, ji = jv4.pallas_select_topk_t(
+            jnp.asarray(s), k, c_tile=256, q_sub=64, rm0=jfloor, seg=256, interpret=True
+        )
+    else:
+        if warm:  # pallas_select_topk takes no floor: it admits everything
+            emu = _split_select(T(s.T.copy()), k, None, None, splits=splits)
+        js, ji = jv4.pallas_select_topk(jnp.asarray(s.T.copy()), k, q_tile=32, c_tile=256,
+                                        interpret=True)
+    np.testing.assert_array_equal(emu[0].numpy(), np.asarray(js))
+    np.testing.assert_array_equal(emu[1].numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("k", [1, 8, 100])
+@pytest.mark.parametrize("layout", ["t", "rows"])
+def test_split_select_tie_class_straddles_splits(rng, layout, k):
+    """The k-th score's tie class spans every split boundary and step: each
+    split keeps its lowest ids, and the merge the lowest of all."""
+    Q, C = 8, 1500
+    s = rng.randn(C, Q).astype(np.float32)
+    s[200:1300:3] = 5.0  # 367 entries of one value, ahead of everything else
+    s[700, :] = 6.0
+    ids = None
+    if layout == "rows":  # tie-break ids that disagree with the position
+        ids = T(np.tile(rng.permutation(C).astype(np.int32)[:, None], (1, Q)))
+    plain, emu = _both(T(s), k, None, ids, splits=4, rows=128)
+    _assert_same(emu, plain)
+    _assert_same(_both(T(s), k, None, ids, splits=5)[1], plain)
+    idv = np.arange(C) if ids is None else ids.numpy()[:, 0]
+    tied = np.sort(idv[200:1300:3])[: k - 1]
+    assert plain[1].numpy()[0, 0] == idv[700]
+    np.testing.assert_array_equal(plain[1].numpy()[:, 1:], np.tile(tied, (Q, 1)))
+    if layout == "t":  # JAX holds the values; its tie order is by buffer slot
+        js, _ = jv4.pallas_select_topk_t(jnp.asarray(s), k, c_tile=256, q_sub=64, seg=256,
+                                         interpret=True)
+        np.testing.assert_array_equal(emu[0].numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("k", [1, 8, 100])
+@pytest.mark.parametrize("layout", ["t", "rows"])
+def test_split_select_empty_and_floored_splits(rng, layout, k):
+    """Whole splits all -inf, or all at or below the floor: they give only
+    empty slots and change nothing."""
+    Q, C = 8, 2400
+    s = rng.randn(C, Q).astype(np.float32)
+    s[:800] = NEG  # the first split
+    s[800:1600] = np.minimum(s[800:1600], -3.0)  # the second, under the floor
+    floor = T(np.full(Q, -3.0, np.float32))
+    ids = None
+    if layout == "rows":  # tie-break ids: the answer's ids are those of rows >= 1600
+        ids = T(np.tile(rng.permutation(C).astype(np.int32)[:, None], (1, Q)))
+    plain, emu = _both(T(s), k, floor, ids, splits=3)
+    _assert_same(emu, plain)
+    _assert_same(_both(T(s), k, floor, ids, splits=6, rows=128)[1], plain)
+    assert (plain[0].numpy() > -3.0).all()
+    idv = np.arange(C) if ids is None else ids.numpy()[:, 0]
+    assert np.isin(plain[1].numpy(), idv[1600:]).all()
+    if layout == "t":
+        js, ji = jv4.pallas_select_topk_t(jnp.asarray(s), k, c_tile=256, q_sub=64,
+                                          rm0=jnp.asarray(floor.numpy()), seg=256,
+                                          interpret=True)
+        np.testing.assert_array_equal(emu[0].numpy(), np.asarray(js))
+        np.testing.assert_array_equal(emu[1].numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("k", [1, 8, 100])
+@pytest.mark.parametrize("layout", ["t", "rows"])
+def test_split_select_fewer_than_k_valid(rng, layout, k):
+    """Fewer valid entries than k in all: they come first, ordered, and
+    the rest are (-inf, -1)."""
+    Q, C = 8, 1200
+    s = np.full((C, Q), NEG, np.float32)
+    n_valid = max(0, k - 3) if k > 1 else 0
+    pos = rng.choice(C, n_valid, replace=False)
+    s[pos] = rng.randn(n_valid, Q).astype(np.float32)
+    plain, emu = _both(T(s), k, None, splits=4, rows=128)
+    _assert_same(emu, plain)
+    assert (plain[1].numpy()[:, n_valid:] == -1).all()
+    assert np.isneginf(plain[0].numpy()[:, n_valid:]).all()
+    assert np.isfinite(plain[0].numpy()[:, :n_valid]).all()
+    if n_valid:  # JAX's valid slots hold the same entries
+        if layout == "t":
+            js, ji = jv4.pallas_select_topk_t(jnp.asarray(s), k, c_tile=256, q_sub=64,
+                                              seg=256, interpret=True)
+        else:
+            js, ji = jv4.pallas_select_topk(jnp.asarray(s.T.copy()), k, q_tile=32, c_tile=256,
+                                            interpret=True)
+        np.testing.assert_array_equal(emu[0].numpy(), np.asarray(js))
+        np.testing.assert_array_equal(emu[1].numpy()[:, :n_valid], np.asarray(ji)[:, :n_valid])
