@@ -24,9 +24,11 @@ order; any failure raises and the script exits non-zero:
    bound, ms / torch.topk); the whole v4 search in f32, bf16 and int8, and a
    forced fallback to v3 (planted duplicate rows); the int8 tower's kernels
    at the corpus-encode batch (256 x 384 = 98,304 rows, H 768, I 3072):
-   LayerNorm with a bf16 residual and without one, LayerNorm-quant with a
-   bf16 residual and with a float32 input and none, and the int8 MLP
-   block; the trained
+   LayerNorm with a bf16 residual and without one (also at H 256, the
+   generic kernel beside the H 768 one), LayerNorm-quant with a bf16
+   residual and with a float32 input and none, and the int8 MLP block at
+   512 rows (one request), 24,576 (the train-ref frozen towers) and
+   98,304; the trained
    tower's flash-attention forward and backward at B 8, L 512, 12 heads,
    float32 and bfloat16, dropout 0 and 0.1, at phase 9's shape (B 64,
    query lengths 64-512, bfloat16, dropout 0.1 and 0) and at phase 11's
@@ -34,14 +36,16 @@ order; any failure raises and the script exits non-zero:
    256 over the first 2,498,560 rows (a multiple of both dtypes' p_chunk *
    group),
    n_valid = N - 1,000, float32 and bfloat16, also bit for bit against the
-   unseeded v3 kernel on the same rows; attention (row 1) in bfloat16 and
+   unseeded v3 kernel on the same rows, and in float32 at k 129 and 1,024
+   (past the other kernels' 128); attention (row 1) in bfloat16 and
    in float32 at the frozen passage towers' shape (B 64, L 384, lengths
    32-384);
    then one `redesigned ...` line per row of a redesigned route (rows 1,
    11 and 12: bf16 on the tensor cores, f32 in 3xTF32):
    ms, SDPA ms (row 12: SDPA's backward alone, then forward + backward
    against SDPA's forward + backward), bound ms and ms / SDPA, with the
-   card's name and power limit;
+   card's name and power limit; and one per case of rows 8-10 and of row
+   7 past k 128: ms, plain ms, library ms, bound ms and ms / bound;
    each row also carries its bound (bytes over 3.35 TB/s or operations
    over the peak of the type the work could run in) and, where one
    PyTorch call computes the same function, that call's time;
@@ -231,6 +235,8 @@ ROW1_FROZEN_F32 = f"float32, B {TRAIN_B} L {TRAIN_PLEN}"
 # row 7 (phase 3): the first rows of the index, a multiple of both dtypes'
 # p_chunk * group (1220 x 2048 = 610 x 4096)
 N_STREAM = 2_498_560
+STREAM_WIDE_K = (129, 1024)  # row 7 past KMAX = 128 (phase 3)
+MLP_ROWS = (512, 24_576, ENC_BATCH * ENC_LEN)  # row 10: one request, train-ref, corpus encode
 # phase 10: 64 TopiOCQA-format conversations of 8 turns over a store of the
 # reference's 2.5M-row faiss block and a 500,000-row second block; PRJ over
 # 32 conversations' probes -0..-2, PRJ_PLANTED of the 64 non-base ones planted
@@ -456,8 +462,10 @@ def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
             if seeded:
                 check(bool((i == -1).any()), f"{tag}: no seed survivor")
             ms = cuda_ms(lambda: fused_topk_block(qq, p, n_valid, TOP_K, init_scores=init), 3)
+            # the plain twins of the 2.5M-row searches: one timed call, warm
+            # from the check (~70-80 ms a call)
             pms = cuda_ms(
-                lambda: fused_topk_block_plain(qq, p, n_valid, TOP_K, init_scores=init), 3
+                lambda: fused_topk_block_plain(qq, p, n_valid, TOP_K, init_scores=init), 1, 0
             )
             rows.append(dict(kernel="fused_topk", config=tag[6:], max_abs_err=err, ms=ms,
                              plain_ms=pms, library_ms=None, shape=[Q_KERNEL, N_ROWS, DIM, TOP_K],
@@ -487,7 +495,9 @@ def print_redesigned(rows, card: str) -> None:
     and 6 (the split select) per panel.  Each gives the kernel's time, its
     library call's (SDPA or torch.topk), the bound and the kernel's time
     over the library call's; row 12 against SDPA's backward alone, then
-    its forward + backward against SDPA's forward + backward."""
+    its forward + backward against SDPA's forward + backward.  Rows 8-10
+    per case and row 7 past k 128: ms, plain ms, library ms (or none),
+    bound and ms / bound."""
     for r in rows:
         if r["kernel"] in ("select_topk_t", "select_topk"):
             C, Q, k = r["shape"]
@@ -496,6 +506,13 @@ def print_redesigned(rows, card: str) -> None:
                   f"{r['events_ms']:.4f}), torch.topk {r['library_ms']:.4f} ms device, bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}), ms / torch.topk "
                   f"{r['ms'] / r['library_ms']:.2f} [{card}]")
+            continue
+        if r["kernel"] in ("fused_ln", "fused_ln_quant", "fused_mlp") or (
+                r["kernel"] == "topk_stream" and ", k " in r["config"]):
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            print(f"redesigned {r['kernel']} [{r['config']}] {r['shape']}: {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}), ms / bound {r['ms'] / r['bound_ms']:.2f} [{card}]")
             continue
         if r["kernel"] not in ("fused_attention", "flash_attention_fwd", "flash_attention_bwd"):
             continue
@@ -532,13 +549,33 @@ def kernels_stream(dev, g, passages_f32, rows):
         check(torch.equal(s, vs) and torch.equal(i, vi),
               f"topk_stream {name}: not bit-equal to the unseeded v3 kernel")
         rows.append(dict(kernel="topk_stream", config=name, max_abs_err=err,
-                         ms=cuda_ms(lambda: ts.topk_block_v2(q, p, n_valid, TOP_K), 3),
-                         plain_ms=cuda_ms(lambda: ts.topk_block_v2_plain(q, p, n_valid, TOP_K), 3),
-                         v3_ms=cuda_ms(lambda: fused_topk_block(q, p, n_valid, TOP_K), 3),
+                         # on no path: one timed call each, warm from the checks
+                         ms=cuda_ms(lambda: ts.topk_block_v2(q, p, n_valid, TOP_K), 1, 0),
+                         plain_ms=cuda_ms(
+                             lambda: ts.topk_block_v2_plain(q, p, n_valid, TOP_K), 1, 0),
+                         v3_ms=cuda_ms(lambda: fused_topk_block(q, p, n_valid, TOP_K), 1, 0),
                          bit_equal_v3=True, library_ms=None,
                          shape=[Q_KERNEL, N_STREAM, DIM, TOP_K],
                          **search_bound(p, Q_KERNEL, n_valid, name, Q_KERNEL * TOP_K * 8)))
         del p, s, i, rs, ri, vs, vi
+    # k past 128 (fewer queries a block, the wide merge), float32: against the
+    # twin only (the v3 kernel takes k <= 128)
+    p = passages_f32[:N_STREAM]
+    for k in STREAM_WIDE_K:
+        s, i = ts.topk_block_v2(q, p, n_valid, k)
+        torch.cuda.synchronize()
+        rs, ri = ts.topk_block_v2_plain(q, p, n_valid, k)
+        err = compare_topk(s, i, rs, ri, f"topk_stream float32 k {k}")
+        check(int(i.max()) < n_valid, f"topk_stream k {k}: a row past n_valid surfaced")
+        rows.append(dict(kernel="topk_stream", config=f"float32, k {k}", max_abs_err=err,
+                         # one timed call each (the checked calls warmed them): k
+                         # 1,024 takes ~0.2 s a call
+                         ms=cuda_ms(lambda: ts.topk_block_v2(q, p, n_valid, k), 1, 0),
+                         plain_ms=cuda_ms(lambda: ts.topk_block_v2_plain(q, p, n_valid, k), 1, 0),
+                         library_ms=None, shape=[Q_KERNEL, N_STREAM, DIM, k],
+                         **search_bound(p, Q_KERNEL, n_valid, "float32", Q_KERNEL * k * 8)))
+        del s, i, rs, ri
+    del p
     torch.cuda.empty_cache()
 
 
@@ -584,7 +621,8 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
         check(torch.equal(a1[gap], ra[gap]), f"window {name}: a1 differs at separated v1/v2")
         rows.append(dict(kernel="window_top2", config=name, max_abs_err=err,
                          ms=cuda_ms(lambda: v4.window_top2(q, p, n_valid, sw), 3),
-                         plain_ms=cuda_ms(lambda: v4.window_top2_plain(q, p, n_valid, sw), 3),
+                         plain_ms=cuda_ms(
+                             lambda: v4.window_top2_plain(q, p, n_valid, sw), 1, 0),
                          library_ms=None, shape=[Q_KERNEL, N_ROWS, DIM, sw],
                          **search_bound(p, Q_KERNEL, n_valid, name, 3 * v1.numel() * 4)))
         # -- rescore: budget 8 random windows, bit for bit against the window kernel
@@ -635,7 +673,7 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
         rows.append(dict(kernel="topk_block_v4", config=name, max_abs_err=err,
                          ms=cuda_ms(lambda: v4.topk_block_v4(qf, p, n_valid, TOP_K), 3),
                          plain_ms=cuda_ms(
-                             lambda: fused_topk_block_plain(qf, p, n_valid, TOP_K), 3),
+                             lambda: fused_topk_block_plain(qf, p, n_valid, TOP_K), 1, 0),
                          shape=shape + [budget]))
         if name == "bfloat16":  # -- forced fallback: one row planted 4096 times
             saved = p[:4096].clone()
@@ -803,6 +841,13 @@ def kernels_int8_tower(dev, g, rows):
          lambda: fl.fused_residual_ln_quant_plain(x32, None, lns, lnb, eps, bf), None,
          R * DIM * 7 + R * 4),
     )
+    # row 8 off the compile-time width: the generic kernel, H 256
+    x256 = xb[:, :256].contiguous()
+    l256, b256 = lns[:256].contiguous(), lnb[:256].contiguous()
+    cases += (("fused_ln", "bf16, no residual, H 256",
+               lambda: fl.fused_residual_ln(x256, None, l256, b256, eps),
+               lambda: fl.fused_residual_ln_plain(x256, None, l256, b256, eps),
+               lambda: F.layer_norm(x256, (256,), l256.to(bf), b256.to(bf), eps), R * 256 * 4),)
     for name, config, run, plain, library, nbytes in cases:
         got, ref = run(), plain()
         torch.cuda.synchronize()
@@ -811,11 +856,12 @@ def kernels_int8_tower(dev, g, rows):
         d = (y.float() - ry.float()).abs()
         check(y.dtype == bf and bool((d <= 2.0**-7 * ry.float().abs() + 1e-5).all()),
               f"{name} {config}: y beyond one bf16 ulp ({float(d.max())})")
+        width = y.shape[-1]
         row = dict(kernel=name, config=config, max_abs_err=float(d.max()),
                    y_diff_share=float((d > 0).float().mean()),
                    ms=cuda_ms(run, 5), plain_ms=cuda_ms(plain, 5),
-                   library_ms=cuda_ms(library, 5) if library else None, shape=[R, DIM],
-                   **bound_row(10.0 * R * DIM, nbytes + 2 * DIM * 4, "f32"))
+                   library_ms=cuda_ms(library, 5) if library else None, shape=[R, width],
+                   **bound_row(10.0 * R * width, nbytes + 2 * width * 4, "f32"))
         if quant:
             oq, os_ = quantize_rows(y)
             check(torch.equal(got[1], oq) and torch.equal(got[2], os_),
@@ -823,7 +869,9 @@ def kernels_int8_tower(dev, g, rows):
             row["code_diff_share"] = codes_close(got[1], ref[1], f"{name} {config}")
         rows.append(row)
         del got, ref, y, ry, d
-    # -- the MLP block on an LN output carry
+    del x256
+    # -- the MLP block on an LN output carry, at the serving tower's rows (one
+    # request of 512 tokens), the train-ref frozen towers' and corpus encode's
     x = fl.fused_residual_ln_plain(xb, r, lns, lnb, eps)
     del x32, xb, r
     xq, xs = quantize_rows(x)
@@ -831,27 +879,31 @@ def kernels_int8_tower(dev, g, rows):
     w2, s2 = int8_weight(g, dev, DIM, INTER)
     b1 = torch.randn(INTER, device=dev, generator=g) * 0.02
     b2 = torch.randn(DIM, device=dev, generator=g) * 0.02
-    args = (x, xq, xs, w1, s1, b1, w2, s2, b2, lns, lnb)
-    run = lambda: fm.fused_mlp_block(*args, eps=eps)  # noqa: E731
-    plain = lambda: fm.fused_mlp_block_plain(*args, eps=eps)  # noqa: E731
-    (y, yq, ys), (ry, rq, _) = run(), plain()
-    torch.cuda.synchronize()
-    gy, wy = y.float(), ry.float()
-    d = (gy - wy).abs()
-    flips = float((d > 2.0**-6 * (1 + wy.abs())).float().mean())
-    check(bool((d <= 2.0**-6 * wy.abs() + 0.07).all()) and flips < 2e-3,
-          f"fused_mlp: beyond the JAX test's bounds (max {float(d.max())}, flips {flips})")
-    oq, os_ = quantize_rows(y)
-    check(torch.equal(yq, oq) and torch.equal(ys, os_),
-          "fused_mlp: yq, ys are not the quantization of the kernel's y")
-    rows.append(dict(kernel="fused_mlp", config="bf16", max_abs_err=float(d.max()),
-                     y_diff_share=float((d > 0).float().mean()), flip_share=flips,
-                     code_diff_share=codes_close(yq, rq, "fused_mlp"),
-                     ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 3), library_ms=None,
-                     shape=[R, DIM, INTER],
-                     **bound_row(4.0 * R * DIM * INTER, R * DIM * 6 + R * 8
-                                 + 2 * DIM * INTER * 1, "int8")))
-    del args, x, xq, xs, y, yq, ys, ry, rq, gy, wy, d
+    for n in MLP_ROWS:
+        args = (x[:n], xq[:n], xs[:n], w1, s1, b1, w2, s2, b2, lns, lnb)
+        run = lambda: fm.fused_mlp_block(*args, eps=eps)  # noqa: E731
+        plain = lambda: fm.fused_mlp_block_plain(*args, eps=eps)  # noqa: E731
+        (y, yq, ys), (ry, rq, _) = run(), plain()
+        torch.cuda.synchronize()
+        gy, wy = y.float(), ry.float()
+        d = (gy - wy).abs()
+        flips = float((d > 2.0**-6 * (1 + wy.abs())).float().mean())
+        check(bool((d <= 2.0**-6 * wy.abs() + 0.07).all()) and flips < 2e-3,
+              f"fused_mlp {n} rows: beyond the JAX test's bounds (max {float(d.max())}, "
+              f"flips {flips})")
+        oq, os_ = quantize_rows(y)
+        check(torch.equal(yq, oq) and torch.equal(ys, os_),
+              f"fused_mlp {n} rows: yq, ys are not the quantization of the kernel's y")
+        rows.append(dict(kernel="fused_mlp", config=f"bf16, {n} rows", max_abs_err=float(d.max()),
+                         y_diff_share=float((d > 0).float().mean()), flip_share=flips,
+                         code_diff_share=codes_close(yq, rq, f"fused_mlp {n} rows"),
+                         # device time: at 512 rows back-to-back events time the host
+                         ms=device_ms(run), plain_ms=cuda_ms(plain, 3), library_ms=None,
+                         shape=[n, DIM, INTER],
+                         **bound_row(4.0 * n * DIM * INTER, n * DIM * 6 + n * 8
+                                     + 2 * DIM * INTER * 1, "int8")))
+        del args, y, yq, ys, ry, rq, gy, wy, d
+    del x, xq, xs
     torch.cuda.empty_cache()
 
 
@@ -2031,7 +2083,8 @@ def main(argv=None) -> int:
         entry("fused_ln_quant", "haconvdr_torch/csrc/fused_ln.cu",
               "haconvdr_tpu/ops/fused_ln.py:91", "fused_ln", "ln_quant", "bf16 + residual"),
         entry("fused_mlp", "haconvdr_torch/csrc/fused_mlp.cu",
-              "haconvdr_tpu/ops/fused_mlp.py:56", "fused_mlp", "kernel", "bf16"),
+              "haconvdr_tpu/ops/fused_mlp.py:56", "fused_mlp", "kernel",
+              f"bf16, {MLP_ROWS[-1]} rows"),
         # rows 11-12 at phase 9's bf16 shape: the tensor-core kernels
         entry("flash_attention_fwd", "haconvdr_torch/csrc/attention_tc.cuh",
               "haconvdr_tpu/ops/flash_attention.py:105", "flash_attention", "fwd",
@@ -2043,7 +2096,7 @@ def main(argv=None) -> int:
         entry("topk_stream", "haconvdr_torch/csrc/topk_stream.cu",
               "haconvdr_tpu/ops/pallas_topk_v2.py:38", "topk_stream", "kernel"),
     ]}))
-    print(f"total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build included [{card}]")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-// The whole int8 MLP block of an inference tower in one kernel.
+// The int8 MLP block of an inference tower: four kernels on one stream.
 //
 // Replaces: haconvdr_tpu/ops/fused_mlp.py:56 _mlp_kernel (fused_mlp_block).
 // Same math, op for op (the plain twin, ops/fused_mlp.py, is the unfused
@@ -9,30 +9,60 @@
 //   y2 = (gq . W2)_int32 -> f32 * (gs / 127) * s2 + b2
 //   t  = x + bf16(y2)                       (bf16 add: the carry dtype)
 //   y, yq, ys = LayerNorm(t) -> bf16 and its codes (ln_quant.cuh)
-// The int32 sums are exact (|sum| <= 3072 * 127^2 < 2^31), the int32 ->
-// f32 cast rounds to nearest (__int2float_rn, as .to(torch.float32)), the
+// The int32 sums are exact (|sum| <= I * 127^2 < 2^31), the int32 -> f32
+// cast rounds to nearest (__int2float_rn, as .to(torch.float32)), the
 // dequantization rounds each product and sum on its own, and the GELU is
 // written as PyTorch's CUDA tanh-GELU writes it.
 //
-// What bounds it on the H100: at H = 768, I = 3072 the block does
-// 2 * 2 * 768 * 3072 = 9.4 Mop per row in int8 x int8 -> int32 and moves
-// ~6 B per row element in device memory, so the activations cost little;
-// the 4.5 MiB of int8 weights, re-read from L2 by every block, are the
-// traffic that bounds it (4.5 MiB per 16 rows: ~29 GB of L2 reads at
-// [98,304, 768]).  The [rows, 3072] intermediate never leaves shared memory.
+// What bounds it on the H100: the products, 2 * 2 * H * I = 9.4 Mop per row
+// at H = 768, I = 3072 (0.93 Top at [98,304, 768]: 0.47 ms at 1,979 Top/s),
+// and the operand traffic from L2 into the SMs.  The first version kept the
+// whole [16, I] intermediate of 16 rows in shared memory and read the int8
+// weights straight from L2 for every 16 rows: ~29 GB of L2 reads at
+// [98,304, 768] bounded it (5.35 ms).  A row's g scale is the maximum over
+// all I columns and must exist before any code of g can, which is what
+// pinned the rows to 16.
 //
-// Design: a block owns T = 16 rows, the M of the tensor-core instruction
-// mma.sync m16n8k32 (int8 in, exact int32 sums).  The weights stay in
-// nn.Linear's [out, in] layout, K-contiguous, which is the column-major B
-// that mma.row.col takes: a lane loads 16 contiguous bytes of one weight
-// row straight from global memory (L2) for two instructions.  Within each
-// 64-wide k chunk, lane t of a quad holds bytes 16t..16t+15 of its row for
-// both A and B, a permutation of k that an exact integer sum does not see.
-// Shared memory holds the xq tile, g as bf16 [16, 3072] (96 KB), its codes,
-// then t: ~158 KB at H = 768, above the 48 KB default (opt-in below), so
-// one block runs per SM with 12 warps.  Rows are padded by 16 bytes (bf16
-// g) or 64 bytes (int8 tiles) so a quad's loads and stores hit distinct
-// banks.  Rows past the end are zeros and are never stored.
+// Design: the block is cut where the row maximum is needed.
+//  1. mlp_gemm<UP>: g = bf16(GELU(bf16(dequant(xq . W1^T)))) into a
+//     [rows, I] bf16 scratch, in 128 x 128 (rows x columns) tiles; each
+//     row's max |g| reaches gmax[rows] by atomicMax on the float's bits
+//     (for non-negative floats the bits order as integers, so the maximum
+//     is exact in any order; gmax is zeroed first).
+//  2. quant_kernel: gq, gs = the codes of g, each element coded once.
+//  3. mlp_gemm<DOWN>: t = bf16(x + bf16(dequant(gq . W2^T))) into a
+//     [rows, H] bf16 scratch, the same 128 x 128 tiles.
+//  4. LayerNorm + codes of t: fused_ln.cu's kernel (row 9, no residual).
+// A tile of W then serves 128 rows, not 16: ~7 GB of L2 reads at
+// [98,304, 768].  Whole rows of t in one block (LayerNorm in the epilogue
+// of 3) would need 768 int32 accumulators a row: 192 a thread at 256
+// threads for 64 rows, past the register file, so the LayerNorm is its own
+// pass over t (0.3 GB at [98,304, 768]).  Scratch a row: 3 I + 2 H + 8
+// bytes (10,760 at H = 768, I = 3072).
+//
+// The products run on mma.sync m16n8k32 (int8 in, exact int32 sums) in
+// 128 x 128 tiles, two blocks of eight warps an SM, each warp 64 x 32
+// outputs (4 x 4 tiles, 64 int32 accumulators a thread: the register file
+// holds no more at 16 warps an SM).  A stage holds a 128-byte k chunk of
+// 128 rows of A and 128 rows of W (W in nn.Linear's [out, in] layout,
+// K-contiguous, is the column-major B that mma.row.col takes), 32 KB,
+// three stages deep, filled with 16-byte cp.async.cg copies (zeros past
+// the last row and past K).  Within each 64-byte half of a chunk, lane t of
+// a quad holds bytes 16t..16t+15 of its row for both A and B, a permutation
+// of k that an exact integer sum does not see; rows are swizzled (SWZ) so
+// the 8 lanes of a 16-byte shared-memory phase read 128 bytes on 32 banks.
+//
+// What limits it (NVIDIA H100 80GB HBM3, 700 W; probes/
+// probe_torch_int8_tower.py --variants at [98,304, 768]): the down-
+// projection takes 1.05 ms, and each of its streams alone takes about half
+// of that: the copies from L2 (0.53 ms, ~7 TB/s), the products alone
+// (0.51 ms), the shared-memory fragment loads with the products (0.75 ms
+// without the copies).  They barely overlap: a warp stalls on its own
+// copies and fragment loads.  Larger warp tiles (64 x 64) leave one block
+// an SM and measured 19-36% slower; a producer warp with mbarriers capped
+// the product warps' registers and spilled, and a persistent grid and a
+// two-stream row pipeline measured slower too (development runs).  The
+// up-projection adds its GELU epilogue and 4x the tiles (1.57 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,28 +71,37 @@
 
 #include "ln_quant.cuh"
 
+// fused_ln.cu: LayerNorm (+ residual) (+ codes)
+extern "C" int hc_fused_ln(const void* x, const void* r, const void* scale, const void* bias,
+                           float eps, int rows, int H, int x_dtype, int out_dtype, void* y,
+                           void* yq, void* ys, void* stream);
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int T = 16;       // rows per block: the M of m16n8k32
-constexpr int NWARPS = 12;
-constexpr int NT = 32 * NWARPS;
-constexpr int NTILE = 4;    // 8-column tiles per warp step (A fragments reused)
-constexpr int QPAD = 64;    // bytes of padding per int8 shared row
-constexpr int GPAD = 8;     // bf16 elements of padding per g row
-constexpr size_t MAX_SMEM = 232448;  // 227 KB: a block's limit on sm_90
+// tile rows, columns and k bytes a stage; a warp's rows and columns;
+// threads, stages, blocks an SM
+constexpr int BM = 128, BN = 128, BK = 128, WM = 64, WN = 32, NT = 256, STAGES = 3, MINB = 2;
+constexpr int MT = WM / 16, NTL = WN / 8;      // a warp's m16n8 tiles
+constexpr int SMEM = STAGES * (BM + BN) * BK;  // 96 KB
+// shared rows of 128 bytes and more: 16-byte unit u of row r sits at
+// u ^ 4 (r & 1), so the two rows that 8 lanes read together fill the 32
+// banks (64-byte rows need no swizzle)
+constexpr int SWZ = BK >= 128 ? 4 : 0;
+constexpr int UP = 0, DOWN = 1;
+static_assert(BK % 64 == 0 && NT == 32 * (BM / WM) * (BN / WN), "tile shape");
 
-__host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
-
-__host__ __device__ size_t gt_bytes(int H, int I) {
-  const size_t g = (size_t)T * (I + GPAD) * sizeof(bf16);
-  const size_t t = (size_t)T * H * sizeof(float);
-  return align16(g > t ? g : t);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  // src-size 0 zero-fills the 16 bytes (rows past the end)
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(full ? 16 : 0));
 }
-
-size_t smem_bytes(int H, int I) {
-  return gt_bytes(H, I) + (size_t)T * (I + QPAD) + (size_t)T * (H + QPAD) + 3 * T * sizeof(float);
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // d += a . b for one m16n8k32 tile (int8 operands, int32 accumulators)
@@ -73,30 +112,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1, int a2, int 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// acc[j] += A_s [16, K] (shared, row stride lda) . W[n0 + 8 j + (0..7), :]^T
-// for j < NTILE; W is [N, K] int8 in global memory, K % 64 == 0.
-// Accumulator layout (m16n8): acc[j][i] is row g + 8 (i >= 2), column
-// n0 + 8 j + 2 tig + (i & 1), with g = lane / 4 and tig = lane % 4.
-__device__ __forceinline__ void tile_product(const int8_t* A_s, int lda,
-                                             const int8_t* __restrict__ W, int K, int n0,
-                                             int (&acc)[NTILE][4], int lane) {
-  const int g = lane >> 2, tig = lane & 3;
-  const int8_t* a_lo = A_s + g * lda + tig * 16;
-  const int8_t* a_hi = a_lo + 8 * lda;
-  const int8_t* w = W + (size_t)(n0 + g) * K + tig * 16;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 64) {
-    const int4 lo = *reinterpret_cast<const int4*>(a_lo + k0);
-    const int4 hi = *reinterpret_cast<const int4*>(a_hi + k0);
-#pragma unroll
-    for (int j = 0; j < NTILE; ++j) {
-      const int4 b = __ldg(reinterpret_cast<const int4*>(w + (size_t)j * 8 * K + k0));
-      mma_s8(acc[j], lo.x, hi.x, lo.y, hi.y, b.x, b.y);
-      mma_s8(acc[j], lo.z, hi.z, lo.w, hi.w, b.z, b.w);
-    }
-  }
 }
 
 // x * (xs / 127) * s + b, each step rounded on its own
@@ -113,132 +128,223 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(inner));
 }
 
-__global__ void __launch_bounds__(NT, 1)
-    mlp_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ xq,
-               const float* __restrict__ xs, const int8_t* __restrict__ w1,
-               const float* __restrict__ s1, const float* __restrict__ b1,
-               const int8_t* __restrict__ w2, const float* __restrict__ s2,
-               const float* __restrict__ b2, const float* __restrict__ lns,
-               const float* __restrict__ lnb, float eps, int rows, int H, int I,
-               bf16* __restrict__ y, int8_t* __restrict__ yq, float* __restrict__ ys) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* g_s = reinterpret_cast<bf16*>(smem);    // [T][I + GPAD], then
-  float* t_s = reinterpret_cast<float*>(smem);  // [T][H] once g is coded
-  int8_t* gq_s = reinterpret_cast<int8_t*>(smem + gt_bytes(H, I));  // [T][I + QPAD]
-  int8_t* xq_s = gq_s + (size_t)T * (I + QPAD);                      // [T][H + QPAD]
-  float* xs_s = reinterpret_cast<float*>(xq_s + (size_t)T * (H + QPAD));  // xs / 127
-  float* gs_s = xs_s + T;                                                  // gs
-  float* gs127_s = gs_s + T;                                               // gs / 127
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const long long row0 = (long long)blockIdx.x * T;
-  const int nrows = (int)min((long long)T, rows - row0);
-  const int lq = H + QPAD, lg = I + GPAD, lgq = I + QPAD;
-
-  // 1. the xq tile (zero rows past the end) and xs / 127
-  const int hv = H / 16;
-  for (int e = tid; e < T * hv; e += NT) {
-    const int r = e / hv, c = e % hv;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r < nrows) v = *reinterpret_cast<const int4*>(xq + (size_t)(row0 + r) * H + 16 * c);
-    *reinterpret_cast<int4*>(xq_s + r * lq + 16 * c) = v;
-  }
-  if (tid < T) xs_s[tid] = tid < nrows ? __fdiv_rn(xs[row0 + tid], 127.0f) : 0.0f;
-  __syncthreads();
-
-  // 2. intermediate dense, dequantized, + b1 -> bf16 -> GELU -> bf16 into g_s
-  for (int nb = warp * NTILE; nb < I / 8; nb += NWARPS * NTILE) {
-    int acc[NTILE][4] = {};
-    tile_product(xq_s, lq, w1, H, nb * 8, acc, lane);
+// Copy the k chunk kt of the block's A rows [m0, m0 + BM) and W rows
+// [n0, n0 + BN) into stage slot s (zeros past the last row and past K).
+__device__ __forceinline__ void load_stage(int8_t* smem, int s, const int8_t* __restrict__ A,
+                                           const int8_t* __restrict__ W, int M, int N, int K,
+                                           int m0, int n0, int kt) {
+  int8_t* As = smem + s * BM * BK;
+  int8_t* Bs = smem + STAGES * BM * BK + s * BN * BK;
+  const int k0 = kt * BK;
 #pragma unroll
-    for (int j = 0; j < NTILE; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = g + (i >= 2 ? 8 : 0);
-        const int c = (nb + j) * 8 + 2 * tig + (i & 1);
-        const float v = hc::round_to<bf16>(dequant(acc[j][i], xs_s[r], s1[c], b1[c]));
-        g_s[r * lg + c] = __float2bfloat16_rn(gelu_tanh(v));
-      }
-    }
+  for (int e = threadIdx.x; e < BM * (BK / 16); e += NT) {
+    const int r = e / (BK / 16), u = e % (BK / 16);
+    const bool full = m0 + r < M && k0 + 16 * u < K;
+    cp_async16(As + r * BK + 16 * (u ^ (SWZ * (r & 1))),
+               full ? A + (size_t)(m0 + r) * K + k0 + 16 * u : A, full);
   }
-  __syncthreads();
-
-  // 3. per-row scale of g, then its codes
-  for (int r = warp; r < T; r += NWARPS) {
-    float m = 0.0f;
-    for (int c = lane; c < I; c += 32) m = fmaxf(m, fabsf(__bfloat162float(g_s[r * lg + c])));
-    m = hc::warp_max(m);
-    if (lane == 0) {
-      const float s = fmaxf(m, 1e-30f);
-      gs_s[r] = s;
-      gs127_s[r] = __fdiv_rn(s, 127.0f);
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < T * I; e += NT) {
-    const int r = e / I, c = e % I;
-    gq_s[r * lgq + c] = hc::quant_code(__bfloat162float(g_s[r * lg + c]), gs_s[r]);
-  }
-  __syncthreads();
-
-  // 4. output dense, dequantized, + b2 -> bf16, + x in bf16 -> t_s
-  for (int nb = warp * NTILE; nb < H / 8; nb += NWARPS * NTILE) {
-    int acc[NTILE][4] = {};
-    tile_product(gq_s, lgq, w2, I, nb * 8, acc, lane);
 #pragma unroll
-    for (int j = 0; j < NTILE; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = g + (i >= 2 ? 8 : 0);
-        const int c = (nb + j) * 8 + 2 * tig + (i & 1);
-        const float y2 = hc::round_to<bf16>(dequant(acc[j][i], gs127_s[r], s2[c], b2[c]));
-        const float xv = r < nrows ? __bfloat162float(x[(size_t)(row0 + r) * H + c]) : 0.0f;
-        t_s[r * H + c] = hc::round_to<bf16>(__fadd_rn(xv, y2));
-      }
-    }
-  }
-  __syncthreads();
-
-  // 5. LayerNorm + codes of each row (one warp per row)
-  const int vpl = H / 32;
-  for (int r = warp; r < nrows; r += NWARPS) {
-    float v[hc::LN_MAX_VPL];
-#pragma unroll
-    for (int i = 0; i < hc::LN_MAX_VPL; ++i)
-      if (i < vpl) v[i] = t_s[r * H + lane + 32 * i];
-    const size_t base = (size_t)(row0 + r) * H;
-    hc::ln_row_store<bf16, true>(v, H, lane, lns, lnb, eps, y + base, yq + base, ys + row0 + r);
+  for (int e = threadIdx.x; e < BN * (BK / 16); e += NT) {
+    const int r = e / (BK / 16), u = e % (BK / 16);
+    const bool full = n0 + r < N && k0 + 16 * u < K;
+    cp_async16(Bs + r * BK + 16 * (u ^ (SWZ * (r & 1))),
+               full ? W + (size_t)(n0 + r) * K + k0 + 16 * u : W, full);
   }
 }
+
+// The epilogue of one tile (acc[i][j][2h + e] is row m0 + wm WM + 16 i + g
+// + 8 h, column n0 + wn WN + 8 j + 2 tig + e):
+//   UP:   out = bf16(GELU(bf16(dequant(C, a_scale / 127, ws, wb)))) [M, N];
+//         row_max[r - m0] = max |out[r, n0 .. n0 + BN)| as float bits
+//   DOWN: out = bf16(x + bf16(dequant(C, a_scale / 127, ws, wb))) [M, N]
+template <int MODE>
+__device__ __forceinline__ void epilogue(const int (&acc)[MT][NTL][4], int M, int N, int m0,
+                                         int n0, int wm, int wn, int g, int tig,
+                                         const float* __restrict__ a_scale,
+                                         const float* __restrict__ ws,
+                                         const float* __restrict__ wb,
+                                         const bf16* __restrict__ x, bf16* __restrict__ out,
+                                         unsigned* row_max) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wm * WM + 16 * i + g + 8 * h;
+      const int r = m0 + rl;
+      const bool live = r < M;
+      const float s_127 = live ? __fdiv_rn(a_scale[r], 127.0f) : 0.0f;
+      float m = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NTL; ++j) {
+        const int c = n0 + wn * WN + 8 * j + 2 * tig;
+        if (c >= N) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[e] = hc::round_to<bf16>(dequant(acc[i][j][2 * h + e], s_127, ws[c + e], wb[c + e]));
+        if (MODE == UP) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = hc::round_to<bf16>(gelu_tanh(v[e]));
+            m = fmaxf(m, fabsf(v[e]));
+          }
+        } else if (live) {
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)r * N + c);
+          v[0] = hc::round_to<bf16>(__fadd_rn(__low2float(xv), v[0]));
+          v[1] = hc::round_to<bf16>(__fadd_rn(__high2float(xv), v[1]));
+        }
+        if (live) *reinterpret_cast<uint32_t*>(out + (size_t)r * N + c) = pack_bf16(v[0], v[1]);
+      }
+      if (MODE == UP) {  // the quad's maximum of row r, then the block's
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        if (tig == 0 && live) atomicMax(&row_max[rl], __float_as_uint(m));
+      }
+    }
+  }
+}
+
+// C [M, N] = A [M, K] . W [N, K]^T (int8, exact int32) on one BM x BN tile
+// (blockIdx.x the column tile, blockIdx.y the row tile), then
+// epilogue<MODE>; UP also folds the tile's row maxima into gmax[M].
+// a_scale is xs (UP) or gs (DOWN), one per row.  K % 16 == 0, N % 8 == 0.
+template <int MODE>
+__global__ void __launch_bounds__(NT, MINB)
+    mlp_gemm(const int8_t* __restrict__ A, const int8_t* __restrict__ W, int M, int N, int K,
+             const float* __restrict__ a_scale, const float* __restrict__ ws,
+             const float* __restrict__ wb, const bf16* __restrict__ x, bf16* __restrict__ out,
+             unsigned* __restrict__ gmax) {
+  extern __shared__ __align__(16) int8_t smem[];
+  __shared__ unsigned row_max[BM];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = warp / (BN / WN), wn = warp % (BN / WN);
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int KT = (K + BK - 1) / BK;
+  if (MODE == UP && tid < BM) row_max[tid] = 0u;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load_stage(smem, s, A, W, M, N, K, m0, n0, s);
+    cp_async_commit();
+  }
+
+  int acc[MT][NTL][4] = {};
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk kt is in; every warp is done with chunk kt - 1's slot
+    if (kt + STAGES - 1 < KT)
+      load_stage(smem, (kt + STAGES - 1) % STAGES, A, W, M, N, K, m0, n0, kt + STAGES - 1);
+    cp_async_commit();  // an empty group at the end keeps the wait count uniform
+
+    const int s = kt % STAGES;
+    const int8_t* a = smem + s * BM * BK + (wm * WM + g) * BK;
+    const int8_t* b = smem + STAGES * BM * BK + s * BN * BK + (wn * WN + g) * BK;
+#pragma unroll
+    for (int kk = 0; kk < BK / 64; ++kk) {  // 64-byte k steps: two products each
+      const int off = 16 * ((4 * kk + tig) ^ (SWZ * (g & 1)));
+      int4 bf[NTL];
+#pragma unroll
+      for (int j = 0; j < NTL; ++j) bf[j] = *reinterpret_cast<const int4*>(b + j * 8 * BK + off);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int4 lo = *reinterpret_cast<const int4*>(a + i * 16 * BK + off);
+        const int4 hi = *reinterpret_cast<const int4*>(a + (i * 16 + 8) * BK + off);
+#pragma unroll
+        for (int j = 0; j < NTL; ++j) {
+          mma_s8(acc[i][j], lo.x, hi.x, lo.y, hi.y, bf[j].x, bf[j].y);
+          mma_s8(acc[i][j], lo.z, hi.z, lo.w, hi.w, bf[j].z, bf[j].w);
+        }
+      }
+    }
+  }
+
+  epilogue<MODE>(acc, M, N, m0, n0, wm, wn, g, tig, a_scale, ws, wb, x, out, row_max);
+  if (MODE == UP) {
+    __syncthreads();
+    if (tid < BM && m0 + tid < M) atomicMax(&gmax[m0 + tid], row_max[tid]);
+  }
+}
+
+// gq, gs = the per-row codes of g: gs = max(max |g|, 1e-30), from gmax's
+// bits; one thread an 8-column chunk.
+__global__ void __launch_bounds__(256)
+    quant_kernel(const bf16* __restrict__ g, const unsigned* __restrict__ gmax, int rows, int I,
+                 int8_t* __restrict__ gq, float* __restrict__ gs) {
+  const long long chunks = (long long)rows * (I / 8);
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= chunks) return;
+  const long long r = e / (I / 8);
+  const size_t off = (size_t)e * 8;
+  const float s = fmaxf(__uint_as_float(gmax[r]), 1e-30f);
+  float v[8];
+  hc::load_run<8>(g + off, v);
+  hc::store_codes_run<8>(gq + off, v, s);
+  if (off == (size_t)r * I) gs[r] = s;
+}
+
+template <int MODE>
+cudaError_t launch_gemm(const int8_t* A, const int8_t* W, int M, int N, int K,
+                        const float* a_scale, const float* ws, const float* wb, const bf16* x,
+                        bf16* out, unsigned* gmax, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(mlp_gemm<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  mlp_gemm<MODE><<<grid, NT, SMEM, stream>>>(A, W, M, N, K, a_scale, ws, wb, x, out, gmax);
+  return cudaGetLastError();
+}
+
+#define HC_TRY(expr)                        \
+  do {                                      \
+    const cudaError_t e_ = (expr);          \
+    if (e_ != cudaSuccess) return (int)e_;  \
+  } while (0)
 
 }  // namespace
 
 // x bf16 [rows, H]; xq int8 [rows, H]; xs float32 [rows]; w1 int8 [I, H]
-// and w2 int8 [H, I] ([out, in], 16-byte aligned); s1, b1 float32 [I];
-// s2, b2, lns, lnb float32 [H]; outputs y bf16 [rows, H], yq int8
-// [rows, H], ys float32 [rows].  Takes H % 64 == 0, 64 <= H <= 1024,
-// I % 64 == 0 and shared memory within 227 KB; returns
-// cudaErrorInvalidValue otherwise (the Python wrapper checks first).
+// and w2 int8 [H, I] ([out, in]); s1, b1 float32 [I]; s2, b2, lns, lnb
+// float32 [H]; outputs y bf16 [rows, H], yq int8 [rows, H], ys float32
+// [rows]; scratch g bf16 [rows, I], gmax uint32 [rows], gq int8 [rows, I],
+// gs float32 [rows], t bf16 [rows, H].  xq, w1, w2, g and gq 16-byte
+// aligned.  Takes H % 64 == 0, 64 <= H <= 1024, I % 64 == 0,
+// 64 <= I <= 131,072 (exact int32 sums); returns cudaErrorInvalidValue
+// otherwise (the Python wrapper checks first).
+
 extern "C" int hc_fused_mlp(const void* x, const void* xq, const void* xs, const void* w1,
                             const void* s1, const void* b1, const void* w2, const void* s2,
                             const void* b2, const void* lns, const void* lnb, float eps,
-                            int rows, int H, int I, void* y, void* yq, void* ys, void* stream) {
-  if (rows <= 0 || H < 64 || H % 64 || H > 32 * hc::LN_MAX_VPL || I < 64 || I % 64)
+                            int rows, int H, int I, void* y, void* yq, void* ys, void* g,
+                            void* gmax, void* gq, void* gs, void* t, void* stream) {
+  if (rows <= 0 || H < 64 || H % 64 || H > 32 * hc::LN_MAX_VPL || I < 64 || I % 64 ||
+      I > 131072)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(H, I);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (rows + T - 1) / T;
-  mlp_kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(xq),
-      static_cast<const float*>(xs), static_cast<const int8_t*>(w1),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<const float*>(lns),
-      static_cast<const float*>(lnb), eps, rows, H, I, static_cast<bf16*>(y),
-      static_cast<int8_t*>(yq), static_cast<float*>(ys));
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const int8_t* xqb = static_cast<const int8_t*>(xq);
+  const float* xsb = static_cast<const float*>(xs);
+  bf16* gb = static_cast<bf16*>(g);
+  unsigned* gm = static_cast<unsigned*>(gmax);
+  int8_t* gqb = static_cast<int8_t*>(gq);
+  float* gsb = static_cast<float*>(gs);
+  bf16* tb = static_cast<bf16*>(t);
+  HC_TRY(cudaMemsetAsync(gm, 0, sizeof(unsigned) * (size_t)rows, s));
+
+  HC_TRY(launch_gemm<UP>(xqb, static_cast<const int8_t*>(w1), rows, I, H, xsb,
+                        static_cast<const float*>(s1), static_cast<const float*>(b1), nullptr,
+                        gb, gm, s));
+  const long long chunks = (long long)rows * (I / 8);
+  quant_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, s>>>(gb, gm, rows, I, gqb, gsb);
+  HC_TRY(cudaGetLastError());
+  HC_TRY(launch_gemm<DOWN>(gqb, static_cast<const int8_t*>(w2), rows, H, I, gsb,
+                          static_cast<const float*>(s2), static_cast<const float*>(b2), xb, tb,
+                          nullptr, s));
+  return hc_fused_ln(tb, nullptr, lns, lnb, eps, rows, H, 1, 1, y, yq, ys, stream);
 }

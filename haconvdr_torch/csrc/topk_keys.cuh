@@ -12,7 +12,7 @@
 
 namespace hc {
 
-constexpr int KMAX = 128;  // the largest k any selection takes
+constexpr int KMAX = 128;  // the largest k of every selection but the streaming top-k's
 
 // order-preserving map of a float to uint32 (-0 folded onto +0)
 __device__ __forceinline__ uint32_t ordered_bits(float f) {
@@ -33,23 +33,25 @@ __device__ __forceinline__ int key_id(uint64_t key) {
   return (int)(0x7fffffffu - (uint32_t)key);
 }
 
-struct SelectScratch {  // shared memory of top_keys
+template <int KCAP>
+struct SelectScratchT {  // shared memory of top_keys, for k <= KCAP
   unsigned int hist[256];
-  uint64_t sel[KMAX];
+  uint64_t sel[KCAP];
   uint64_t prefix;
   int krem;
   int n_sel;
 };
+using SelectScratch = SelectScratchT<KMAX>;
 
-// The k (<= KMAX) largest of the keys key_at(0 .. total-1), descending, in
+// The k (<= KCAP) largest of the keys key_at(0 .. total-1), descending, in
 // s.sel[0 .. k); fewer than k keys leave the rest 0.  Every thread of a
-// block of NT (>= KMAX) threads calls it.  An 8-bit radix select finds the
+// block of NT (>= KCAP) threads calls it.  An 8-bit radix select finds the
 // k-th largest key; the keys above it are gathered, copies of the k-th
 // complete the k (equal keys are the same entry), and a bitonic sort
 // orders them.
-template <int NT, typename KeyAt>
-__device__ void top_keys(KeyAt key_at, int total, int k, SelectScratch& s) {
-  static_assert(NT >= KMAX, "the bitonic sort takes one thread per slot");
+template <int NT, typename KeyAt, int KCAP>
+__device__ void top_keys(KeyAt key_at, int total, int k, SelectScratchT<KCAP>& s) {
+  static_assert(NT >= KCAP, "the bitonic sort takes one thread per slot");
   const int tid = threadIdx.x;
   uint64_t prefix = 0, mask = 0;
   int krem = k;  // rank of the wanted key among keys matching the prefix
@@ -82,11 +84,11 @@ __device__ void top_keys(KeyAt key_at, int total, int k, SelectScratch& s) {
     if (key > kth) s.sel[atomicAdd(&s.n_sel, 1)] = key;
   }
   __syncthreads();
-  for (int j = k - krem + tid; j < KMAX; j += NT) s.sel[j] = j < k ? kth : 0ull;
+  for (int j = k - krem + tid; j < KCAP; j += NT) s.sel[j] = j < k ? kth : 0ull;
   __syncthreads();
-  for (int size = 2; size <= KMAX; size <<= 1) {  // bitonic sort, descending
+  for (int size = 2; size <= KCAP; size <<= 1) {  // bitonic sort, descending
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (tid < KMAX) {
+      if (tid < KCAP) {
         const int j = tid ^ stride;
         if (j > tid) {
           const uint64_t a = s.sel[tid], b = s.sel[j];

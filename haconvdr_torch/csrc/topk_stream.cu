@@ -43,6 +43,13 @@
 //    (zero-padded to a multiple of DK) from 0.0f, the chain of fused_topk.cu
 //    and topk_v4.cu, so this kernel's answer equals the unseeded v3
 //    kernel's bit for bit on the same rows.
+//  * k up to STREAM_KMAX = 1024, as the JAX kernel takes any k (it rounds
+//    its buffer up to 128 lanes, pallas_topk_v2.py:160).  The key buffer
+//    is [QT, k] in shared memory, so the block takes fewer queries as k
+//    grows: QT = 64 for k <= 128 (the kernel as it was), 32 for k <= 256,
+//    16 above (at most 128 KB of keys).  The split merge for k > 128 is
+//    wide_merge_kernel below: top_keys with 1,024 key slots; k <= 128
+//    keeps fused_topk.cu's merge.
 //  * No tensor cores and no TMA in this first version.
 
 #include <cuda_bf16.h>
@@ -57,17 +64,21 @@ namespace {
 using hc::KMAX;
 using hc::make_key;
 
-constexpr int QT = 64;       // queries per block
+constexpr int STREAM_KMAX = 1024;  // the largest k of this kernel
 constexpr int PT = 64;       // passage rows per staging tile
 constexpr int DK = 32;       // elements of depth per stage
 constexpr int GT = 2;        // staging tiles per selection group
 constexpr int GW = GT * PT;  // selection width
-constexpr int NT = 256;      // threads (16 x 16, each a 4 x 4 score block)
+constexpr int NT = 256;      // threads (16 x 16, each a QT / 16 x 4 score block)
+constexpr int MERGE_NT = 1024;  // threads of the wide merge: one a key slot
+
+// queries per block: the [QT, k] key buffer stays within 128 KB
+constexpr int qt_for(int k) { return k <= KMAX ? 64 : (k <= 2 * KMAX ? 32 : 16); }
 
 // One stage's shared-memory rows: QT query rows then PT passage rows, each
 // DK elements plus 16 bytes of padding (144 B in float32, 80 B in bfloat16),
 // so the 16-byte loads of 8 neighbouring rows hit distinct banks.
-template <typename T>
+template <typename T, int QT>
 struct Stage {
   static constexpr int VEC = 16 / sizeof(T);       // elements per 16-byte copy
   static constexpr int CHUNKS = DK / VEC;          // copies per row and stage
@@ -104,11 +115,11 @@ __device__ __forceinline__ void load_vec(const unsigned char* src, float (&v)[8]
 }
 
 // Copy stage (p0, d0) into ``slot``: the block's query rows and one passage tile.
-template <typename T>
+template <typename T, int QT>
 __device__ __forceinline__ void copy_stage(unsigned char* slot, const T* __restrict__ q,
                                            const T* __restrict__ p, int Q, int D, int q0,
                                            int p0, int r1, int d0) {
-  using S = Stage<T>;
+  using S = Stage<T, QT>;
   for (int e = threadIdx.x; e < (QT + PT) * S::CHUNKS; e += NT) {
     const int r = e / S::CHUNKS, c = e % S::CHUNKS;
     const int d = d0 + c * S::VEC;
@@ -125,11 +136,12 @@ __device__ __forceinline__ void copy_stage(unsigned char* slot, const T* __restr
   }
 }
 
-template <typename T>
+template <typename T, int QT>
 __global__ void __launch_bounds__(NT) topk_stream_kernel(
     const T* __restrict__ q, const T* __restrict__ p, int Q, int D, int row_end, int k,
     int rows_per_split, uint64_t* __restrict__ cand) {
-  using S = Stage<T>;
+  using S = Stage<T, QT>;
+  constexpr int RI = QT / 16;  // query rows a thread scores
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* slots = smem_raw;                                      // [2][SLOT]
   uint64_t* buf = reinterpret_cast<uint64_t*>(smem_raw + 2 * S::SLOT);  // [QT][k] keys
@@ -154,17 +166,17 @@ __global__ void __launch_bounds__(NT) topk_stream_kernel(
   const int n_tiles = r1 > r0 ? (r1 - r0 + PT - 1) / PT : 0;
   const int n_depth = (D + DK - 1) / DK;
   const int n_stages = n_tiles * n_depth;
-  if (n_stages > 0) copy_stage<T>(slots, q, p, Q, D, q0, r0, r1, 0);
+  if (n_stages > 0) copy_stage<T, QT>(slots, q, p, Q, D, q0, r0, r1, 0);
   cp_async_commit();
 
-  float acc[4][4] = {};
+  float acc[RI][4] = {};
   for (int st = 0; st < n_stages; ++st) {
     // stage st + 1 in flight while stage st is consumed (an empty group
     // at the end keeps the wait count uniform)
     if (st + 1 < n_stages) {
       const int t = (st + 1) / n_depth, ds = (st + 1) % n_depth;
-      copy_stage<T>(slots + ((st + 1) & 1) * S::SLOT, q, p, Q, D, q0, r0 + t * PT, r1,
-                    ds * DK);
+      copy_stage<T, QT>(slots + ((st + 1) & 1) * S::SLOT, q, p, Q, D, q0, r0 + t * PT, r1,
+                        ds * DK);
     }
     cp_async_commit();
     cp_async_wait_1();
@@ -173,15 +185,15 @@ __global__ void __launch_bounds__(NT) topk_stream_kernel(
     const unsigned char* slot = slots + (st & 1) * S::SLOT;
 #pragma unroll
     for (int c = 0; c < S::CHUNKS; ++c) {
-      float a[4][S::VEC], b[4][S::VEC];
+      float a[RI][S::VEC], b[4][S::VEC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) load_vec(slot + (ty + 16 * i) * S::ROW + c * 16, a[i]);
+      for (int i = 0; i < RI; ++i) load_vec(slot + (ty + 16 * i) * S::ROW + c * 16, a[i]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) load_vec(slot + (QT + tx + 16 * j) * S::ROW + c * 16, b[j]);
 #pragma unroll
       for (int v = 0; v < S::VEC; ++v)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i][v], b[j][v], acc[i][j]);
     }
@@ -191,7 +203,7 @@ __global__ void __launch_bounds__(NT) topk_stream_kernel(
       const int p0 = r0 + t * PT;
       const int col0 = (t % GT) * PT;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int pj = tx + 16 * j;
@@ -267,24 +279,55 @@ __global__ void __launch_bounds__(NT) topk_stream_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int QT>
 size_t smem_bytes(int k) {
-  return 2 * (size_t)Stage<T>::SLOT + sizeof(uint64_t) * (size_t)QT * k +
+  return 2 * (size_t)Stage<T, QT>::SLOT + sizeof(uint64_t) * (size_t)QT * k +
          sizeof(float) * (size_t)QT * (GW + 1);
+}
+
+template <typename T, int QT>
+cudaError_t launch_qt(const void* q, const void* p, int Q, int D, int row_end, int k,
+                      int rows_per_split, int n_splits, void* cand, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, QT>(k);
+  cudaError_t err = cudaFuncSetAttribute(topk_stream_kernel<T, QT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Q + QT - 1) / QT, n_splits);
+  topk_stream_kernel<T, QT><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(p), Q, D, row_end, k, rows_per_split,
+      static_cast<uint64_t*>(cand));
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* p, int Q, int D, int row_end, int k,
                    int rows_per_split, int n_splits, void* cand, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(k);
-  cudaError_t err = cudaFuncSetAttribute(topk_stream_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Q + QT - 1) / QT, n_splits);
-  topk_stream_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(p), Q, D, row_end, k, rows_per_split,
-      static_cast<uint64_t*>(cand));
-  return cudaGetLastError();
+  switch (qt_for(k)) {
+    case 64:
+      return launch_qt<T, 64>(q, p, Q, D, row_end, k, rows_per_split, n_splits, cand, stream);
+    case 32:
+      return launch_qt<T, 32>(q, p, Q, D, row_end, k, rows_per_split, n_splits, cand, stream);
+    default:
+      return launch_qt<T, 16>(q, p, Q, D, row_end, k, rows_per_split, n_splits, cand, stream);
+  }
+}
+
+// Pass 2 for k > KMAX: one block per query, top_keys over the splits' keys
+// with STREAM_KMAX slots (fused_topk.cu's merge, wider).
+__global__ void __launch_bounds__(MERGE_NT) wide_merge_kernel(
+    const uint64_t* __restrict__ cand, int S, int Q, int k, float* __restrict__ out_s,
+    int* __restrict__ out_i) {
+  __shared__ hc::SelectScratchT<STREAM_KMAX> scratch;
+  const int q = blockIdx.x;
+  auto key_at = [&](int e) -> uint64_t {
+    const int s = e / k, j = e % k;
+    return cand[((size_t)s * Q + q) * k + j];
+  };
+  hc::top_keys<MERGE_NT>(key_at, S * k, k, scratch);
+  for (int j = threadIdx.x; j < k; j += MERGE_NT) {
+    out_s[(size_t)q * k + j] = hc::key_score(scratch.sel[j]);
+    out_i[(size_t)q * k + j] = hc::key_id(scratch.sel[j]);
+  }
 }
 
 }  // namespace
@@ -293,25 +336,43 @@ cudaError_t launch(const void* q, const void* p, int Q, int D, int row_end, int 
 // (dtype 0) or both bfloat16 (1), 16-byte aligned rows (D a multiple of 4
 // in float32, 8 in bfloat16); rows >= min(n_valid, N) are skipped;
 // rows_per_split a multiple of 64; cand is uint64 [n_splits, Q, k] with
-// n_splits * rows_per_split >= min(n_valid, N).  Pass 2 is hc_topk_merge
-// (fused_topk.cu) with no seed.
+// n_splits * rows_per_split >= min(n_valid, N); k <= STREAM_KMAX.  The
+// grid takes ceil(Q / QT) query tiles (QT of qt_for(k), hc_topk_stream_qt).
+// Pass 2 is hc_topk_merge (fused_topk.cu) with no seed for k <= 128,
+// hc_topk_stream_merge above.
 extern "C" int hc_topk_stream(const void* q, const void* p, int Q, int N, int D, int n_valid,
                               int k, int rows_per_split, int n_splits, void* cand, int dtype,
                               void* stream) {
-  if (Q <= 0 || N < 0 || D <= 0 || k <= 0 || k > KMAX || rows_per_split <= 0 ||
+  if (Q <= 0 || N < 0 || D <= 0 || k <= 0 || k > STREAM_KMAX || rows_per_split <= 0 ||
       rows_per_split % PT != 0 || n_splits <= 0 || n_splits > 65535)
     return (int)cudaErrorInvalidValue;
   const int row_end = n_valid < N ? (n_valid < 0 ? 0 : n_valid) : N;
   if ((long long)n_splits * rows_per_split < row_end) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (D % Stage<float>::VEC != 0) return (int)cudaErrorInvalidValue;
+    if (D % Stage<float, 64>::VEC != 0) return (int)cudaErrorInvalidValue;
     return (int)launch<float>(q, p, Q, D, row_end, k, rows_per_split, n_splits, cand, s);
   }
   if (dtype == 1) {
-    if (D % Stage<__nv_bfloat16>::VEC != 0) return (int)cudaErrorInvalidValue;
+    if (D % Stage<__nv_bfloat16, 64>::VEC != 0) return (int)cudaErrorInvalidValue;
     return (int)launch<__nv_bfloat16>(q, p, Q, D, row_end, k, rows_per_split, n_splits, cand,
                                       s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// queries per block of hc_topk_stream at this k (0 if k is out of range)
+extern "C" int hc_topk_stream_qt(int k) { return k > 0 && k <= STREAM_KMAX ? qt_for(k) : 0; }
+
+// Pass 2 for KMAX < k <= STREAM_KMAX.  cand uint64 [n_splits, Q, k]; out_s
+// float [Q, k], out_i int32 [Q, k] ordered (score desc, id asc).
+extern "C" int hc_topk_stream_merge(const void* cand, int n_splits, int Q, int k, void* out_s,
+                                    void* out_i, void* stream) {
+  if (Q <= 0 || k <= KMAX || k > STREAM_KMAX || n_splits <= 0 ||
+      (long long)n_splits * k > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  wide_merge_kernel<<<Q, MERGE_NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(cand), n_splits, Q, k, static_cast<float*>(out_s),
+      static_cast<int*>(out_i));
+  return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@ local directory) to and from the JAX package's nested-dict params with
 numpy leaves, the layout ``AnceEncoder.from_jax_params`` and
 ``quantize_encoder_params`` take.  The JAX module cannot be shared: it
 imports JAX through ``models.encoder``.  ``load_model`` and its tokenizer
-need ``transformers`` and are not ported.
+need ``transformers`` and are not ported: it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -169,3 +169,13 @@ def save_hf_checkpoint(params: EncoderParams, cfg: ModelConfig, out_dir: str) ->
     }
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
+
+
+def load_model(model_type: str, model_path: str):
+    """The JAX package's factory (haconvdr_tpu/models/hf_import.py:182):
+    "ANCE_Query"/"ANCE_Passage"/"BERT_*" -> (tokenizer, encoder).  Not
+    ported yet."""
+    raise NotImplementedError(
+        f"hf_import.load_model({model_type!r}, ...) is not ported yet: "
+        "ROADMAP.md queue 1 item 2"
+    )

@@ -42,6 +42,11 @@ SIGNATURES = {
     # q, p, Q, N, D, n_valid, k, rows_per_split, n_splits,
     # cand_keys(uint64 [S, Q, k]), dtype, stream
     "hc_topk_stream": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # k -> queries per block of hc_topk_stream (0: k out of range)
+    "hc_topk_stream_qt": [_I],
+    # cand_keys(uint64 [S, Q, k]), n_splits, Q, k (128 < k <= 1024),
+    # out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
+    "hc_topk_stream_merge": [_P, _I, _I, _I, _P, _P, _P],
     # cand_keys, n_splits, Q, k, seed(float [Q, ks] or NULL), ks,
     # out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
     "hc_topk_merge": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
@@ -62,8 +67,8 @@ SIGNATURES = {
     # (0 f32 / 1 bf16), y, yq (int8 or NULL), ys (float [rows] or NULL), stream
     "hc_fused_ln": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, xq, xs, w1, s1, b1, w2, s2, b2, ln scale, ln bias, eps, rows, H, I,
-    # y, yq, ys, stream
-    "hc_fused_mlp": [_P] * 11 + [_F, _I, _I, _I, _P, _P, _P, _P],
+    # y, yq, ys, scratch g, gmax, gq, gs, t, stream
+    "hc_fused_mlp": [_P] * 11 + [_F, _I, _I, _I] + [_P] * 9,
     # qkv, mask(int32), out, stats(float2 [B, nh, L]), B, L, H, num_heads,
     # dtype, drop_on, seed0, seed1, keep threshold, 1 / (1 - rate), stream
     "hc_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _P],

@@ -1,10 +1,12 @@
-"""The int8 MLP block of an inference tower in one kernel (counterpart of
+"""The int8 MLP block of an inference tower (counterpart of
 haconvdr_tpu/ops/fused_mlp.py).
 
-``fused_mlp_block`` launches the CUDA kernel (csrc/fused_mlp.cu) for CUDA
-tensors and runs the plain twin ``fused_mlp_block_plain`` for CPU tensors;
-there is no other route.  Both compute, from the carry ``x`` (bfloat16)
-and its prequantization ``(xq, xs)``::
+``fused_mlp_block`` launches the CUDA kernels (csrc/fused_mlp.cu: the
+up-projection with GELU, the codes of its output, the down-projection with
+the residual, then fused_ln.cu's LayerNorm with codes; one call, counted
+once) for CUDA tensors and runs the plain twin ``fused_mlp_block_plain``
+for CPU tensors; there is no other route.  Both compute, from the carry
+``x`` (bfloat16) and its prequantization ``(xq, xs)``::
 
     y1 = int8_dense(xq, xs, W1) -> bfloat16;   g = tanh-GELU(y1) (bfloat16)
     gq, gs = quantize_rows(g);                 y2 = int8_dense(gq, gs, W2)
@@ -13,9 +15,11 @@ and its prequantization ``(xq, xs)``::
 and return ``(y, yq, ys)``: the next carry and its prequantization.  The
 weights are int8 in ``nn.Linear``'s [out, in] layout (the JAX function
 takes them [in, out]); ``kernel_scale`` is per output channel.  The
-kernel takes H % 64 == 0 up to 1024 and I % 64 == 0 within 227 KB of
-shared memory, any row count, and raises ``ValueError`` on CUDA otherwise
-(the TPU module's ``fused_mlp_supported`` gates do not carry over).
+kernels take H % 64 == 0 up to 1024 and I % 64 == 0 up to 131,072 (exact
+int32 sums), any row count, and raise ``ValueError`` on CUDA otherwise
+(the TPU module's ``fused_mlp_supported`` gates do not carry over).  The
+wrapper allocates their scratch: ``scratch_bytes_per_row`` bytes a row
+(10,760 at H 768, I 3072).
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from haconvdr_torch.ops.fused_ln import layer_norm
 # launches of the CUDA kernel / plain-twin calls
 COUNTS = {"kernel": 0, "plain": 0}
 MAX_H = 1024
-ROWS_PER_BLOCK = 16
-_MAX_SMEM = 232_448  # 227 KB, a block's limit on sm_90
+MAX_I = 131_072  # I * 127 * 127 < 2**31: the int32 sums stay exact
+ROWS_PER_BLOCK = 128  # rows of a product tile (csrc/fused_mlp.cu: BM)
 
 
 def _int_mm(a: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -80,17 +84,23 @@ def fused_mlp_block_plain(
 
 
 def smem_bytes(hidden: int, inter: int) -> int:
-    """Dynamic shared memory of one block (csrc/fused_mlp.cu:smem_bytes)."""
-    T = ROWS_PER_BLOCK
-    gt = max(T * (inter + 8) * 2, T * hidden * 4)
-    return -(-gt // 16) * 16 + T * (inter + 64) + T * (hidden + 64) + 3 * T * 4
+    """Dynamic shared memory of one product block (csrc/fused_mlp.cu:SMEM:
+    three stages of 128-byte k chunks of 128 A rows and 128 W rows), the
+    same at every width."""
+    return 3 * (ROWS_PER_BLOCK + 128) * 128
+
+
+def scratch_bytes_per_row(hidden: int, inter: int) -> int:
+    """Scratch the wrapper allocates a row: g (bf16) and its codes [I],
+    its row maximum and scale, and the residual sum t (bf16) [H]."""
+    return 3 * inter + 2 * hidden + 8
 
 
 def fused_mlp_supported(hidden: int, inter: int) -> bool:
-    """Widths the CUDA kernel takes (any row count)."""
+    """Widths the CUDA kernels take (any row count)."""
     return (
-        hidden % 64 == 0 and 64 <= hidden <= MAX_H and inter % 64 == 0 and inter >= 64
-        and smem_bytes(hidden, inter) <= _MAX_SMEM
+        hidden % 64 == 0 and 64 <= hidden <= MAX_H and inter % 64 == 0
+        and 64 <= inter <= MAX_I
     )
 
 
@@ -114,8 +124,8 @@ def fused_mlp_block(
         raise ValueError(f"fused MLP kernel takes a bfloat16 carry; got {x.dtype} -> {out_dtype}")
     if not fused_mlp_supported(H, I):
         raise ValueError(
-            f"fused MLP kernel takes H % 64 == 0 (<= {MAX_H}) and I % 64 == 0 within "
-            f"{_MAX_SMEM} bytes of shared memory; got H={H}, I={I}"
+            f"fused MLP kernel takes H % 64 == 0 (<= {MAX_H}) and I % 64 == 0 "
+            f"(<= {MAX_I}); got H={H}, I={I}"
         )
     if xq.shape != x.shape or xq.dtype != torch.int8 or xs.numel() * H != x.numel():
         raise ValueError("xq must be int8 of x's shape and xs one scale per row")
@@ -140,19 +150,32 @@ def fused_mlp_block(
     s2, bb2, lns, lnb = vec(w2_scale, H), vec(b2, H), vec(ln_scale, H), vec(ln_bias, H)
     lib = _build.library()
     x, xq = x.contiguous(), xq.contiguous()
+    if xq.data_ptr() % 16 or x.data_ptr() % 4:
+        raise ValueError("xq must start on a 16-byte boundary (cp.async) and x on 4 bytes")
     xs = xs.to(torch.float32).contiguous()
     rows = x.numel() // H
-    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    yq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    ys = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    dev = x.device
+    y = torch.empty(x.shape, dtype=out_dtype, device=dev)
+    yq = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    ys = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=dev)
+    # one allocation for the scratch: g (bf16 [rows, I]), gq (int8
+    # [rows, I]), t (bf16 [rows, H]), gmax, gs ([rows] each); every part
+    # starts on a 64-byte boundary since H and I are multiples of 64
+    scratch = torch.empty(rows * scratch_bytes_per_row(H, I), dtype=torch.uint8, device=dev)
+    g_at, gq_at = 0, rows * I * 2
+    t_at = gq_at + rows * I
+    gmax_at = t_at + rows * H * 2
+    gs_at = gmax_at + rows * 4
+    ptr = scratch.data_ptr()
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.hc_fused_mlp(
             x.data_ptr(), xq.data_ptr(), xs.data_ptr(),
             w1.data_ptr(), s1.data_ptr(), bb1.data_ptr(),
             w2.data_ptr(), s2.data_ptr(), bb2.data_ptr(),
             lns.data_ptr(), lnb.data_ptr(), float(eps), rows, H, I,
-            y.data_ptr(), yq.data_ptr(), ys.data_ptr(), stream,
+            y.data_ptr(), yq.data_ptr(), ys.data_ptr(),
+            ptr + g_at, ptr + gmax_at, ptr + gq_at, ptr + gs_at, ptr + t_at, stream,
         )
     _build.check(err, "hc_fused_mlp")
     COUNTS["kernel"] += 1

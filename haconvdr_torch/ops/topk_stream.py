@@ -18,10 +18,12 @@ Contract of both, as the JAX function's:
 * float32 scores [Q, k] and int32 row ids [Q, k], ordered (score desc, id
   asc); empty slots (k past the valid rows) are (-inf, -1);
 * ``q_tile`` only sets the JAX kernel's query tile; the CUDA kernel tiles
-  by 64 queries whatever it is.
+  by 64 queries (fewer above k = 128) whatever it is.
 
-Unlike the JAX kernel, k is at most ``fused_topk.MAX_K`` (128, the KMAX of
-csrc/topk_keys.cuh): the wrapper raises above it.
+k is at most ``MAX_K`` = 1024 (STREAM_KMAX of csrc/topk_stream.cu; the
+JAX kernel takes any k): both functions raise ValueError above it.  Above
+k = 128 the kernel takes fewer queries per block (its key buffer is
+[queries, k] in shared memory) and its own wide split merge.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ from typing import Tuple
 import torch
 
 from haconvdr_torch.ops import _build
+from haconvdr_torch.ops.fused_topk import MAX_K as MERGE_MAX_K
 from haconvdr_torch.ops.fused_topk import (
     _PLAIN_CHUNK,
-    MAX_K,
     _finish,
     _n_splits,
     query_dtype,
@@ -42,6 +44,7 @@ from haconvdr_torch.ops.fused_topk import (
 
 # launches of the CUDA kernel (split + merge count once) / plain-twin calls
 COUNTS = {"kernel": 0, "plain": 0}
+MAX_K = 1024  # STREAM_KMAX of csrc/topk_stream.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -63,7 +66,8 @@ def _check(queries, passages, k, q_tile, p_chunk, group):
         raise ValueError(f"streaming top-k takes float32/bfloat16 passages, got {passages.dtype}")
     if not 0 < k <= MAX_K:
         raise ValueError(
-            f"streaming top-k takes 0 < k <= {MAX_K} (KMAX of csrc/topk_keys.cuh), got {k}"
+            f"streaming top-k takes 0 < k <= {MAX_K} (STREAM_KMAX of csrc/topk_stream.cu), "
+            f"got {k}"
         )
     if q_tile <= 0 or p_chunk <= 0 or group <= 0:
         raise ValueError(f"q_tile, p_chunk and group must be > 0, got {q_tile, p_chunk, group}")
@@ -128,7 +132,7 @@ def topk_block_v2(
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    splits, per = _n_splits(dev, -(-Q // 64), rows)
+    splits, per = _n_splits(dev, -(-Q // lib.hc_topk_stream_qt(k)), rows)
     cand = torch.empty((splits, Q, k), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -137,9 +141,15 @@ def topk_block_v2(
             cand.data_ptr(), _DTYPE_CODE[passages.dtype], stream,
         )
         _build.check(err, "hc_topk_stream")
-        err = lib.hc_topk_merge(
-            cand.data_ptr(), splits, Q, k, None, 0, out_s.data_ptr(), out_i.data_ptr(), stream,
-        )
+        if k <= MERGE_MAX_K:
+            err = lib.hc_topk_merge(
+                cand.data_ptr(), splits, Q, k, None, 0, out_s.data_ptr(), out_i.data_ptr(),
+                stream,
+            )
+        else:
+            err = lib.hc_topk_stream_merge(
+                cand.data_ptr(), splits, Q, k, out_s.data_ptr(), out_i.data_ptr(), stream,
+            )
         _build.check(err, "hc_topk_merge")
     COUNTS["kernel"] += 1
     return out_s, out_i

@@ -61,11 +61,19 @@ class Retriever:
         resident: bool = True,
         store_dtype: str = "float32",
         ivf: bool = False,
+        ivf_nlist: int = 1024,
+        ivf_nprobe: Optional[int] = None,
+        ivf_dir: Optional[str] = None,
         encoder_int8: bool = False,
         device: DeviceLike = None,
     ):
+        # ivf_nlist, ivf_nprobe and ivf_dir are read only with ivf=True, as
+        # in the JAX package
         if ivf:
-            raise NotImplementedError("IVF serving (index/ivf.py) is not ported yet")
+            raise NotImplementedError(
+                "IVF serving (index/ivf.py, parallel/sharded_ivf.py) is not ported "
+                "yet: ROADMAP.md queue 1 item 6"
+            )
         if encoder_int8:
             # int8 query tower (haconvdr_tpu/serve.py:92-104); the port's
             # quantize_encoder_params leaves int8 params as they are
@@ -109,6 +117,22 @@ class Retriever:
                 superblock_dtype=cfg.superblock_dtype,
                 superblock_scale=sb_scale,
             )
+
+    @classmethod
+    def load(
+        cls,
+        checkpoint_path: str,
+        embeddings_dir: str,
+        model_type: str = "ANCE",
+        **kw,
+    ) -> "Retriever":
+        """A Retriever from an HF checkpoint and an embeddings directory
+        (haconvdr_tpu/serve.py:229-240).  Not ported yet: it needs
+        ``models.hf_import.load_model``."""
+        raise NotImplementedError(
+            "Retriever.load needs hf_import.load_model, which is not ported yet: "
+            "ROADMAP.md queue 1 item 2"
+        )
 
     # -- query construction -------------------------------------------------
     def build_query(

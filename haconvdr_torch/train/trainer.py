@@ -279,7 +279,8 @@ class Trainer:
     """Host loop: epochs x shuffled batches -> ``make_train_step``; the
     best-loss ``save_fn`` and the periodic train-state checkpoints
     (``state_ckpt_dir`` every ``state_ckpt_every`` micro steps, ``resume``)
-    as in the JAX package (trainer.py:253-347)."""
+    as in the JAX package (trainer.py:253-347).  ``metrics`` (telemetry)
+    is not ported: anything but None raises NotImplementedError."""
 
     device: DeviceLike
     model_cfg: ModelConfig
@@ -290,6 +291,14 @@ class Trainer:
     state_ckpt_dir: str = ""
     state_ckpt_every: int = 0
     resume: bool = False
+    metrics: Any = None  # the JAX package's utils.telemetry.MetricsLogger
+
+    def __post_init__(self):
+        if self.metrics is not None:
+            raise NotImplementedError(
+                "Trainer(metrics=...) needs utils/telemetry.py, which is not ported "
+                "yet: ROADMAP.md queue 1 item 4"
+            )
 
     def fit(self, params, frozen_params, examples, collate_batches=None):
         """Train from the JAX package's nested-dict ``params`` (the query

@@ -145,12 +145,54 @@ def test_topk_stream_kernel_matches_plain_and_v3(dev, gen, dtype, k, n_valid):
         assert bool((i[:, n_valid:] == -1).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k, Q", [(129, 70), (256, 70), (1024, 70), (1024, 3)])
+def test_topk_stream_kernel_above_k_128(dev, gen, dtype, k, Q):
+    """k > 128: fewer queries a block and the wide merge.  Against the
+    plain twin as above, with a tie class of 300 equal rows planted for the
+    first query across rank 128 (and across k at k 129 and 256: the twin
+    keeps the class's lowest ids, and so must the kernel), and rows past
+    n_valid that would win."""
+    from haconvdr_torch.ops import topk_stream as ts
+
+    n_valid = 49_000
+    q = torch.randn(Q, 768, device=dev, generator=gen)
+    p = torch.randn(13 * 4096, 768, device=dev, generator=gen)
+    ranked = torch.argsort(p[:n_valid] @ q[0], descending=True)
+    members = torch.randperm(n_valid, device=dev, generator=gen)[:300]
+    p[members] = p[ranked[min(k, 200) - 100]].clone()
+    p = p.to(dtype)
+    p[n_valid:] *= 100.0
+    before = dict(ts.COUNTS)
+    s, i = ts.topk_block_v2(q, p, n_valid, k)
+    torch.cuda.synchronize()
+    assert ts.COUNTS == {"kernel": before["kernel"] + 1, "plain": before["plain"]}
+    rs, ri = ts.topk_block_v2_plain(q, p, n_valid, k)
+    assert bool(((s - rs).abs() <= 1e-4 * rs.abs() + 1e-4).all())
+    # deep in the ranking neighbours come within rounding of each other, and
+    # the twin's matmul rounds in another order: ids where the scores are
+    # separated (chip_smoke.separated), and the tie class whole
+    d = rs.double()
+    gap = (d[:, :-1] - d[:, 1:]).abs() > 1e-5 * d[:, 1:].abs()
+    ones = torch.ones_like(gap[:, :1])
+    sep = torch.cat([ones, gap], 1) & torch.cat([gap, ones], 1)
+    assert torch.equal(i[sep], ri[sep])
+    def tie_class(scores, ids):  # the ids of the most repeated score
+        vals, counts = torch.unique(scores, return_counts=True)
+        return ids[scores == vals[counts.argmax()]]
+
+    tie = tie_class(s[0], i[0])
+    assert tie.numel() > 1 and torch.equal(tie, tie_class(rs[0], ri[0]))
+    assert bool((tie[1:] > tie[:-1]).all())  # ties in id order
+    assert int(i.max()) < n_valid and bool((s[:, :-1] >= s[:, 1:]).all())
+
+
 def test_topk_stream_rejects_unsupported(dev):
     from haconvdr_torch.ops.topk_stream import topk_block_v2
 
     q = torch.zeros(4, 768, device=dev)
-    with pytest.raises(ValueError, match="k <= 128"):
-        topk_block_v2(q, torch.zeros(2048, 768, device=dev), 2048, 129)
+    with pytest.raises(ValueError, match="k <= 1024"):
+        topk_block_v2(q, torch.zeros(2048, 768, device=dev), 2048, 1025)
     with pytest.raises(ValueError, match="p_chunk"):
         topk_block_v2(q, torch.zeros(2000, 768, device=dev), 2000, 10)
     with pytest.raises(ValueError, match="float32/bfloat16"):
@@ -428,21 +470,26 @@ def _codes_close(got_q, ref_q):
     assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
 
 
+@pytest.mark.parametrize("rows", [1003, 1, 17, 4099])
 @pytest.mark.parametrize(
     "x_dtype, res, quant, H, out_dtype",
     [
         (torch.bfloat16, True, True, 768, torch.bfloat16),   # attention residual
         (torch.float32, False, True, 768, torch.bfloat16),   # embeddings
         (torch.bfloat16, True, False, 768, torch.bfloat16),  # row 8
+        (torch.bfloat16, False, False, 768, torch.bfloat16),  # row 8, no residual
+        (torch.float32, True, False, 768, torch.float32),
         (torch.bfloat16, False, False, 256, torch.float32),
         (torch.float32, True, True, 96, torch.float32),
     ],
 )
-def test_fused_ln_kernel_matches_plain(dev, gen, x_dtype, res, quant, H, out_dtype):
+def test_fused_ln_kernel_matches_plain(dev, gen, x_dtype, res, quant, H, out_dtype, rows):
+    """H 768 takes the fixed-width kernel (two rows a warp over a grid of
+    resident blocks: 1, 17 and 4,099 rows end mid-step), 96 and 256 the
+    generic one."""
     from haconvdr_torch.index.quantize import quantize_rows
     from haconvdr_torch.ops import fused_ln as fl
 
-    rows = 1003
     x = (torch.randn(rows, H, device=dev, generator=gen) * 3).to(x_dtype)
     r = torch.randn(rows, H, device=dev, generator=gen).to(x_dtype) if res else None
     scale = torch.randn(H, device=dev, generator=gen) * 0.5 + 1.0
@@ -471,6 +518,29 @@ def test_fused_ln_kernel_matches_plain(dev, gen, x_dtype, res, quant, H, out_dty
         _codes_close(yq, rq)
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_fused_ln_kernel_at_768_from_unaligned_rows(dev, gen, quant):
+    """A bf16 view 6 bytes past a 16-byte boundary: the generic kernel
+    takes it at H 768, with the fixed kernel's answer."""
+    from haconvdr_torch.ops import fused_ln as fl
+
+    rows, H = 301, 768
+    buf = (torch.randn(rows * H + 3, device=dev, generator=gen) * 3).to(torch.bfloat16)
+    x = buf[3:].view(rows, H)
+    assert x.data_ptr() % 16 == 6
+    scale = torch.randn(H, device=dev, generator=gen) * 0.5 + 1.0
+    bias = torch.randn(H, device=dev, generator=gen) * 0.1
+    run = fl.fused_residual_ln_quant if quant else fl.fused_residual_ln
+    got = run(x, None, scale, bias, 1e-5)
+    want = run(x.clone(), None, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    y, ry = (got[0], want[0]) if quant else (got, want)
+    d = (y.float() - ry.float()).abs()
+    assert bool((d <= 2.0**-7 * ry.float().abs() + 1e-5).all())
+    plain = fl.fused_residual_ln_plain(x, None, scale, bias, 1e-5)
+    assert bool(((y.float() - plain.float()).abs() <= 2.0**-7 * plain.float().abs() + 1e-5).all())
+
+
 def _quant_weight(gen, dev, out_dim, in_dim):
     """[out, in] int8 codes and per-out-channel kernel_scale, as
     quantize_encoder_params makes them."""
@@ -479,8 +549,18 @@ def _quant_weight(gen, dev, out_dim, in_dim):
     return torch.clamp(torch.round(w / s[:, None] * 127.0), -127, 127).to(torch.int8), s / 127.0
 
 
-@pytest.mark.parametrize("rows, H, I", [(1003, 768, 3072), (37, 256, 512)])
+@pytest.mark.parametrize(
+    "rows, H, I",
+    [(1003, 768, 3072), (37, 256, 512)]
+    + [(r, 768, 3072) for r in (1, 15, 16, 17, 129, 512, 12_289)]
+    + [(r, 256, 512) for r in (1, 15, 16, 17, 129, 512, 1003, 30_000)],
+)
 def test_fused_mlp_kernel_matches_plain(dev, gen, rows, H, I):
+    """Row counts on both sides of the 128-row product tile and of the
+    serving tower's 512; past 12,288 rows (PIPE_ROWS) the two-stream row
+    pipeline runs, its last chunk 1 row (12,289) or ragged (30,000).  The
+    256 / 512 widths end the 128-column tiles of the down-projection at
+    H 256 and take the generic LayerNorm."""
     from haconvdr_torch.index.quantize import quantize_rows
     from haconvdr_torch.ops import fused_mlp as fm
 

@@ -112,8 +112,10 @@ def test_cpu_tensors_take_the_plain_twin_and_supported_widths(mlp_case):
     ref = fm.fused_mlp_block_plain(*_torch_args(mlp_case), eps=1e-12)
     for a, b in zip(y, ref):
         assert torch.equal(a, b)
-    # the kernel's widths: H % 64 up to 1024, I % 64, within 227 KB
+    # the kernels' widths: H % 64 up to 1024, I % 64 up to exact int32 sums;
+    # 96 KB of shared memory a product block at every width
     assert fm.fused_mlp_supported(768, 3072) and fm.fused_mlp_supported(1024, 4096)
-    assert fm.smem_bytes(768, 3072) == 162_240
+    assert fm.smem_bytes(768, 3072) == 98_304 == fm.smem_bytes(1024, 8192)
+    assert fm.scratch_bytes_per_row(768, 3072) == 10_760
     assert not fm.fused_mlp_supported(32, 64) and not fm.fused_mlp_supported(96, 256)
-    assert not fm.fused_mlp_supported(1024, 8192)  # shared memory
+    assert not fm.fused_mlp_supported(1024, 2**17 + 64)  # int32 sums

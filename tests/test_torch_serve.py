@@ -224,9 +224,29 @@ def test_batching_backpressure_and_k_bound(setup):
 
 
 def test_unported_modes_raise(setup):
-    for kw in ({"ivf": True},):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"ivf": True}, {"ivf": True, "ivf_nlist": 16, "ivf_nprobe": 4}):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
             Retriever(setup["tok"], setup["params"], setup["cfg"], setup["store"], **kw)
+
+
+def test_retriever_load_raises_naming_its_roadmap_item(tmp_path):
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        Retriever.load(str(tmp_path / "ckpt"), str(tmp_path / "emb"), model_type="ANCE",
+                       device="cpu")
+
+
+def test_ivf_arguments_without_ivf_answer_as_without_them(setup, tmp_path):
+    """JAX's Retriever reads ivf_nlist, ivf_nprobe and ivf_dir only with
+    ivf=True (haconvdr_tpu/serve.py:82-84); so does the port."""
+    jr, plain = _pair(setup)
+    _, tr = _pair(setup, retriever_kw=dict(
+        ivf=False, ivf_nlist=16, ivf_nprobe=4, ivf_dir=str(tmp_path / "ivf"),
+    ))
+    assert not (tmp_path / "ivf").exists()
+    for question, history in QUERIES:
+        ours = tr.retrieve(question, history)
+        assert ours == plain.retrieve(question, history)
+        _assert_same(ours, jr.retrieve(question, history))
 
 
 @pytest.mark.parametrize("dtype, atol", [("float32", 2e-3), ("bfloat16", 0.03)])

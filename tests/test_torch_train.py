@@ -346,3 +346,13 @@ def test_trainer_fit_smoke(tmp_path):
     from haconvdr_torch.train.checkpoint import latest_step
 
     assert latest_step(str(tmp_path / "ckpt")) == 4
+
+
+def test_trainer_metrics_raises_naming_its_roadmap_item():
+    """JAX's Trainer takes ``metrics`` (haconvdr_tpu/train/trainer.py:271);
+    the port accepts the argument and refuses anything but None until
+    utils/telemetry.py is ported."""
+    cfg = ModelConfig.tiny()
+    Trainer("cpu", cfg, TrainConfig(), metrics=None)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        Trainer("cpu", cfg, TrainConfig(), metrics=object())
