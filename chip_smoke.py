@@ -14,7 +14,12 @@ order; any failure raises and the script exits non-zero:
    the serving path's shapes (Q = 256, N = 2,500,000 with n_valid =
    N - 1,000, D = 768, k = 100), with the max error and both times:
    attention; the v3 top-k in f32, bf16 and its int8 mode, unseeded and
-   seeded; the v4 window and rescore kernels; the select kernel in both
+   seeded; the v4 window kernel (row 3) at Q 256 and, on the routes
+   window_route names (a, the streaming route, at one query; b or c, the
+   tiled routes, at 64), at Q 1 and 64, where it must also equal
+   rescore_windows bit for bit on each query's own flagged windows, with a
+   context line timing torch.matmul of the same float32 operands at Q 256
+   (scores only); the rescore kernel; the select kernel in both
    layouts at Q 256, 7 and 1, split (the path's route) and in one launch,
    on the panels the path hands it: the window maxima v1T [W, Q] at k 100
    and the flagged second maxima at k = budget (both cold), the pool
@@ -44,8 +49,10 @@ order; any failure raises and the script exits non-zero:
    11 and 12: bf16 on the tensor cores, f32 in 3xTF32):
    ms, SDPA ms (row 12: SDPA's backward alone, then forward + backward
    against SDPA's forward + backward), bound ms and ms / SDPA, with the
-   card's name and power limit; and one per case of rows 8-10 and of row
-   7 past k 128: ms, plain ms, library ms, bound ms and ms / bound;
+   card's name and power limit; one per case of rows 8-10 and of row
+   7 past k 128: ms, plain ms, library ms, bound ms and ms / bound; and
+   one per mode and Q (1, 64, 256) of row 3: device ms, the route, the
+   bound at the route's rate and ms / that bound;
    each row also carries its bound (bytes over 3.35 TB/s or operations
    over the peak of the type the work could run in) and, where one
    PyTorch call computes the same function, that call's time;
@@ -53,12 +60,16 @@ order; any failure raises and the script exits non-zero:
    from the seed) over a resident 2,500,000 x 768 float32 index made on
    the card, searched by the v4 kernels; a BatchingRetriever(max_batch=64)
    answers concurrent conversational requests and Retriever.retrieve a
-   few single ones.  Answers are held against the plain twins; then the
-   embed of 64 requests is timed (median of 3, host clock, synchronized);
+   few single ones.  Answers are held against the plain twins, and the
+   window kernel's launches by route against the routes window_route names
+   for the Q of each search (single requests on route a, larger
+   dispatches on b); then the embed of 64 requests is timed (median of 3,
+   host clock, synchronized);
 5. int8 resident path: the same tower, Retriever(store_dtype="int8") over
    the same rows quantized on the card; 64 concurrent requests and a few
    single ones.  Every search's answer equals the plain int8 scoring of
    the same query embeddings: ids at every position, scores bit for bit;
+   the window kernel ran routes a and c, as window_route names them;
 6. streaming path: BlockSearcher over the same rows as four 625,000-row
    device blocks: per block (unseeded v3 first, then seeded v3), and as
    super-blocks of 2,500,000 rows (one v4 search per fill) in float32 and
@@ -248,6 +259,15 @@ WORDS = [f"w{i}" for i in range(5000)]
 # f32 is the CUDA cores' rate, tf32 the tensor cores'
 PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
+# row 3 (the window kernel) beside Q_KERNEL: a single request, and the
+# largest dispatch of BatchingRetriever(max_batch=64)
+WINDOW_QS = (1, 64)
+# the rate each route of row 3 does its operations at: fmaf on the CUDA
+# cores (A and B, float modes), dp4a (A, int8: four int8 products an
+# instruction at the fmaf rate), the int8 tensor cores (C)
+WINDOW_RATE = {("a", "float32"): PEAK["f32"], ("a", "bfloat16"): PEAK["f32"],
+               ("a", "int8"): 4 * PEAK["f32"], ("b", "float32"): PEAK["f32"],
+               ("b", "bfloat16"): PEAK["f32"], ("c", "int8"): PEAK["int8"]}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -378,6 +398,33 @@ def check_counts(counts, need, what: str) -> None:
             check(not key.startswith("plain") or n == 0, f"{what}: a plain twin of {mod} ran")
 
 
+def check_window_routes(counts, search_qs, dtype, what: str, card: str) -> None:
+    """Every search ran row 3 once, on the route window_route names for
+    its Q: the per-route launch counts equal those the searches' Q give,
+    and route A (single requests) and the dtype's tiled route both ran."""
+    from collections import Counter
+
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    want = Counter(v4.window_route(Q, dtype, DIM) for Q in search_qs)
+    got = {r: counts["topk_v4"]["window_" + r] for r in ("a", "b", "c")}
+    check(all(n == want.get(r, 0) for r, n in got.items()),
+          f"{what}: window launches by route {got}, the searches' Q give {dict(want)}")
+    tiled = "c" if dtype == torch.int8 else "b"
+    check(got["a"] > 0 and got[tiled] > 0, f"{what}: routes a and {tiled} did not both run")
+    print(f"{what}: window routes {got} over {len(search_qs)} searches, Q "
+          f"{sorted(set(search_qs))} [{card}]")
+
+
+def print_search_ms(what: str, search_qs, search_ms, card: str) -> None:
+    """Host ms of the index searches of a serving phase (query embeddings
+    in, ids out): the single requests' (Q 1) and each batched one's."""
+    one = [ms for Q, ms in zip(search_qs, search_ms) if Q == 1]
+    batched = [(Q, round(ms, 2)) for Q, ms in zip(search_qs, search_ms) if Q > 1]
+    print(f"{what} search: Q 1 median {float(np.median(one)):.2f} ms of {[round(x, 2) for x in one]}"
+          f"; batched (Q, ms) {batched} [{card}]")
+
+
 def int8_plain(q_folded, codes, n_valid):
     """Plain int8 x int8 scoring: the per-query codes of the folded
     queries, exact integer scores, dequantized once."""
@@ -497,8 +544,17 @@ def print_redesigned(rows, card: str) -> None:
     over the library call's; row 12 against SDPA's backward alone, then
     its forward + backward against SDPA's forward + backward.  Rows 8-10
     per case and row 7 past k 128: ms, plain ms, library ms (or none),
-    bound and ms / bound."""
+    bound and ms / bound.  Row 3 (the window kernel) per mode at Q 1, 64
+    and 256: device ms, its route, the bound at the route's rate, ms / that
+    bound and the plain twin's ms."""
     for r in rows:
+        if r["kernel"] == "window_top2":
+            mode, _, q = r["config"].partition(", Q ")
+            ms = r.get("device_ms", r["ms"])
+            print(f"redesigned window_top2 [{mode}, Q {q or Q_KERNEL}]: {ms:.4f} ms device, "
+                  f"route {r['route']}, bound at the route's rate {r['route_bound_ms']:.4f} ms, "
+                  f"x bound {ms / r['route_bound_ms']:.2f}; plain {r['plain_ms']:.4f} ms [{card}]")
+            continue
         if r["kernel"] in ("select_topk_t", "select_topk"):
             C, Q, k = r["shape"]
             print(f"redesigned {r['kernel']} [{r['config']}] [{C}, {Q}] k {k}: {r['ms']:.4f} ms "
@@ -579,6 +635,76 @@ def kernels_stream(dev, g, passages_f32, rows):
     torch.cuda.empty_cache()
 
 
+def window_bound(route: str, name: str, Q: int, p, n_valid: int) -> float:
+    """Row 3's least time on its route (ms): the passages read once over
+    the memory rate, or 2 Q n_valid D operations at the route's rate."""
+    t_bytes = p.numel() * p.element_size() / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, 2.0 * Q * n_valid * DIM / WINDOW_RATE[(route, name)] * 1e3)
+
+
+def compare_window(got, ref, exact: bool, what: str) -> float:
+    """Window panels (v1, a1, v2) against the plain twin's: the same -inf
+    slots, v1 and v2 within the float tolerance (int8: equal), a1 equal
+    where v1 and v2 are separated; returns max |diff|."""
+    (v1, a1, v2), (r1, ra, r2) = got, ref
+    err = 0.0
+    for g_, r_, name in ((v1, r1, "v1"), (v2, r2, "v2")):
+        fin = torch.isfinite(r_)
+        check(torch.equal(fin, torch.isfinite(g_)), f"window {what}: {name} -inf differs")
+        d = (g_[fin] - r_[fin]).abs()
+        check(bool((d <= (0.0 if exact else 1e-4) * r_[fin].abs()).all()),
+              f"window {what}: {name} beyond tolerance ({float(d.max())})")
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    gap = torch.isfinite(r1) & ((r1 - r2) > (0.0 if exact else 1e-5) * r1.abs())
+    check(torch.equal(a1[gap], ra[gap]), f"window {what}: a1 differs at separated v1/v2")
+    return err
+
+
+def check_flagged_rescore(q, p, panels, n_valid: int, sw: int, budget: int, what: str) -> None:
+    """rescore_windows on each query's own flagged windows (v2 at or above
+    its k-th window max; the largest ``budget``, as the path's second
+    select takes them): the rows' max, its lowest row and the second max
+    equal the panels bit for bit."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    v1, a1, v2 = panels
+    W, Q = v1.shape
+    v_k = torch.topk(v1, TOP_K, dim=0).values[TOP_K - 1]
+    flag = torch.where((v2 >= v_k[None, :]) & torch.isfinite(v2), v2, float("-inf"))
+    win = torch.topk(flag, budget, dim=0).indices.T.to(torch.int32).contiguous()
+    resc = v4.rescore_windows(p, q, win, sw, n_valid).view(Q, budget, sw)
+    qi = torch.arange(Q, device=p.device)[:, None].expand(-1, budget)
+    w = win.long()
+    top = resc.amax(2)
+    pos = torch.where(resc == top[..., None], torch.arange(sw, device=p.device), sw).amin(2)
+    second = resc.scatter(2, pos[..., None], float("-inf")).amax(2)
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    check(torch.equal(bits(top), bits(v1[w, qi])) and torch.equal(pos + w * sw, a1[w, qi].long())
+          and torch.equal(bits(second), bits(v2[w, qi])),
+          f"window {what}: differs from rescore_windows on its flagged windows")
+
+
+def window_row(name: str, q, p, n_valid: int, sw: int, budget: int, rows) -> None:
+    """Row 3 at Q = q.shape[0] (WINDOW_QS) on the route window_route names:
+    against the plain twin, bit for bit against rescore_windows on its own
+    flagged windows, then timed in device ms."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    Q = q.shape[0]
+    route = v4.window_route(Q, p.dtype, DIM)
+    got = v4.window_top2(q, p, n_valid, sw)
+    torch.cuda.synchronize()
+    err = compare_window(got, v4.window_top2_plain(q, p, n_valid, sw), name == "int8",
+                         f"{name} Q {Q}")
+    check_flagged_rescore(q, p, got, n_valid, sw, budget, f"{name} Q {Q}")
+    rows.append(dict(kernel="window_top2", config=f"{name}, Q {Q}", route=route,
+                     max_abs_err=err, ms=device_ms(lambda: v4.window_top2(q, p, n_valid, sw)),
+                     plain_ms=cuda_ms(lambda: v4.window_top2_plain(q, p, n_valid, sw), 1, 0),
+                     library_ms=None, shape=[Q, N_ROWS, DIM, sw],
+                     route_bound_ms=window_bound(route, name, Q, p, n_valid),
+                     **search_bound(p, Q, n_valid, name, 3 * got[0].numel() * 4)))
+
+
 def v4_operands(dev, g, passages_f32, codes, scale):
     """Per dtype: (queries in the kernels' dtype, passages, folded float
     queries for topk_block_v4)."""
@@ -605,26 +731,26 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
     for name, q, p, qf in v4_operands(dev, g, passages_f32, codes, scale):
         exact = name == "int8"
         budget = v4.resolve_select_geometry(N_ROWS, p.dtype)[1]
-        # -- window top-2
+        # -- window top-2: at Q_KERNEL, then at WINDOW_QS (routes by Q)
         v1, a1, v2 = v4.window_top2(q, p, n_valid, sw)
         torch.cuda.synchronize()
         r1, ra, r2 = v4.window_top2_plain(q, p, n_valid, sw)
-        err = 0.0
-        for got, ref, what in ((v1, r1, "v1"), (v2, r2, "v2")):
-            fin = torch.isfinite(ref)
-            check(torch.equal(fin, torch.isfinite(got)), f"window {name}: {what} -inf differs")
-            d = (got[fin] - ref[fin]).abs()
-            check(bool((d <= (0.0 if exact else 1e-4) * ref[fin].abs()).all()),
-                  f"window {name}: {what} beyond tolerance ({float(d.max())})")
-            err = max(err, float(d.max()))
-        gap = torch.isfinite(r1) & ((r1 - r2) > (0.0 if exact else 1e-5) * r1.abs())
-        check(torch.equal(a1[gap], ra[gap]), f"window {name}: a1 differs at separated v1/v2")
-        rows.append(dict(kernel="window_top2", config=name, max_abs_err=err,
+        err = compare_window((v1, a1, v2), (r1, ra, r2), exact, name)
+        route = v4.window_route(Q_KERNEL, p.dtype, DIM)
+        rows.append(dict(kernel="window_top2", config=name, route=route, max_abs_err=err,
                          ms=cuda_ms(lambda: v4.window_top2(q, p, n_valid, sw), 3),
+                         device_ms=device_ms(lambda: v4.window_top2(q, p, n_valid, sw), 5),
                          plain_ms=cuda_ms(
                              lambda: v4.window_top2_plain(q, p, n_valid, sw), 1, 0),
                          library_ms=None, shape=[Q_KERNEL, N_ROWS, DIM, sw],
+                         route_bound_ms=window_bound(route, name, Q_KERNEL, p, n_valid),
                          **search_bound(p, Q_KERNEL, n_valid, name, 3 * v1.numel() * 4)))
+        for Qw in WINDOW_QS:
+            window_row(name, q[:Qw].contiguous(), p, n_valid, sw, budget, rows)
+        if name == "float32":  # context: the score product alone, as one PyTorch call
+            mm_ms = device_ms(lambda: torch.matmul(q, p.T), 3)
+            print(f"context: torch.matmul float32 [{Q_KERNEL}, {DIM}] x [{DIM}, {N_ROWS}] "
+                  f"(scores only, no window triples) {mm_ms:.4f} ms device [{card_line()}]")
         # -- rescore: budget 8 random windows, bit for bit against the window kernel
         W = v1.shape[0]
         win = torch.randint(0, W, (Q_KERNEL, 8), device=dev, generator=g, dtype=torch.int32)
@@ -1107,12 +1233,25 @@ def phase_main_path(seed: int, dev, passages_f32, params, cfg, card: str):
           f"(params {cfg.num_hidden_layers}x{cfg.hidden_size}, index {N_ROWS}x{DIM} f32, "
           f"kernel {retriever.index.kernel})")
     reqs = make_requests(seed, N_BATCHED + N_SINGLE)
+    search_qs, search_ms = [], []  # the Q of every index search, and its host ms
+    search = retriever.index.search
+
+    def recording_search(queries, k):
+        search_qs.append(int(np.asarray(queries).shape[0]))
+        t = time.perf_counter()
+        out = search(queries, k)  # host arrays: synchronized
+        search_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    retriever.index.search = recording_search
     zero_counts()
     got, metrics = serve(retriever, reqs[:N_BATCHED], reqs[N_BATCHED:])
     counts = read_counts()
     print("main path launch counts:", json.dumps(counts))
     check_counts(counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
                           ("topk_v4", "select_t"), ("topk_v4", "select")], "main path")
+    check_window_routes(counts, search_qs, torch.float32, "main path", card)
+    print_search_ms("main path", search_qs, search_ms, card)
     print(f"main path: rescore launches {counts['topk_v4']['rescore']}, "
           f"v3_fallback {counts['topk_v4']['v3_fallback']}")
     print("main path e2e:", json.dumps(metrics), f"[{card}]")
@@ -1156,11 +1295,13 @@ def phase_int8_path(seed: int, dev, passages_f32, params, cfg, card: str):
     index = retriever.index
     print(f"int8 path: set up in {time.perf_counter() - t0:.1f} s (index {N_ROWS}x{DIM} int8, "
           f"{index.passages.numel() / 2**30:.2f} GiB quantized on the card)")
-    calls = []  # (query embeddings, answer) of every index search
+    calls, search_ms = [], []  # (query embeddings, answer) of every index search; host ms
     search = index.search
 
     def recording_search(queries, k):
-        out = search(queries, k)
+        t = time.perf_counter()
+        out = search(queries, k)  # host arrays: synchronized
+        search_ms.append((time.perf_counter() - t) * 1e3)
         calls.append((np.array(queries, copy=True), out))
         return out
 
@@ -1173,6 +1314,8 @@ def phase_int8_path(seed: int, dev, passages_f32, params, cfg, card: str):
     check_counts(counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
                           ("topk_v4", "select_t"), ("topk_v4", "select"),
                           ("topk_v4", "rescore")], "int8 path")
+    check_window_routes(counts, [q.shape[0] for q, _ in calls], torch.int8, "int8 path", card)
+    print_search_ms("int8 path", [q.shape[0] for q, _ in calls], search_ms, card)
     print("int8 path e2e:", json.dumps(metrics), f"[{card}]")
     check(all(a is not None and len(a) == TOP_K for a in got), "int8 path: short answers")
     n_q = 0
@@ -1288,11 +1431,13 @@ def phase_int8_tower(seed: int, dev, passages_f32, params, cfg, card: str):
           f"{cfg.hidden_size} int8 dense kernels, bf16 carry; index {N_ROWS}x{DIM} f32)")
     n_fwd = count_forwards(retriever.encoder)
     index = retriever.index
-    calls = []  # (query embeddings, answer) of every index search
+    calls, search_ms = [], []  # (query embeddings, answer) of every index search; host ms
     search = index.search
 
     def recording_search(queries, k):
-        out = search(queries, k)
+        t = time.perf_counter()
+        out = search(queries, k)  # host arrays: synchronized
+        search_ms.append((time.perf_counter() - t) * 1e3)
         calls.append((np.array(queries, copy=True), out))
         return out
 
@@ -1307,6 +1452,7 @@ def phase_int8_tower(seed: int, dev, passages_f32, params, cfg, card: str):
                           ("fused_mlp", "kernel"), ("topk_v4", "window"),
                           ("topk_v4", "select_t"), ("topk_v4", "select")], "int8 tower")
     check_tower_counts(counts, n_fwd[0], cfg.num_hidden_layers, "int8 tower")
+    print_search_ms("int8 tower", [q.shape[0] for q, _ in calls], search_ms, card)
     print("int8 tower e2e:", json.dumps(metrics), f"[{card}]")
     check(all(a is not None and len(a) == TOP_K for a in got), "int8 tower: short answers")
     n_q = 0

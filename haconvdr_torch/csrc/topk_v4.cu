@@ -12,14 +12,17 @@
 // Score arithmetic (shared with fused_topk.cu, so that a row scores the
 // same float in every kernel): float modes convert each operand to float
 // and run one fmaf chain over d = 0 .. D-1, zero-padded to a multiple of
-// DK, from 0.0f; the int8 x int8 mode sums __dp4a products in int32,
-// which is exact (|s| <= 768 * 127^2 < 2^24), and converts to float once.
+// DK, from 0.0f (zeros add nothing to the chain, so the window kernel pads
+// to its own stage depth); the int8 x int8 mode sums products in int32
+// (__dp4a; mma.sync in the window kernel's route C), which is exact
+// (|s| <= 768 * 127^2 < 2^24) in any order, and converts to float once.
 //
 // Modes: 0 = f32 x f32, 1 = bf16 x bf16, 2 = int8 x int8 (queries are the
 // per-query int8 codes of pallas_topk_v4.py:855-861).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -29,195 +32,643 @@
 
 namespace {
 
-constexpr int QT = 64;   // queries per window block
-constexpr int PT = 64;   // passage rows per score tile
 constexpr int DK = 32;   // depth per shared-memory stage (floats, or int8x4 words)
-constexpr int NT = 256;  // threads per window block (16 x 16)
 constexpr int RS_NT = 256;      // threads (= rows per pass) of a rescore block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // ---------------------------------------------------------------------------
-// 1. window_top2_kernel (replaces _window_top2_kernel, pallas_topk_v4.py:98)
+// 1. window top-2 (replaces _window_top2_kernel, pallas_topk_v4.py:98)
 //
-// Bound on the H100: the score work of v3 (2 Q N D FLOP; the passage
-// matrix streams once per 64-query tile), on the CUDA cores: f32/bf16 FMA,
-// int8 as __dp4a at four products per instruction.  What it writes is
-// small: three [W, Q] panels, 1/sw of the score area (30 MB at Q = 256,
-// N = 2.5M, sw = 256).
+// Per sw-row window and query: (v1 the max, a1 its lowest row, v2 the max
+// with only row a1 masked), stored as [W, Q] panels.  Rows at or past
+// n_valid score -inf; a window with no valid row gives (-inf, its first
+// row, -inf).  Every route reduces partial triples of disjoint row sets by
+// one rule (merge below), which gives the same triple in any order: the
+// larger max wins, the lower row on a tie, and the loser's max joins the
+// second maxima.  So every route gives the same bits whenever its scores
+// are the same bits, and they are: each score is the one fmaf chain (float
+// modes) or the one exact int32 sum (int8) of the file's score arithmetic.
 //
-// Design: one block per (64-query tile, run of whole windows).  The block
-// walks its windows in row order, one 64 x 64 score tile at a time (the
-// tile loop of fused_topk.cu's split kernel); after each tile one warp per
-// query reduces the tile's 64 scores to (max, its lowest row, second max)
-// with shuffles and folds them into the window's running triple in shared
-// memory.  Tiles arrive in row order, so a later tile takes the window max
-// only when strictly larger: ties keep the lowest row, and the second max
-// then equals the max, as in the TPU kernel.  At a window's end the 64
-// queries' triples are stored as one coalesced row of each [W, Q] panel.
-// Rows at or past n_valid score -inf; a window with no valid row keeps
-// (-inf, its first row, -inf).  The TPU's transposed-panel alignment
-// rules do not apply; [W, Q] is kept because it makes the stores
-// coalesced.
+// Bounds on the H100 (2,500,000 x 768 rows, 7.68 GB f32): the passage
+// bytes, read once, over 3.35 TB/s (f32 2.29 ms, bf16 1.15, int8 0.573),
+// or the products: 2 Q N D operations on the CUDA cores' 67 TFLOP/s
+// (f32, bf16: 14.67 ms at Q 256, 0.057 ms at Q 1) or on the int8 tensor
+// cores' 1,979 TOP/s (0.497 ms at Q 256).  Small batches are bound by the
+// bytes, large ones by the products.  Three routes (the caller picks one,
+// ops/topk_v4.window_route):
+//
+// A. window_stream, small Q, every mode: bytes-bound, so each passage row
+//    is read once, in whole 16-byte cp.async copies.  A warp owns 64-row
+//    slices (two rows a lane) and streams them through its own ring of
+//    stages (no block barrier in the loop): two 128 bytes deep up to 8
+//    queries a group, three 64 bytes deep at 16; its lanes
+//    run the QA (<= 16) chains of both rows in d order against queries
+//    held in shared memory for the whole block (float, or int8 words).
+//    A slice's triples are merged across the warp by shuffles and into the
+//    warp's partial of that window in shared memory; at the end the block
+//    merges its four warps' partials.  Q > 16 runs groups of 16 queries,
+//    neighbours in the grid, so the group's second pass reads the rows
+//    from L2.
+// B. window_tiled (float modes), larger Q: 128-row x QB-query tiles (QB
+//    128, or 64 at Q <= 64) on the CUDA cores, 8 x 8 (8 x 4) outputs a
+//    thread, so each 16-byte shared-memory load feeds 32 (16) fmaf.  The
+//    tiles stream through three 128-byte-deep stages of 16-byte cp.async
+//    copies (bf16: converted to a float buffer once a stage, each element
+//    once), one block an SM (254 registers a thread, no spill).  A
+//    thread's outputs stay in its own chain each, in d order.
+// C. window_tiled (int8), larger Q: the same tiles on mma.sync m16n8k32
+//    (int8 operands, exact int32 sums, fused_mlp.cu's fragment layout):
+//    128-byte stages three deep for 64-query tiles, 64-byte stages four
+//    deep for 128-query tiles (whose 128-byte stages spill registers).
+// B and C share the epilogue: each thread folds its rows of a query into
+// one triple, shuffles merge the 64 rows of a warp, and one thread a query
+// merges the tile's two 64-row halves into the running triple of their
+// window and stores each window once it ends.  Nothing of the score tile
+// goes through shared memory.
 // ---------------------------------------------------------------------------
+namespace window {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int A_WARPS = 4;  // route A: warps of a block
+constexpr int A_ROWS = 64;  // route A: rows of a warp's slice, two a lane
+// route A's stages: rows 128 bytes deep, two stages, up to A_DEEP_QA queries
+// a group (bytes-bound); 64 bytes, three stages, at 16 queries (bound by
+// the products, and the queries' shared memory leaves room for two blocks
+// an SM only so)
+constexpr int A_DEEP_QA = 8;
+constexpr int A_DEEP_CHUNK = 128;
+constexpr int A_DEEP_STAGES = 2;
+constexpr int A_BLOCK_ROWS = 256;                  // route A: rows of a block, at least
+constexpr int T_ROWS = 128;                        // routes B, C: rows of a tile
+constexpr int T_THREADS = 256;
+// routes B and C: bytes of a staged row in a stage, stages, rows of a block
+// and blocks an SM (the register cap: 128 a thread at two; route B runs one,
+// 8 x 8 outputs a thread and no spill)
+constexpr int B_CHUNK = 128;
+constexpr int B_STAGES = 3;
+constexpr int B_BLOCK_ROWS = 128;
+constexpr int B_MIN_BLOCKS = 1;
+constexpr int C_CHUNK = 128;      // route C at 64 queries a tile
+constexpr int C_STAGES = 3;
+constexpr int C_WIDE_CHUNK = 64;  // route C at 128 queries a tile (past 64 bytes, spills)
+constexpr int C_WIDE_STAGES = 4;
+constexpr int C_BLOCK_ROWS = 512;
+constexpr int C_MIN_BLOCKS = 2;
+constexpr int SMEM_MAX = 232448;
+
+struct Tri {
+  float v;  // max
+  int a;    // its lowest row
+  float s;  // second max
+};
+
+// the triple of the union of two disjoint row sets (in either order)
+__device__ __forceinline__ Tri merge(const Tri& x, const Tri& y) {
+  const bool xw = x.v > y.v || (x.v == y.v && x.a < y.a);
+  return xw ? Tri{x.v, x.a, fmaxf(x.s, y.v)} : Tri{y.v, y.a, fmaxf(y.s, x.v)};
+}
+
+// merge across the lanes that differ in the bits LO .. 16 of the lane id
+template <int LO>
+__device__ __forceinline__ Tri warp_merge(Tri t) {
+#pragma unroll
+  for (int o = 16; o >= LO; o >>= 1) {
+    const Tri u{__shfl_xor_sync(FULL, t.v, o), __shfl_xor_sync(FULL, t.a, o),
+                __shfl_xor_sync(FULL, t.s, o)};
+    t = merge(t, u);
+  }
+  return t;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  // src-size 0 zero-fills the 16 bytes
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Bytes [off, off + 16) of a row of row_bytes bytes (row: nullptr past the
+// end) into dst, zeros past the row: one 16-byte cp.async when `vec` (rows
+// and bases 16-byte aligned), else 2-byte loads (every mode's rows are
+// 2-byte aligned).
+__device__ __forceinline__ void stage_piece(unsigned char* dst, const unsigned char* row, int off,
+                                            int row_bytes, bool vec, const void* base) {
+  const int n = row == nullptr ? 0 : min(16, row_bytes - off);
+  if (vec) {
+    cp_async16(dst, n > 0 ? static_cast<const void*>(row + off) : base, n > 0);
+    return;
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t lo = 4 * k < n ? *reinterpret_cast<const uint16_t*>(row + off + 4 * k) : 0u;
+    const uint32_t hi =
+        4 * k + 2 < n ? *reinterpret_cast<const uint16_t*>(row + off + 4 * k + 2) : 0u;
+    w[k] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// eight floats of a staged row: f32 as they are, bf16 widened (exact)
 template <int MODE>
-__global__ void __launch_bounds__(NT) window_top2_kernel(
-    const void* __restrict__ q_, const void* __restrict__ p_, int Q, int D, int row_end,
-    int sw, int W, int win_per_split, float* __restrict__ v1, int* __restrict__ a1,
-    float* __restrict__ v2) {
-  __shared__ float qs[DK * (QT + 1)];  // float operands, or int8x4 words (MODE 2)
-  __shared__ float ps[DK * (PT + 1)];
-  __shared__ float sc[QT * (PT + 1)];
-  __shared__ float run_v1[QT], run_v2[QT];
-  __shared__ int run_a1[QT];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * QT;
-  const int w0 = blockIdx.y * win_per_split;
-  const int w1 = min(W, w0 + win_per_split);
-
-  for (int w = w0; w < w1; ++w) {
-    const int wr0 = w * sw;
-    if (tid < QT) {
-      run_v1[tid] = -INFINITY;
-      run_v2[tid] = -INFINITY;
-      run_a1[tid] = wr0;
+__device__ __forceinline__ void load8(const unsigned char* src, float (&x)[8]) {
+  if constexpr (MODE == 0) {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    const float4 b = *reinterpret_cast<const float4*>(src + 16);
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z,
+    x[7] = b.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x[2 * k] = __uint_as_float(w[k] << 16);
+      x[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
     }
-    // (the first stage's __syncthreads orders this before any update)
-    for (int t0 = wr0; t0 < wr0 + sw && t0 < row_end; t0 += PT) {
-      float s_tile[4][4];
-      if constexpr (MODE == 2) {
-        const int D4 = D / 4;
-        const int* q4 = static_cast<const int*>(q_);
-        const int* p4 = static_cast<const int*>(p_);
-        int* qsi = reinterpret_cast<int*>(qs);
-        int* psi = reinterpret_cast<int*>(ps);
-        int acc[4][4] = {};
-        for (int d0 = 0; d0 < D4; d0 += DK) {
-          __syncthreads();
-          for (int e = tid; e < QT * DK; e += NT) {
-            const int r = e / DK, dd = e % DK;
-            const int qr = q0 + r, d = d0 + dd;
-            qsi[dd * (QT + 1) + r] = (qr < Q && d < D4) ? q4[(size_t)qr * D4 + d] : 0;
-          }
-          for (int e = tid; e < PT * DK; e += NT) {
-            const int r = e / DK, dd = e % DK;
-            const int pr = t0 + r, d = d0 + dd;
-            psi[dd * (PT + 1) + r] =
-                (pr < row_end && d < D4) ? p4[(size_t)pr * D4 + d] : 0;
-          }
-          __syncthreads();
-#pragma unroll 8
-          for (int dd = 0; dd < DK; ++dd) {
-            int a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = qsi[dd * (QT + 1) + ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = psi[dd * (PT + 1) + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s_tile[i][j] = (float)acc[i][j];
-      } else {
-        using T = typename std::conditional<MODE == 0, float, __nv_bfloat16>::type;
-        const T* q = static_cast<const T*>(q_);
-        const T* p = static_cast<const T*>(p_);
-        float acc[4][4] = {};
-        for (int d0 = 0; d0 < D; d0 += DK) {
-          __syncthreads();
-          for (int e = tid; e < QT * DK; e += NT) {
-            const int r = e / DK, dd = e % DK;
-            const int qr = q0 + r, d = d0 + dd;
-            qs[dd * (QT + 1) + r] = (qr < Q && d < D) ? to_f(q[(size_t)qr * D + d]) : 0.0f;
-          }
-          for (int e = tid; e < PT * DK; e += NT) {
-            const int r = e / DK, dd = e % DK;
-            const int pr = t0 + r, d = d0 + dd;
-            ps[dd * (PT + 1) + r] =
-                (pr < row_end && d < D) ? to_f(p[(size_t)pr * D + d]) : 0.0f;
-          }
-          __syncthreads();
-#pragma unroll 8
-          for (int dd = 0; dd < DK; ++dd) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = qs[dd * (QT + 1) + ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = ps[dd * (PT + 1) + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s_tile[i][j] = acc[i][j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int pj = tx + 16 * j;
-          sc[(ty + 16 * i) * (PT + 1) + pj] =
-              t0 + pj < row_end ? s_tile[i][j] : -INFINITY;
-        }
-      __syncthreads();
-      // one warp per query: the tile's (max, lowest row, second max)
-      for (int qi = warp; qi < QT; qi += NT / 32) {
-        if (q0 + qi >= Q) break;  // warp-uniform
-        const float s0 = sc[qi * (PT + 1) + lane];
-        const float s1 = sc[qi * (PT + 1) + lane + 32];
-        float bv = s0;
-        int bi = lane;
-        if (s1 > s0) {
-          bv = s1;
-          bi = lane + 32;
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-          if (ov > bv || (ov == bv && oi < bi)) {
-            bv = ov;
-            bi = oi;
-          }
-        }
-        float sv = fmaxf(bi == lane ? -INFINITY : s0, bi == lane + 32 ? -INFINITY : s1);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sv = fmaxf(sv, __shfl_xor_sync(0xffffffffu, sv, o));
-        if (lane == 0) {
-          if (bv > run_v1[qi]) {
-            run_v2[qi] = fmaxf(run_v1[qi], sv);
-            run_v1[qi] = bv;
-            run_a1[qi] = t0 + bi;
-          } else {
-            run_v2[qi] = fmaxf(run_v2[qi], bv);
-          }
-        }
-      }
-      // the next tile's first __syncthreads orders these updates
-    }
-    __syncthreads();
-    if (tid < QT && q0 + tid < Q) {
-      const size_t o = (size_t)w * Q + q0 + tid;
-      v1[o] = run_v1[tid];
-      a1[o] = run_a1[tid];
-      v2[o] = run_v2[tid];
-    }
-    __syncthreads();  // stored before the next window resets the triples
   }
 }
+
+template <int MODE>
+struct Elem {
+  using T = typename std::conditional<MODE == 0, float,
+                                      typename std::conditional<MODE == 1, __nv_bfloat16,
+                                                                int8_t>::type>::type;
+  static constexpr int SIZE = sizeof(T);
+};
+
+// route A's geometry for groups of QA queries
+template <int MODE, int QA>
+struct Stream {
+  static constexpr int CH = QA <= A_DEEP_QA ? A_DEEP_CHUNK : 64;  // bytes of a row a stage
+  static constexpr int STAGES = QA <= A_DEEP_QA ? A_DEEP_STAGES : 3;
+  static constexpr int PITCH = CH + 16;  // bytes between staged rows: 8 rows fill the banks
+  static constexpr int RING = STAGES * A_ROWS * PITCH;  // bytes of a warp's ring
+  static constexpr int PER_CHUNK = CH / Elem<MODE>::SIZE;  // elements of a row a stage
+  // bytes a staged query takes a chunk: floats (float modes), int8 (mode 2)
+  static constexpr int Q_CHUNK = MODE == 2 ? CH : PER_CHUNK * 4;
+};
+
+// Stage the queries [q0, q0 + nq) of the block into shared memory, nch
+// chunks of CH bytes of a row a query: floats (float modes), int8 words
+// (mode 2); zeros past Q and past D.
+template <int MODE, int CH>
+__device__ __forceinline__ void stage_queries(const void* q_, int Q, int D, int q0, int nq,
+                                              int nch, unsigned char* qs) {
+  if constexpr (MODE == 2) {
+    const int D4 = D / 4, n4 = nch * (CH / 4);
+    const int* q4 = static_cast<const int*>(q_);
+    int* out = reinterpret_cast<int*>(qs);
+    for (int e = threadIdx.x; e < nq * n4; e += blockDim.x) {
+      const int qi = e / n4, d = e - qi * n4;
+      out[e] = (q0 + qi < Q && d < D4) ? q4[(size_t)(q0 + qi) * D4 + d] : 0;
+    }
+  } else {
+    using T = typename Elem<MODE>::T;
+    const int nd = nch * (CH / Elem<MODE>::SIZE);
+    const T* q = static_cast<const T*>(q_);
+    float* out = reinterpret_cast<float*>(qs);
+    for (int e = threadIdx.x; e < nq * nd; e += blockDim.x) {
+      const int qi = e / nd, d = e - qi * nd;
+      out[e] = (q0 + qi < Q && d < D) ? to_f(q[(size_t)(q0 + qi) * D + d]) : 0.0f;
+    }
+  }
+}
+
+// ---- route A --------------------------------------------------------------
+//
+// Grid: one block per (group of QA queries, run of `per` windows), the
+// groups of a run neighbours.  Shared memory: the group's queries, the four
+// warps' rings, and the warps' partial triples [per][A_WARPS][QA].
+template <int MODE, int QA>
+__global__ void __launch_bounds__(A_WARPS * 32) window_stream(
+    const void* __restrict__ q_, const void* __restrict__ p_, int Q, int D, int row_end, int sw,
+    int W, int per, int n_groups, bool vec, float* __restrict__ v1, int* __restrict__ a1,
+    float* __restrict__ v2) {
+  using E = Stream<MODE, QA>;
+  constexpr int SIZE = Elem<MODE>::SIZE;
+  using Acc = typename std::conditional<MODE == 2, int, float>::type;
+  static_assert(QA <= 32, "one lane a query in the slice merge");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int group = blockIdx.x % n_groups;
+  const int w0 = (blockIdx.x / n_groups) * per;
+  const int w1 = min(W, w0 + per);
+  const int q0 = group * QA;
+  const int row_bytes = D * SIZE;
+  const int nch = (row_bytes + E::CH - 1) / E::CH;
+  const int qrow = nch * E::Q_CHUNK;  // bytes of a staged query
+  unsigned char* qs = smem;
+  unsigned char* ring = smem + QA * qrow + warp * E::RING;
+  Tri* part = reinterpret_cast<Tri*>(smem + QA * qrow + A_WARPS * E::RING);
+
+  stage_queries<MODE, E::CH>(q_, Q, D, q0, QA, nch, qs);
+  for (int e = tid; e < (w1 - w0) * A_WARPS * QA; e += A_WARPS * 32)
+    part[e] = Tri{-INFINITY, (w0 + e / (A_WARPS * QA)) * sw, -INFINITY};
+  __syncthreads();
+
+  const int r_begin = w0 * sw;
+  const int r_stop = min(w1 * sw, row_end);  // rows this block scores
+  const int n_slices = r_stop > r_begin ? (r_stop - r_begin + A_ROWS - 1) / A_ROWS : 0;
+  const int n_mine = n_slices > warp ? (n_slices - 1 - warp) / A_WARPS + 1 : 0;
+  const int steps = n_mine * nch;  // (slice, chunk) steps of this warp
+  const unsigned char* pb = static_cast<const unsigned char*>(p_);
+
+  auto fill_stage = [&](int st) {
+    const int sl = st / nch, c = st - sl * nch;
+    const int r0 = r_begin + (warp + sl * A_WARPS) * A_ROWS;
+    unsigned char* dst = ring + (st % E::STAGES) * (A_ROWS * E::PITCH);
+    constexpr int PIECES = E::CH / 16;  // 16-byte pieces of a staged row
+#pragma unroll
+    for (int k = 0; k < A_ROWS * PIECES / 32; ++k) {
+      const int e = lane + 32 * k, row = e / PIECES, u = e % PIECES;
+      const int r = r0 + row;
+      stage_piece(dst + row * E::PITCH + 16 * u,
+                  r < row_end ? pb + (size_t)r * row_bytes : nullptr, c * E::CH + 16 * u,
+                  row_bytes, vec, p_);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < E::STAGES - 1; ++s) {
+    if (s < steps) fill_stage(s);
+    cp_async_commit();
+  }
+  Acc acc0[QA], acc1[QA];  // the chains of rows lane and lane + 32
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<E::STAGES - 2>();
+    __syncwarp();  // every lane's copies of step st are in; step st - 1's slot is free
+    if (st + E::STAGES - 1 < steps) fill_stage(st + E::STAGES - 1);
+    cp_async_commit();  // an empty group at the end keeps the wait count uniform
+    const int sl = st / nch, c = st - sl * nch;
+    if (c == 0) {
+#pragma unroll
+      for (int qi = 0; qi < QA; ++qi) acc0[qi] = acc1[qi] = 0;
+    }
+    const unsigned char* ra = ring + (st % E::STAGES) * (A_ROWS * E::PITCH) + lane * E::PITCH;
+    const unsigned char* rb = ra + 32 * E::PITCH;
+    if constexpr (MODE == 2) {
+      const int* qc = reinterpret_cast<const int*>(qs) + c * (E::CH / 4);
+      const int qstride = nch * (E::CH / 4);
+#pragma unroll
+      for (int sub = 0; sub < E::CH / 16; ++sub) {
+        const int4 x = *reinterpret_cast<const int4*>(ra + 16 * sub);
+        const int4 y = *reinterpret_cast<const int4*>(rb + 16 * sub);
+#pragma unroll
+        for (int qi = 0; qi < QA; ++qi) {
+          const int4 w = *reinterpret_cast<const int4*>(qc + qi * qstride + 4 * sub);
+          int s0 = acc0[qi], s1 = acc1[qi];
+          s0 = __dp4a(w.x, x.x, s0), s1 = __dp4a(w.x, y.x, s1);
+          s0 = __dp4a(w.y, x.y, s0), s1 = __dp4a(w.y, y.y, s1);
+          s0 = __dp4a(w.z, x.z, s0), s1 = __dp4a(w.z, y.z, s1);
+          s0 = __dp4a(w.w, x.w, s0), s1 = __dp4a(w.w, y.w, s1);
+          acc0[qi] = s0, acc1[qi] = s1;
+        }
+      }
+    } else {
+      const float* qc = reinterpret_cast<const float*>(qs) + c * E::PER_CHUNK;
+      const int qstride = nch * E::PER_CHUNK;
+#pragma unroll
+      for (int sub = 0; sub < E::PER_CHUNK / 8; ++sub) {
+        float x[8], y[8];
+        load8<MODE>(ra + 8 * SIZE * sub, x);
+        load8<MODE>(rb + 8 * SIZE * sub, y);
+#pragma unroll
+        for (int qi = 0; qi < QA; ++qi) {
+          const float4 w0_ = *reinterpret_cast<const float4*>(qc + qi * qstride + 8 * sub);
+          const float4 w1_ = *reinterpret_cast<const float4*>(qc + qi * qstride + 8 * sub + 4);
+          const float w[8] = {w0_.x, w0_.y, w0_.z, w0_.w, w1_.x, w1_.y, w1_.z, w1_.w};
+          float s0 = acc0[qi], s1 = acc1[qi];
+#pragma unroll
+          for (int d = 0; d < 8; ++d) {
+            s0 = fmaf(w[d], x[d], s0);
+            s1 = fmaf(w[d], y[d], s1);
+          }
+          acc0[qi] = s0, acc1[qi] = s1;
+        }
+      }
+    }
+    if (c == nch - 1) {  // the slice is scored: merge it into the warp's partial
+      const int r0 = r_begin + (warp + sl * A_WARPS) * A_ROWS;
+      const int ra_row = r0 + lane, rb_row = r0 + lane + 32;
+      Tri* pw = part + ((r0 / sw - w0) * A_WARPS + warp) * QA;
+#pragma unroll
+      for (int qi = 0; qi < QA; ++qi) {
+        const float sa = ra_row < row_end ? (float)acc0[qi] : -INFINITY;
+        const float sb = rb_row < row_end ? (float)acc1[qi] : -INFINITY;
+        Tri t = sb > sa ? Tri{sb, rb_row, sa} : Tri{sa, ra_row, sb};
+        t = warp_merge<1>(t);
+        if (lane == qi) pw[qi] = merge(pw[qi], t);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int e = tid; e < (w1 - w0) * QA; e += A_WARPS * 32) {
+    const int wl = e / QA, qi = e - wl * QA;
+    if (q0 + qi >= Q) continue;
+    const Tri* pw = part + wl * A_WARPS * QA + qi;
+    Tri t = pw[0];
+#pragma unroll
+    for (int k = 1; k < A_WARPS; ++k) t = merge(t, pw[k * QA]);
+    const size_t o = (size_t)(w0 + wl) * Q + q0 + qi;
+    v1[o] = t.v;
+    a1[o] = t.a;
+    v2[o] = t.s;
+  }
+}
+
+// d += a . b for one m16n8k32 tile (int8 operands, int32 accumulators)
+__device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1_, int a2, int a3, int b0,
+                                       int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1_), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <int MODE, int QB>
+struct Tiled {
+  static constexpr int CH = MODE != 2 ? B_CHUNK : QB > 64 ? C_WIDE_CHUNK : C_CHUNK;
+  static constexpr int STAGES = MODE != 2 ? B_STAGES : QB > 64 ? C_WIDE_STAGES : C_STAGES;
+  // B: a 16-byte pad, so the 8 rows a load instruction reads fill the banks;
+  // C reads whole 64-byte row runs by quads, and 128-byte rows swizzle (SWZ)
+  static constexpr int TP = MODE == 2 ? CH : CH + 16;
+  static constexpr int SWZ = MODE == 2 && CH >= 128 ? 4 : 0;
+  static constexpr int SLOT = (T_ROWS + QB) * TP;
+  // bf16: a stage widened to floats, rows FP floats apart
+  static constexpr int FP = CH / 2 + 4;
+  static constexpr int SMEM = STAGES * SLOT + (MODE == 1 ? (T_ROWS + QB) * FP * 4 : 0);
+  static constexpr int BLOCK_ROWS = MODE == 2 ? C_BLOCK_ROWS : B_BLOCK_ROWS;
+  static constexpr int WN = QB / 4;  // queries of a warp
+};
+
+// ---- routes B and C -------------------------------------------------------
+//
+// Grid: one block per (tile of QB queries, run of `per` windows), the tiles
+// of a run neighbours.  Warp (wm, wn) = (warp / 4, warp % 4) covers rows
+// 64 wm .. 64 wm + 63 of a tile and queries wn QB/4 .. of the block's QB.
+// Lane (g, t) = (lane / 4, lane % 4).  B: rows g + 8 i (i < 8), queries
+// t + 4 j (j < QB / 16); C: rows 16 i + g + 8 h (i < 4, h < 2), queries
+// 8 j + 2 t + e (j < QB / 32, e < 2), the m16n8 accumulator layout.
+template <int MODE, int QB>
+__global__ void __launch_bounds__(T_THREADS, MODE == 2 ? C_MIN_BLOCKS : B_MIN_BLOCKS)
+    window_tiled(
+    const void* __restrict__ q_, const void* __restrict__ p_, int Q, int D, int row_end, int sw,
+    int W, int per, int n_qt, bool vec, float* __restrict__ v1, int* __restrict__ a1,
+    float* __restrict__ v2) {
+  using K = Tiled<MODE, QB>;
+  constexpr int ESZ = Elem<MODE>::SIZE;
+  constexpr int WN = K::WN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Tri part[2][QB];  // a tile's triples of its two 64-row halves
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int qt = blockIdx.x % n_qt;
+  const int w0 = (blockIdx.x / n_qt) * per, w1 = min(W, w0 + per);
+  const int q0 = qt * QB;
+  const int row_bytes = D * ESZ;
+  const int KT = (row_bytes + K::CH - 1) / K::CH;
+  const int r_begin = w0 * sw, r_stop = min(w1 * sw, row_end);
+  const int n_tiles = r_stop > r_begin ? (r_stop - r_begin + T_ROWS - 1) / T_ROWS : 0;
+  const int steps = n_tiles * KT;
+  const unsigned char* pb = static_cast<const unsigned char*>(p_);
+  const unsigned char* qb = static_cast<const unsigned char*>(q_);
+
+  // A thread's 16-byte pieces of a stage: the same rows and units in every
+  // stage of a tile, so their addresses are set once (tile 0, depth 0) and
+  // each stage only offsets them.  Piece k is passage rows while k * T_THREADS
+  // / PIECES < T_ROWS, then queries.
+  constexpr int PIECES = K::CH / 16;  // 16-byte pieces of a staged row
+  constexpr int NP = (T_ROWS + QB) * PIECES / T_THREADS;
+  const unsigned char* src0[NP];
+  int dst0[NP], row0[NP], unit0[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const int e = tid + T_THREADS * k, row = e / PIECES, u = e % PIECES;
+    row0[k] = row < T_ROWS ? row : row - T_ROWS;
+    unit0[k] = 16 * u;
+    dst0[k] = row * K::TP + 16 * (u ^ (K::SWZ * (row & 1)));
+    src0[k] = (row < T_ROWS ? pb + (size_t)(r_begin + row) * row_bytes
+                            : qb + (size_t)(q0 + row - T_ROWS) * row_bytes);
+  }
+  auto fill_stage = [&](int st) {
+    const int tile = st / KT, kt = st - tile * KT;
+    const int rows_left = row_end - (r_begin + tile * T_ROWS);  // valid rows of the tile
+    const size_t tile_off = (size_t)tile * T_ROWS * row_bytes;
+    unsigned char* dst = smem + (st % K::STAGES) * K::SLOT;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const bool is_p = k * T_THREADS / PIECES < T_ROWS;  // compile time
+      const bool live = is_p ? row0[k] < rows_left : q0 + row0[k] < Q;
+      const unsigned char* row = src0[k] + (is_p ? tile_off : 0);
+      if (vec) {
+        const int off = kt * K::CH + unit0[k];
+        const bool full = live && off < row_bytes;
+        cp_async16(dst + dst0[k], full ? static_cast<const void*>(row + off) : p_, full);
+      } else {
+        stage_piece(dst + dst0[k], live ? row : nullptr, kt * K::CH + unit0[k], row_bytes,
+                    false, p_);
+      }
+    }
+  };
+
+  // the window of the running triples, and the triple of query q0 + tid
+  // (threads tid < QB, in shared memory: no register across the loop)
+  int cur = w0;
+  __shared__ Tri run[QB];
+  if (tid < QB) run[tid] = Tri{-INFINITY, w0 * sw, -INFINITY};
+  auto store = [&](int w, const Tri& t) {
+    if (tid < QB && q0 + tid < Q) {
+      const size_t o = (size_t)w * Q + q0 + tid;
+      v1[o] = t.v;
+      a1[o] = t.a;
+      v2[o] = t.s;
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < K::STAGES - 1; ++s) {
+    if (s < steps) fill_stage(s);
+    cp_async_commit();
+  }
+  constexpr int NB = MODE == 2 ? 1 : QB / 16;      // route B: queries a thread
+  constexpr int NTL = MODE == 2 ? QB / 32 : 1;      // route C: n8 tiles a warp
+  float acc[MODE == 2 ? 1 : 8][NB];
+  int iacc[MODE == 2 ? 4 : 1][NTL][4];
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<K::STAGES - 2>();
+    __syncthreads();  // step st is in; every warp is done with step st - 1's slot
+    if (st + K::STAGES - 1 < steps) fill_stage(st + K::STAGES - 1);
+    cp_async_commit();
+    const int tile = st / KT, kt = st - tile * KT;
+    const unsigned char* slot = smem + (st % K::STAGES) * K::SLOT;
+    if constexpr (MODE == 2) {
+      if (kt == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NTL; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) iacc[i][j][e] = 0;
+      }
+      // lane (g, t4) of a quad holds bytes 16 t4 .. 16 t4 + 15 of each 64-byte
+      // run of its rows, for A and B alike: a permutation of k that an
+      // exact integer sum does not see (fused_mlp.cu)
+      const unsigned char* a = slot + (wm * 64 + g) * K::TP;
+      const unsigned char* b = slot + (T_ROWS + wn * WN + g) * K::TP;
+#pragma unroll
+      for (int kk = 0; kk < K::CH / 64; ++kk) {
+        const int off = 16 * ((4 * kk + t4) ^ (K::SWZ * (g & 1)));
+        int4 bf[NTL];
+#pragma unroll
+        for (int j = 0; j < NTL; ++j)
+          bf[j] = *reinterpret_cast<const int4*>(b + j * 8 * K::TP + off);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int4 lo = *reinterpret_cast<const int4*>(a + i * 16 * K::TP + off);
+          const int4 hi = *reinterpret_cast<const int4*>(a + (i * 16 + 8) * K::TP + off);
+#pragma unroll
+          for (int j = 0; j < NTL; ++j) {
+            mma_s8(iacc[i][j], lo.x, hi.x, lo.y, hi.y, bf[j].x, bf[j].y);
+            mma_s8(iacc[i][j], lo.z, hi.z, lo.w, hi.w, bf[j].z, bf[j].w);
+          }
+        }
+      }
+    } else {
+      if (kt == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < NB; ++j) acc[i][j] = 0.0f;
+      }
+      constexpr int KC = K::CH / ESZ;                     // depth of a stage
+      constexpr int fp = MODE == 1 ? K::FP : K::TP / 4;   // floats between rows
+      float* fb = reinterpret_cast<float*>(smem + K::STAGES * K::SLOT);
+      if constexpr (MODE == 1) {  // widen the stage once: [T_ROWS + QB][FP] floats
+        constexpr int PIECES = K::CH / 16;
+#pragma unroll
+        for (int k = 0; k < (T_ROWS + QB) * PIECES / T_THREADS; ++k) {
+          const int e = tid + T_THREADS * k, row = e / PIECES, u = e % PIECES;
+          float x[8];
+          load8<1>(slot + row * K::TP + 16 * u, x);
+          float4* o = reinterpret_cast<float4*>(fb + row * K::FP + 8 * u);
+          o[0] = make_float4(x[0], x[1], x[2], x[3]);
+          o[1] = make_float4(x[4], x[5], x[6], x[7]);
+        }
+        __syncthreads();
+      }
+      const float* F = MODE == 1 ? fb : reinterpret_cast<const float*>(slot);
+      const float* pr = F + (wm * 64 + g) * fp;
+      const float* qr = F + (T_ROWS + wn * WN + t4) * fp;
+#pragma unroll
+      for (int d4 = 0; d4 < KC / 4; ++d4) {
+        float4 x[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          x[i] = *reinterpret_cast<const float4*>(pr + 8 * i * fp + 4 * d4);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const float4 w = *reinterpret_cast<const float4*>(qr + 4 * j * fp + 4 * d4);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float s = acc[i][j];
+            s = fmaf(w.x, x[i].x, s);
+            s = fmaf(w.y, x[i].y, s);
+            s = fmaf(w.z, x[i].z, s);
+            s = fmaf(w.w, x[i].w, s);
+            acc[i][j] = s;
+          }
+        }
+      }
+    }
+    if (kt == KT - 1) {  // the tile is scored: its halves' triples, then the windows'
+      const int r0 = r_begin + tile * T_ROWS + wm * 64;
+      // a thread's rows of a query ascend, so each joins its triple as the
+      // max if strictly larger (ties keep the lower row), else as a second
+      // max; int8 folds the exact int32 sums (INT_MIN for rows past
+      // n_valid) and converts the two maxima to float once
+      const int valid = row_end - r0;  // rows of the half below n_valid
+      if constexpr (MODE == 2) {
+#pragma unroll
+        for (int j = 0; j < NTL; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int v = INT_MIN, s2 = INT_MIN, a = r0 + g;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int rr = 16 * i + g + 8 * h;
+                const int x = rr < valid ? iacc[i][j][2 * h + e] : INT_MIN;
+                if (x > v) {
+                  s2 = v;
+                  v = x;
+                  a = r0 + rr;
+                } else {
+                  s2 = max(s2, x);
+                }
+              }
+            Tri t{v == INT_MIN ? -INFINITY : (float)v, a,
+                  s2 == INT_MIN ? -INFINITY : (float)s2};
+            t = warp_merge<4>(t);
+            if (g == 0) part[wm][wn * WN + 8 * j + 2 * t4 + e] = t;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          Tri t{g < valid ? acc[0][j] : -INFINITY, r0 + g, -INFINITY};
+#pragma unroll
+          for (int i = 1; i < 8; ++i) {
+            const float x = g + 8 * i < valid ? acc[i][j] : -INFINITY;
+            if (x > t.v) {
+              t.s = t.v;
+              t.v = x;
+              t.a = r0 + g + 8 * i;
+            } else {
+              t.s = fmaxf(t.s, x);
+            }
+          }
+          t = warp_merge<4>(t);
+          if (g == 0) part[wm][wn * WN + t4 + 4 * j] = t;
+        }
+      }
+      __syncthreads();
+      const int t0 = r_begin + tile * T_ROWS;
+      if (tid < QB) {
+        int c = cur;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int hr = t0 + 64 * h;
+          if (hr >= r_stop) break;  // past the block's windows, or past n_valid
+          const int wh = hr / sw;
+          Tri t = run[tid];
+          if (wh != c) {
+            store(c, t);
+            c = wh;
+            t = Tri{-INFINITY, wh * sw, -INFINITY};
+          }
+          run[tid] = merge(t, part[h][tid]);
+        }
+      }
+      cur = (t0 + 64 < r_stop ? t0 + 64 : t0) / sw;  // the window of the last half merged
+      // the next tile's epilogue writes part after a step's __syncthreads
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tid < QB) store(cur, run[tid]);
+  for (int w = cur + 1; w < w1; ++w) store(w, Tri{-INFINITY, w * sw, -INFINITY});  // past n_valid
+}
+
+}  // namespace window
 
 // ---------------------------------------------------------------------------
 // 2. rescore_kernel (replaces _rescore_kernel, pallas_topk_v4.py:522)
@@ -676,15 +1127,69 @@ cudaError_t launch_select(const float* s, const int* ids, const float* floor_, i
 
 }  // namespace select_v4
 
-template <int MODE>
-cudaError_t launch_window(const void* q, const void* p, int Q, int D, int row_end, int sw,
-                          int W, int win_per_split, int n_splits, float* v1, int* a1,
-                          float* v2, cudaStream_t stream) {
-  dim3 grid((Q + QT - 1) / QT, n_splits);
-  window_top2_kernel<MODE><<<grid, NT, 0, stream>>>(q, p, Q, D, row_end, sw, W,
-                                                     win_per_split, v1, a1, v2);
+namespace window {
+
+// Route A with QA queries a group; the shared memory it needs (0: more than
+// a block may have).
+template <int MODE, int QA>
+size_t stream_smem(int D, int sw) {
+  using E = Stream<MODE, QA>;
+  const int nch = (D * Elem<MODE>::SIZE + E::CH - 1) / E::CH;
+  const int per = (A_BLOCK_ROWS + sw - 1) / sw;
+  const size_t bytes = (size_t)QA * nch * E::Q_CHUNK + A_WARPS * E::RING +
+                       (size_t)per * A_WARPS * QA * sizeof(Tri);
+  return bytes <= SMEM_MAX ? bytes : 0;
+}
+
+template <int MODE, int QA>
+cudaError_t launch_stream(const void* q, const void* p, int Q, int D, int row_end, int sw,
+                          int W, bool vec, float* v1, int* a1, float* v2, cudaStream_t stream) {
+  const size_t smem = stream_smem<MODE, QA>(D, sw);
+  if (smem == 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(window_stream<MODE, QA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int per = (A_BLOCK_ROWS + sw - 1) / sw;
+  const int n_groups = (Q + QA - 1) / QA;
+  const long long blocks = (long long)((W + per - 1) / per) * n_groups;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  window_stream<MODE, QA><<<(unsigned)blocks, A_WARPS * 32, smem, stream>>>(
+      q, p, Q, D, row_end, sw, W, per, n_groups, vec, v1, a1, v2);
   return cudaGetLastError();
 }
+
+template <int MODE, int QB>
+cudaError_t launch_tiled(const void* q, const void* p, int Q, int D, int row_end, int sw, int W,
+                         bool vec, float* v1, int* a1, float* v2, cudaStream_t stream) {
+  using K = Tiled<MODE, QB>;
+  cudaError_t err = cudaFuncSetAttribute(window_tiled<MODE, QB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
+  if (err != cudaSuccess) return err;
+  const int per = (K::BLOCK_ROWS + sw - 1) / sw;
+  const int n_qt = (Q + QB - 1) / QB;
+  const long long blocks = (long long)((W + per - 1) / per) * n_qt;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  window_tiled<MODE, QB><<<(unsigned)blocks, T_THREADS, K::SMEM, stream>>>(
+      q, p, Q, D, row_end, sw, W, per, n_qt, vec, v1, a1, v2);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch(int route, const void* q, const void* p, int Q, int D, int row_end, int sw,
+                   int W, bool vec, float* v1, int* a1, float* v2, cudaStream_t s) {
+  if (route == 0) {  // A: the smallest group that holds Q, groups of 16 past it
+    if (Q <= 1) return launch_stream<MODE, 1>(q, p, Q, D, row_end, sw, W, vec, v1, a1, v2, s);
+    if (Q <= 4) return launch_stream<MODE, 4>(q, p, Q, D, row_end, sw, W, vec, v1, a1, v2, s);
+    if (Q <= 8) return launch_stream<MODE, 8>(q, p, Q, D, row_end, sw, W, vec, v1, a1, v2, s);
+    return launch_stream<MODE, 16>(q, p, Q, D, row_end, sw, W, vec, v1, a1, v2, s);
+  }
+  // B (float modes) and C (int8): tiles of 64 queries up to Q 64, else 128
+  if ((route == 2) != (MODE == 2)) return cudaErrorInvalidValue;
+  if (Q <= 64) return launch_tiled<MODE, 64>(q, p, Q, D, row_end, sw, W, vec, v1, a1, v2, s);
+  return launch_tiled<MODE, 128>(q, p, Q, D, row_end, sw, W, vec, v1, a1, v2, s);
+}
+
+}  // namespace window
 
 template <int MODE>
 cudaError_t launch_rescore(const void* q, const void* p, int Q, int D, int row_end, int sw,
@@ -703,29 +1208,30 @@ bool bad_mode_shape(int mode, int D, const void* q, const void* p) {
 }  // namespace
 
 // Kernel 1.  q [Q, D], p [N, D] of one mode (0 f32, 1 bf16, 2 int8 x int8);
-// rows >= min(n_valid, N) score -inf; W = ceil(min(n_valid, N) / sw) windows
-// or more; block y covers windows [y * win_per_split, ...).  Outputs
-// v1 float [W, Q], a1 int32 [W, Q], v2 float [W, Q].
+// rows >= min(n_valid, N) score -inf; W windows of sw rows (a multiple of
+// 64), W >= ceil(min(n_valid, N) / sw).  route: 0 = A (window_stream, any
+// mode), 1 = B (window_tiled, f32 / bf16), 2 = C (window_tiled, int8).
+// Outputs v1 float [W, Q], a1 int32 [W, Q], v2 float [W, Q].
 extern "C" int hc_window_top2(const void* q, const void* p, int Q, int N, int D, int n_valid,
-                              int sw, int W, int win_per_split, int n_splits, void* v1,
-                              void* a1, void* v2, int mode, void* stream) {
-  if (Q <= 0 || N < 0 || D <= 0 || sw <= 0 || sw % PT != 0 || W <= 0 ||
-      win_per_split <= 0 || n_splits <= 0 || n_splits > 65535 ||
-      (long long)win_per_split * n_splits < W || bad_mode_shape(mode, D, q, p))
+                              int sw, int W, int route, void* v1, void* a1, void* v2, int mode,
+                              void* stream) {
+  if (Q <= 0 || N < 0 || D <= 0 || sw <= 0 || sw % 64 != 0 || W <= 0 ||
+      (long long)W * sw > 0x7fffffffLL || route < 0 || route > 2 ||
+      bad_mode_shape(mode, D, q, p))
     return (int)cudaErrorInvalidValue;
   const int row_end = n_valid < N ? (n_valid < 0 ? 0 : n_valid) : N;
+  const int esz = mode == 0 ? 4 : mode == 1 ? 2 : 1;
+  // 16-byte copies need 16-byte rows and bases; else the 2-byte path
+  const bool vec = (D * esz) % 16 == 0 && ((uintptr_t)q & 15) == 0 && ((uintptr_t)p & 15) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o1 = static_cast<float*>(v1);
   int* oa = static_cast<int*>(a1);
   float* o2 = static_cast<float*>(v2);
   if (mode == 0)
-    return (int)launch_window<0>(q, p, Q, D, row_end, sw, W, win_per_split, n_splits, o1,
-                                 oa, o2, s);
+    return (int)window::launch<0>(route, q, p, Q, D, row_end, sw, W, vec, o1, oa, o2, s);
   if (mode == 1)
-    return (int)launch_window<1>(q, p, Q, D, row_end, sw, W, win_per_split, n_splits, o1,
-                                 oa, o2, s);
-  return (int)launch_window<2>(q, p, Q, D, row_end, sw, W, win_per_split, n_splits, o1, oa,
-                               o2, s);
+    return (int)window::launch<1>(route, q, p, Q, D, row_end, sw, W, vec, o1, oa, o2, s);
+  return (int)window::launch<2>(route, q, p, Q, D, row_end, sw, W, vec, o1, oa, o2, s);
 }
 
 // Kernel 2.  win_ids int32 [Q, B] (negative = empty slot); out float

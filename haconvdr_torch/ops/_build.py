@@ -50,9 +50,9 @@ SIGNATURES = {
     # cand_keys, n_splits, Q, k, seed(float [Q, ks] or NULL), ks,
     # out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
     "hc_topk_merge": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
-    # q, p, Q, N, D, n_valid, sw, W, win_per_split, n_splits,
+    # q, p, Q, N, D, n_valid, sw, W, route (0 A, 1 B, 2 C),
     # v1(float [W, Q]), a1(int32 [W, Q]), v2(float [W, Q]), mode, stream
-    "hc_window_top2": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "hc_window_top2": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # q, p, Q, N, D, n_valid, sw, B, win_ids(int32 [Q, B]),
     # out(float [Q, B * sw]), mode, stream
     "hc_rescore_windows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],

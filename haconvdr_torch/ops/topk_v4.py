@@ -8,7 +8,9 @@ and the glue between them, with a counted fallback to the v3 kernel.
    (index/quantize.py ``quantize_queries_int8``), and every score below is
    an exact integer of int8 x int8 products;
 2. ``v4_search``: ``window_top2`` reduces every ``sw``-row window to (max,
-   its lowest row, second max) as [W, Q] panels; ``select_topk_t`` finds
+   its lowest row, second max) as [W, Q] panels, on the route
+   ``window_route`` picks for the batch (streaming for small Q, tiled
+   products for large; every route gives the same bits); ``select_topk_t`` finds
    v_k, the k-th largest window max (a lower bound of the k-th score);
    windows whose second max reaches v_k are flagged and, up to ``budget``
    per query, rescored row by row by ``rescore_windows``; ``select_topk``
@@ -44,11 +46,20 @@ from haconvdr_torch.index.quantize import quantize_queries_int8
 from haconvdr_torch.ops import _build
 from haconvdr_torch.ops.fused_topk import MAX_K, decode_keys, fused_topk_block, order_keys
 
-# kernel launches by wrapper; "plain" counts plain-twin calls of any of them
-COUNTS = {"window": 0, "select_t": 0, "select": 0, "rescore": 0, "v3_fallback": 0, "plain": 0}
+# kernel launches by wrapper ("window" all of the window kernel's, "window_a"
+# .. "window_c" by route); "plain" counts plain-twin calls of any of them
+COUNTS = {"window": 0, "window_a": 0, "window_b": 0, "window_c": 0, "select_t": 0,
+          "select": 0, "rescore": 0, "v3_fallback": 0, "plain": 0}
 NEG_INF = float("-inf")
 _MODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_TILE_ROWS = 64  # the window kernel's score tile: sw must be a multiple
+_TILE_ROWS = 64  # the window kernel's slices and tile halves: sw must be a multiple
+_ROUTE_CODE = {"a": 0, "b": 1, "c": 2}
+_ROUTE_DTYPES = {"a": tuple(_MODE), "b": (torch.float32, torch.bfloat16), "c": (torch.int8,)}
+# route A holds a group of up to 16 queries in shared memory (floats, or
+# int8): past this many bytes of them a batch takes the route of larger Q
+_STREAM_QUERY_BYTES = 98_304
+# the largest Q that takes route A (see window_route)
+_STREAM_MAX_Q = {torch.float32: 16, torch.bfloat16: 32, torch.int8: 8}
 _PLAIN_ROWS = 65536  # rows per score tile of the plain twins
 _NO_KEY = torch.iinfo(torch.int64).min  # below every real key
 SEL_ROWS = 512  # entries of a query a select block stages per step (csrc/topk_v4.cu)
@@ -137,13 +148,43 @@ def _check_pair(queries, passages):
         raise ValueError("int8 x int8 kernels read 4-byte words: D % 4 == 0, aligned rows")
 
 
-def _splits(dev: torch.device, n_qtiles: int, n_windows: int) -> Tuple[int, int]:
-    """(windows per block, blocks along the windows): about two resident
-    blocks per SM over the grid."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-2 * sms // n_qtiles))
-    per = -(-n_windows // max(1, min(want, n_windows, 65535)))
-    return per, -(-n_windows // per)
+def _stream_query_bytes(Q: int, dtype: torch.dtype, D: int) -> int:
+    """Shared memory that route A's group of queries takes: the group (1,
+    4, 8 or 16 queries) times the chunks of a row, widened to float in the
+    float modes (csrc/topk_v4.cu, Elem::Q_CHUNK)."""
+    group = 1 if Q <= 1 else 4 if Q <= 4 else 8 if Q <= 8 else 16
+    chunk = 128 if group <= 8 else 64  # bytes of a row a stage (Stream::CH)
+    esz = torch.empty((), dtype=dtype).element_size()
+    chunks = -(-D * esz // chunk)
+    return group * chunks * chunk * (1 if dtype == torch.int8 else 4 // esz)
+
+
+def window_route(Q: int, dtype: torch.dtype, D: int = 768) -> str:
+    """The window kernel's route for Q queries of ``dtype`` and width D:
+    "a" (streaming: every passage row read once, for small batches), else
+    "b" (register-tiled fmaf, float32 and bfloat16) or "c" (int8 on the
+    tensor cores).  Route A takes Q up to 16 (float32), 32 (bfloat16) or
+    8 (int8), while its group of queries fits in shared memory.  The
+    crossover, device ms over 2,500,000 x 768 rows (probes/
+    probe_torch_window.py --routes; NVIDIA H100 80GB HBM3, 700 W), route A
+    against the tiled route:
+
+    ====  ===============  ===============  ===============
+    Q     float32 (A / B)  bfloat16 (A / B)  int8 (A / C)
+    ====  ===============  ===============  ===============
+    1     2.60 / 7.05      1.29 / 7.51      0.636 / 0.821
+    8     2.69 / 7.06      1.78 / 7.52      0.723 / 0.817
+    16    4.37 / 7.01      2.94 / 7.48      0.942 / 0.809
+    32    8.15 / 7.02      6.30 / 7.53      1.89 / 0.813
+    64    16.8 / 7.09      12.5 / 7.57      3.84 / 0.813
+    ====  ===============  ===============  ===============
+
+    Past 16 queries route A runs groups of 16, each reading the rows again
+    (from L2), while the tiled routes cost the same from 1 to 64 queries
+    (one 64-query tile)."""
+    if Q <= _STREAM_MAX_Q[dtype] and _stream_query_bytes(Q, dtype, D) <= _STREAM_QUERY_BYTES:
+        return "a"
+    return "c" if dtype == torch.int8 else "b"
 
 
 def window_top2(
@@ -151,19 +192,29 @@ def window_top2(
     passages: torch.Tensor,  # [N, D]
     n_valid: int,
     sw: int,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per ``sw``-row window and query: (v1 max [W, Q] float32, a1 its
     lowest row [W, Q] int32, v2 the max with only row a1 masked [W, Q]
     float32), W = ceil(N / sw).  Rows at or past ``n_valid`` score -inf;
-    int8 x int8 scores are exact integers."""
+    int8 x int8 scores are exact integers.  On the card the kernel runs
+    ``route`` (tests and probes; default :func:`window_route`); every
+    route gives the same bits."""
     if _device_kind(passages) == "cpu":
         return window_top2_plain(queries, passages, n_valid, sw)
     _check_pair(queries, passages)
     if sw <= 0 or sw % _TILE_ROWS:
         raise ValueError(f"window kernel takes sw a multiple of {_TILE_ROWS}, got {sw}")
+    Q, D = queries.shape
+    if route is None:
+        route = window_route(Q, passages.dtype, D)
+    if passages.dtype not in _ROUTE_DTYPES.get(route, ()):
+        raise ValueError(f"window route {route!r} does not take {passages.dtype}: "
+                         "a (any), b (float32, bfloat16), c (int8)")
+    if route == "a" and _stream_query_bytes(Q, passages.dtype, D) > _STREAM_QUERY_BYTES:
+        raise ValueError(f"window route a holds its queries in shared memory: D {D} is too wide")
     lib = _build.library()
     dev = passages.device
-    Q, D = queries.shape
     N = passages.shape[0]
     W = max(1, -(-N // sw))
     v1 = torch.empty((W, Q), dtype=torch.float32, device=dev)
@@ -171,15 +222,15 @@ def window_top2(
     v2 = torch.empty((W, Q), dtype=torch.float32, device=dev)
     if Q == 0:
         return v1, a1, v2
-    per, n_splits = _splits(dev, -(-Q // 64), W)
     with torch.cuda.device(dev):
         err = lib.hc_window_top2(
-            queries.data_ptr(), passages.data_ptr(), Q, N, D, int(n_valid), sw, W, per,
-            n_splits, v1.data_ptr(), a1.data_ptr(), v2.data_ptr(),
+            queries.data_ptr(), passages.data_ptr(), Q, N, D, int(n_valid), sw, W,
+            _ROUTE_CODE[route], v1.data_ptr(), a1.data_ptr(), v2.data_ptr(),
             _MODE[passages.dtype], torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "hc_window_top2")
     COUNTS["window"] += 1
+    COUNTS["window_" + route] += 1
     return v1, a1, v2
 
 

@@ -253,13 +253,24 @@ def test_window_top2_matches_plain(dev, gen, dtype):
     assert bool(torch.isneginf(v1[49_000 // 256 + 1 :]).all())  # past n_valid
 
 
+# the window kernel's routes by dtype (ops/topk_v4.window_route)
+WINDOW_ROUTES = {torch.float32: ("a", "b"), torch.bfloat16: ("a", "b"), torch.int8: ("a", "c")}
+WINDOW_QS = [1, 7, 16, 17, 64, 70, 129, 256]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_rescore_equals_window_kernel_bit_for_bit(dev, gen, dtype):
+@pytest.mark.parametrize(
+    "Q, route",
+    [(70, None), (1, "a"), (16, "a"), (64, "a"), (64, "tiled"), (256, "tiled"), (1, "tiled")],
+)
+def test_rescore_equals_window_kernel_bit_for_bit(dev, gen, dtype, Q, route):
     from haconvdr_torch.ops import topk_v4 as v4
 
-    q, p = _v4_inputs(gen, dev, dtype)
+    q, p = _v4_inputs(gen, dev, dtype, Q=Q)
+    if route == "tiled":
+        route = WINDOW_ROUTES[dtype][1]
     sw, B = 256, 8
-    v1, a1, v2 = v4.window_top2(q, p, 49_000, sw)
+    v1, a1, v2 = v4.window_top2(q, p, 49_000, sw, route=route)
     W = v1.shape[0]
     win = torch.randint(0, W, (q.shape[0], B), device=dev, generator=gen, dtype=torch.int32)
     win[:, -1] = -1  # an empty slot
@@ -276,6 +287,118 @@ def test_rescore_equals_window_kernel_bit_for_bit(dev, gen, dtype):
     pos = a1[w, qi].long() - w * sw
     masked = resc[:, : B - 1].scatter(2, pos[..., None], float("-inf"))
     assert torch.equal(masked.amax(2), v2[w, qi])
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+def _window_case(gen, dev, dtype, N, sw, D=768, Q=256):
+    """Queries, passages of N rows with exact ties inside windows (each
+    fifth row repeats the row before it), and an n_valid inside the
+    next-to-last window, so that the last window lies wholly past it."""
+    from haconvdr_torch.index.quantize import quantize_queries_int8
+
+    W = -(-N // sw)
+    n_valid = (W - 2) * sw + sw // 2 + 3
+    q = torch.randn(Q, D, device=dev, generator=gen)
+    p = torch.randn(N, D, device=dev, generator=gen)
+    p[5::5] = p[4:-1:5][: p[5::5].shape[0]]
+    if dtype == torch.int8:
+        p, scale = _int8_index(gen, dev, N, D)
+        p[5::5] = p[4:-1:5][: p[5::5].shape[0]]
+        return quantize_queries_int8(q * scale)[0], p, n_valid
+    return q.to(dtype), p.to(dtype), n_valid
+
+
+@pytest.mark.parametrize("sw", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_window_routes_are_bit_identical(dev, gen, dtype, sw):
+    """Every route of the window kernel at Q 1 .. 256, at an N that is no
+    multiple of a tile, n_valid inside a window, a window wholly past it
+    and tied rows: the panels of all routes bit for bit alike, equal to
+    rescore_windows' rows bit for bit (max, its lowest row, the second
+    max) and to the plain twin within the window tolerance."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    N = 20_037
+    q_all, p, n_valid = _window_case(gen, dev, dtype, N, sw)
+    W = -(-N // sw)
+    exact = dtype == torch.int8
+    for Q in WINDOW_QS:
+        q = q_all[:Q].contiguous()
+        panels = {}
+        for route in WINDOW_ROUTES[dtype]:
+            before = v4.COUNTS["window_" + route]
+            panels[route] = v4.window_top2(q, p, n_valid, sw, route=route)
+            torch.cuda.synchronize()
+            assert v4.COUNTS["window_" + route] == before + 1
+        (v1, a1, v2), (w1, b1, w2) = panels.values()
+        assert torch.equal(_bits(v1), _bits(w1)) and torch.equal(a1, b1)
+        assert torch.equal(_bits(v2), _bits(w2)), (Q, sw)
+        assert bool(torch.isneginf(v1[-1]).all()) and bool((a1[-1] == (W - 1) * sw).all())
+        r1, ra, r2 = v4.window_top2_plain(q, p, n_valid, sw)
+        for got, ref in ((v1, r1), (v2, r2)):
+            assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+            f = torch.isfinite(ref)
+            assert bool(((got[f] - ref[f]).abs() <= (0.0 if exact else 1e-4) * ref[f].abs()).all())
+        gap = torch.isfinite(r1) & ((r1 - r2) > (0.0 if exact else 1e-5) * r1.abs())
+        assert torch.equal(a1[gap], ra[gap])
+        # the kernel's own rows: rescore every query's last three windows and
+        # five random ones
+        B = 8
+        win = torch.randint(0, W, (Q, B), device=dev, generator=gen, dtype=torch.int32)
+        win[:, :3] = torch.arange(W - 3, W, device=dev, dtype=torch.int32)
+        resc = v4.rescore_windows(p, q, win, sw, n_valid).view(Q, B, sw)
+        qi = torch.arange(Q, device=dev)[:, None].expand(-1, B)
+        w = win.long()
+        top = resc.amax(2)
+        assert torch.equal(_bits(top), _bits(v1[w, qi]))
+        lane = torch.arange(sw, device=dev)
+        pos = torch.where(resc == top[..., None], lane, sw).amin(2)
+        assert torch.equal(pos + w * sw, a1[w, qi].long())
+        second = resc.scatter(2, pos[..., None], float("-inf")).amax(2)
+        assert torch.equal(_bits(second), _bits(v2[w, qi]))
+
+
+def test_window_route_refusals(dev):
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    q = torch.zeros(4, 768, device=dev)
+    p = torch.zeros(1024, 768, device=dev)
+    with pytest.raises(ValueError, match="route 'c'"):
+        v4.window_top2(q, p, 1024, 256, route="c")
+    with pytest.raises(ValueError, match="route 'b'"):
+        v4.window_top2(q.to(torch.int8), p.to(torch.int8), 1024, 256, route="b")
+    with pytest.raises(ValueError, match="too wide"):
+        v4.window_top2(torch.zeros(16, 4096, device=dev), torch.zeros(256, 4096, device=dev),
+                       256, 256, route="a")
+    assert v4.window_route(1, torch.float32, 4096) == "a"
+    assert v4.window_route(16, torch.float32, 4096) == "b"
+
+
+def test_window_kernel_unaligned_rows(dev, gen):
+    """Rows of odd bf16 width and a passage view 2 bytes off a 16-byte
+    boundary take the kernel's 2-byte staging: the same bits as the
+    aligned rows give, on every route."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    q = torch.randn(20, 77, device=dev, generator=gen).to(torch.bfloat16)
+    base = torch.randn(5_001 * 77 + 1, device=dev, generator=gen).to(torch.bfloat16)
+    p = base[1:].view(5_001, 77)  # 2 bytes past the allocation
+    assert p.data_ptr() % 16 == 2
+    aligned = p.clone()
+    for route in WINDOW_ROUTES[torch.bfloat16]:
+        for Q in (1, 20):
+            got = v4.window_top2(q[:Q].contiguous(), p, 4_900, 128, route=route)
+            want = v4.window_top2(q[:Q].contiguous(), aligned, 4_900, 128, route=route)
+            torch.cuda.synchronize()
+            assert all(torch.equal(_bits(a) if a.dtype == torch.float32 else a,
+                                   _bits(b) if b.dtype == torch.float32 else b)
+                       for a, b in zip(got, want))
+            r1, _, _ = v4.window_top2_plain(q[:Q], p, 4_900, 128)
+            f = torch.isfinite(r1)
+            assert bool(((got[0][f] - r1[f]).abs() <= 1e-4 * r1[f].abs()).all())
 
 
 @pytest.mark.parametrize("layout", ["t", "rows"])

@@ -116,6 +116,98 @@ def test_window_top2_matches_jax_panels(rng, dtype, n_valid):
     assert np.isneginf(v1.numpy()[-(-n_valid // sw):]).all()
 
 
+@pytest.mark.parametrize(
+    "dtype, a_up_to, tiled",
+    [(torch.float32, 16, "b"), (torch.bfloat16, 32, "b"), (torch.int8, 8, "c")],
+)
+def test_window_route_at_its_boundaries(dtype, a_up_to, tiled):
+    """Route A (streaming) serves the small batches, up to the measured
+    crossover of each dtype; above it the tiled route of the dtype."""
+    for Q in (1, 2, 8, a_up_to):
+        assert v4.window_route(Q, dtype) == "a"
+    for Q in (a_up_to + 1, 64, 256, 4096):
+        assert v4.window_route(Q, dtype) == tiled
+
+
+def test_window_route_keeps_route_a_within_its_shared_memory():
+    """Route A holds its group of queries in shared memory: a row too wide
+    for it sends even one query to the tiled route."""
+    assert v4.window_route(16, torch.float32, 1536) == "a"
+    assert v4.window_route(16, torch.float32, 1537) == "b"
+    assert v4.window_route(1, torch.float32, 24_576) == "a"
+    assert v4.window_route(1, torch.float32, 24_577) == "b"
+    assert v4.window_route(8, torch.int8, 12_288) == "a"
+    assert v4.window_route(8, torch.int8, 12_289) == "c"
+
+
+def _merge_triples(x, y):
+    """The window kernel's merge rule on (v, a, s) tensors: the larger max
+    wins, the lower row on a tie, and the loser's max joins the second
+    maxima."""
+    xw = (x[0] > y[0]) | ((x[0] == y[0]) & (x[1] < y[1]))
+    return (torch.where(xw, x[0], y[0]), torch.where(xw, x[1], y[1]),
+            torch.where(xw, torch.maximum(x[2], y[0]), torch.maximum(y[2], x[0])))
+
+
+def _window_top2_by_parts(q, p, n_valid, sw, gen):
+    """The window kernel's reduction, emulated: every window's rows cut
+    into subsets at random (as slices, lanes and tile halves cut them), a
+    partial triple folded from each subset's rows in a random order, and
+    the partials merged by the rule in a shuffled order, starting from the
+    window's empty triple (-inf, its first row, -inf)."""
+    N = p.shape[0]
+    W = -(-N // sw)
+    s = q.to(torch.float64) @ p.to(torch.float64).T  # exact: integer-valued inputs
+    s = torch.nn.functional.pad(s.to(torch.float32), (0, W * sw - N), value=NEG)
+    rows = torch.arange(W * sw)
+    s = s.masked_fill(rows[None, :] >= min(n_valid, N), NEG)
+    Q = q.shape[0]
+    sv = s.view(Q, W, sw)
+    first = (torch.arange(W) * sw)[None, :].expand(Q, W)
+    empty = (torch.full((Q, W), NEG), first.clone(), torch.full((Q, W), NEG))
+    order = torch.randperm(sw, generator=gen)
+    cuts = sorted(torch.randperm(sw - 1, generator=gen)[:5].add(1).tolist())
+    parts = []
+    for lo, hi in zip([0] + cuts, cuts + [sw]):
+        t = empty
+        for r in order[lo:hi].tolist():
+            t = _merge_triples(t, (sv[:, :, r], first + r, torch.full((Q, W), NEG)))
+        parts.append(t)
+    out = empty
+    for i in torch.randperm(len(parts), generator=gen).tolist():
+        out = _merge_triples(out, parts[i])
+    return tuple(x.T.contiguous() for x in out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("sw", [64, 128])
+@pytest.mark.parametrize("n_valid", [2048, 1500, 1000])
+def test_window_reduction_by_parts_matches_plain_and_jax(rng, dtype, sw, n_valid):
+    """The merge rule reduces disjoint row sets to the window triple in
+    any order: held bit for bit against window_top2_plain and against
+    JAX's _window_top2_kernel in interpret mode, on integer-valued inputs
+    (exact scores) full of ties, with n_valid inside a window and windows
+    wholly past it."""
+    Q, N, D = 8, 2048, 16
+    q = rng.randint(-3, 4, (Q, D)).astype(np.float32)
+    p = rng.randint(-2, 3, (N, D)).astype(np.float32)
+    p[1::9] = p[::9][: p[1::9].shape[0]]  # duplicate rows: ties inside windows
+    if dtype == "int8":
+        q, p = q.astype(np.int8), p.astype(np.int8)
+    gen = torch.Generator().manual_seed(int(rng.randint(1 << 30)))
+    e1, ea, e2 = _window_top2_by_parts(T(q), T(p), n_valid, sw, gen)
+    r1, ra, r2 = v4.window_top2_plain(T(q), T(p), n_valid, sw)
+    for got, want in ((e1, r1), (ea, ra), (e2, r2)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert np.isneginf(e1.numpy()[-(-n_valid // sw):]).all()
+    assert (ea.numpy()[-(-n_valid // sw):] == (np.arange(-(-n_valid // sw), N // sw) * sw)[:, None]).all()
+    j1, ja, j2 = _jax_panels(q, p, n_valid, sw)
+    np.testing.assert_array_equal(e1.numpy(), j1)
+    np.testing.assert_array_equal(e2.numpy(), j2)
+    fin = np.isfinite(j1)
+    np.testing.assert_array_equal(ea.numpy()[fin], ja[fin])
+
+
 def test_select_topk_t_matches_jax_cold_and_warm(rng):
     Q, C, k = 64, 1100, 8
     s = rng.randn(C, Q).astype(np.float32)
