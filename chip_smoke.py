@@ -14,7 +14,8 @@ order; any failure raises and the script exits non-zero:
    the serving path's shapes (Q = 256, N = 2,500,000 with n_valid =
    N - 1,000, D = 768, k = 100), with the max error and both times:
    attention; the v3 top-k in f32, bf16 and its int8 mode, unseeded and
-   seeded; the v4 window kernel (row 3) at Q 256 and, on the routes
+   seeded, at Q 256 and, from its own generator, at Q 1, 64, 256 and 512
+   (ROW2_QS); the v4 window kernel (row 3) at Q 256 and, on the routes
    window_route names (a, the streaming route, at one query; b or c, the
    tiled routes, at 64), at Q 1 and 64, where it must also equal
    rescore_windows bit for bit on each query's own flagged windows, with a
@@ -52,7 +53,11 @@ order; any failure raises and the script exits non-zero:
    card's name and power limit; one per case of rows 8-10 and of row
    7 past k 128: ms, plain ms, library ms, bound ms and ms / bound; and
    one per mode and Q (1, 64, 256) of row 3: device ms, the route, the
-   bound at the route's rate and ms / that bound;
+   bound at the route's rate and ms / that bound; one per mode, Q of
+   ROW2_QS and seed of row 2: device ms, plain ms, the bound at the
+   passages' type and ms / bound, then, as context, the bound at the fmaf
+   chain's f32 rate (every mode runs the f32 chain on the CUDA cores) and
+   ms / that bound;
    each row also carries its bound (bytes over 3.35 TB/s or operations
    over the peak of the type the work could run in) and, where one
    PyTorch call computes the same function, that call's time;
@@ -259,6 +264,9 @@ WORDS = [f"w{i}" for i in range(5000)]
 # f32 is the CUDA cores' rate, tf32 the tensor cores'
 PEAK = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
+# row 2 (the v3 kernel) in phase 3's redesigned lines: a single request,
+# a full dispatch of BatchingRetriever(max_batch=64), Q_KERNEL, and 512
+ROW2_QS = (1, 64, Q_KERNEL, 512)
 # row 3 (the window kernel) beside Q_KERNEL: a single request, and the
 # largest dispatch of BatchingRetriever(max_batch=64)
 WINDOW_QS = (1, 64)
@@ -324,6 +332,18 @@ def search_bound(p, Q: int, n_valid: int, name: str, out_bytes: int) -> dict:
     passages' type, each passage row read once."""
     return bound_row(2.0 * Q * n_valid * DIM, p.numel() * p.element_size() + Q * DIM * 4
                      + out_bytes, PEAK_OF[name])
+
+
+def chain_bound(p, Q: int, n_valid: int, name: str, out_bytes: int) -> dict:
+    """Row 2's bound: search_bound (the operations at the peak of the
+    passages' own type, or the bytes), and beside it, as context,
+    chain_bound_ms: the same operations at the CUDA cores' f32 rate, the
+    rate its fmaf chain runs at in every mode (bf16 and int8 operands are
+    widened to floats), so ms / chain_bound_ms shows the tile's own
+    shortfall and bound_ms what the exact chain costs."""
+    chain, _ = bound(2.0 * Q * n_valid * DIM, p.numel() * p.element_size() + Q * DIM * 4
+                     + out_bytes, "f32")
+    return {**search_bound(p, Q, n_valid, name, out_bytes), "chain_bound_ms": chain}
 
 
 def sdpa_operands(qkv, mask, heads: int = 12):
@@ -516,9 +536,52 @@ def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
             )
             rows.append(dict(kernel="fused_topk", config=tag[6:], max_abs_err=err, ms=ms,
                              plain_ms=pms, library_ms=None, shape=[Q_KERNEL, N_ROWS, DIM, TOP_K],
-                             **search_bound(p, Q_KERNEL, n_valid, name, Q_KERNEL * TOP_K * 8)))
+                             **chain_bound(p, Q_KERNEL, n_valid, name, Q_KERNEL * TOP_K * 8)))
         del p
     del extra
+    torch.cuda.empty_cache()
+
+
+def kernels_v3_queries(seed: int, dev, passages_f32, codes, scale, rows) -> None:
+    """Row 2 (the v3 kernel) at each Q of ROW2_QS per mode, unseeded and
+    seeded: against its plain twin, in device ms (calls queued behind a
+    spin, device_ms), its plain twin's ms (one warm call), its bound at
+    the passages' type and at the fmaf chain's f32 rate; its own
+    generator, so the other rows see the data they always saw."""
+    from haconvdr_torch.ops.fused_topk import fused_topk_block, fused_topk_block_plain
+
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    n_valid = N_ROWS - N_PAD
+    q_all = torch.randn(max(ROW2_QS), DIM, device=dev, generator=g)
+    extra = torch.randn(100_000, DIM, device=dev, generator=g)
+    seeds = torch.topk(q_all @ extra.T, TOP_K, dim=1).values
+    del extra
+    for name in ("float32", "bfloat16", "int8"):
+        if name == "bfloat16":
+            p = passages_f32.to(torch.bfloat16)
+        else:
+            p = codes if name == "int8" else passages_f32
+        for Q in ROW2_QS:
+            q = q_all[:Q] * scale if name == "int8" else q_all[:Q]
+            for seeded in (False, True):
+                init = seeds[:Q].contiguous() if seeded else None
+                tag = f"{name}, Q {Q}{', seeded' if seeded else ''}"
+                s, i = fused_topk_block(q, p, n_valid, TOP_K, init_scores=init)
+                torch.cuda.synchronize()
+                rs, ri = fused_topk_block_plain(q, p, n_valid, TOP_K, init_scores=init)
+                err = compare_topk(s, i, rs, ri, f"top-k {tag}")
+                check(int(i.max()) < n_valid, f"top-k {tag}: a row past n_valid surfaced")
+                rows.append(dict(
+                    kernel="fused_topk", config=tag, max_abs_err=err,
+                    ms=device_ms(lambda: fused_topk_block(q, p, n_valid, TOP_K,
+                                                          init_scores=init), 5 if Q <= 64 else 3),
+                    plain_ms=cuda_ms(lambda: fused_topk_block_plain(
+                        q, p, n_valid, TOP_K, init_scores=init), 1, 0),
+                    library_ms=None, shape=[Q, N_ROWS, DIM, TOP_K],
+                    **chain_bound(p, Q, n_valid, name, Q * TOP_K * 8)))
+                del s, i, rs, ri
+        del p
+    del q_all, seeds
     torch.cuda.empty_cache()
 
 
@@ -546,8 +609,18 @@ def print_redesigned(rows, card: str) -> None:
     per case and row 7 past k 128: ms, plain ms, library ms (or none),
     bound and ms / bound.  Row 3 (the window kernel) per mode at Q 1, 64
     and 256: device ms, its route, the bound at the route's rate, ms / that
-    bound and the plain twin's ms."""
+    bound and the plain twin's ms.  Row 2 (the v3 kernel) per mode, Q of
+    ROW2_QS and seed: device ms, plain ms, the bound at the passages' type
+    and ms / bound, then the bound at the fmaf chain's f32 rate and ms /
+    that bound."""
     for r in rows:
+        if r["kernel"] == "fused_topk" and ", Q " in r["config"]:
+            print(f"redesigned fused_topk [{r['config']}]: {r['ms']:.4f} ms device, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"ms / bound {r['ms'] / r['bound_ms']:.2f}; at the chain's f32 rate "
+                  f"{r['chain_bound_ms']:.4f} ms, ms / that {r['ms'] / r['chain_bound_ms']:.2f} "
+                  f"[{card}]")
+            continue
         if r["kernel"] == "window_top2":
             mode, _, q = r["config"].partition(", Q ")
             ms = r.get("device_ms", r["ms"])
@@ -1140,6 +1213,7 @@ def phase_kernels(seed: int, dev, passages_f32, codes, scale):
     rng = np.random.default_rng(seed + 1)
     rows = []
     kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows)
+    kernels_v3_queries(seed, dev, passages_f32, codes, scale, rows)
     kernels_v4(dev, g, passages_f32, codes, scale, rows)
     kernels_int8_tower(dev, g, rows)
     kernels_flash(dev, g, rng, rows)

@@ -28,6 +28,7 @@
 
 #include <type_traits>
 
+#include "tile_fmaf.cuh"
 #include "topk_keys.cuh"
 
 namespace {
@@ -142,39 +143,13 @@ __device__ __forceinline__ Tri warp_merge(Tri t) {
   return t;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  // src-size 0 zero-fills the 16 bytes
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Bytes [off, off + 16) of a row of row_bytes bytes (row: nullptr past the
-// end) into dst, zeros past the row: one 16-byte cp.async when `vec` (rows
-// and bases 16-byte aligned), else 2-byte loads (every mode's rows are
-// 2-byte aligned).
-__device__ __forceinline__ void stage_piece(unsigned char* dst, const unsigned char* row, int off,
-                                            int row_bytes, bool vec, const void* base) {
-  const int n = row == nullptr ? 0 : min(16, row_bytes - off);
-  if (vec) {
-    cp_async16(dst, n > 0 ? static_cast<const void*>(row + off) : base, n > 0);
-    return;
-  }
-  uint32_t w[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t lo = 4 * k < n ? *reinterpret_cast<const uint16_t*>(row + off + 4 * k) : 0u;
-    const uint32_t hi =
-        4 * k + 2 < n ? *reinterpret_cast<const uint16_t*>(row + off + 4 * k + 2) : 0u;
-    w[k] = lo | (hi << 16);
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-}
+// the 16-byte cp.async and stage_piece's narrower loads (2-byte: every
+// mode's rows are 2-byte aligned) of tile_fmaf.cuh, which route B's
+// product and bf16 widening also come from
+using hc::tile::cp_async16;
+using hc::tile::cp_async_commit;
+using hc::tile::cp_async_wait;
+using hc::tile::stage_piece;
 
 // eight floats of a staged row: f32 as they are, bf16 widened (exact)
 template <int MODE>
@@ -553,41 +528,12 @@ __global__ void __launch_bounds__(T_THREADS, MODE == 2 ? C_MIN_BLOCKS : B_MIN_BL
       constexpr int fp = MODE == 1 ? K::FP : K::TP / 4;   // floats between rows
       float* fb = reinterpret_cast<float*>(smem + K::STAGES * K::SLOT);
       if constexpr (MODE == 1) {  // widen the stage once: [T_ROWS + QB][FP] floats
-        constexpr int PIECES = K::CH / 16;
-#pragma unroll
-        for (int k = 0; k < (T_ROWS + QB) * PIECES / T_THREADS; ++k) {
-          const int e = tid + T_THREADS * k, row = e / PIECES, u = e % PIECES;
-          float x[8];
-          load8<1>(slot + row * K::TP + 16 * u, x);
-          float4* o = reinterpret_cast<float4*>(fb + row * K::FP + 8 * u);
-          o[0] = make_float4(x[0], x[1], x[2], x[3]);
-          o[1] = make_float4(x[4], x[5], x[6], x[7]);
-        }
+        hc::tile::widen<hc::tile::Stage<K::CH, K::CH, QB>, __nv_bfloat16, __nv_bfloat16, K::FP>(
+            slot, fb);
         __syncthreads();
       }
       const float* F = MODE == 1 ? fb : reinterpret_cast<const float*>(slot);
-      const float* pr = F + (wm * 64 + g) * fp;
-      const float* qr = F + (T_ROWS + wn * WN + t4) * fp;
-#pragma unroll
-      for (int d4 = 0; d4 < KC / 4; ++d4) {
-        float4 x[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          x[i] = *reinterpret_cast<const float4*>(pr + 8 * i * fp + 4 * d4);
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const float4 w = *reinterpret_cast<const float4*>(qr + 4 * j * fp + 4 * d4);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            float s = acc[i][j];
-            s = fmaf(w.x, x[i].x, s);
-            s = fmaf(w.y, x[i].y, s);
-            s = fmaf(w.z, x[i].z, s);
-            s = fmaf(w.w, x[i].w, s);
-            acc[i][j] = s;
-          }
-        }
-      }
+      hc::tile::product<QB, KC, fp, fp>(F, F + T_ROWS * fp, acc);
     }
     if (kt == KT - 1) {  // the tile is scored: its halves' triples, then the windows'
       const int r0 = r_begin + tile * T_ROWS + wm * 64;

@@ -39,6 +39,8 @@ SIGNATURES = {
     # q, p, Q, N, D, n_valid, k, thr(float[Q] or NULL), rows_per_split,
     # n_splits, cand_keys(uint64 [S, Q, k]), dtype, stream
     "hc_topk_split": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P],
+    # Q, k, dtype -> queries per block of hc_topk_split (0: k or dtype refused)
+    "hc_topk_split_qb": [_I, _I, _I],
     # q, p, Q, N, D, n_valid, k, rows_per_split, n_splits,
     # cand_keys(uint64 [S, Q, k]), dtype, stream
     "hc_topk_stream": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],

@@ -26,6 +26,7 @@ is a top-k over distinct integers and never depends on how
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,7 +38,8 @@ COUNTS = {"kernel": 0, "plain": 0}
 MAX_K = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ID_BASE = 0x7FFFFFFF
-_MIN_SPLIT_ROWS = 2048
+TILE_ROWS = 128  # passage rows of the split kernel's tile
+MAX_SPLITS = 65535
 _PLAIN_CHUNK = 65536  # rows per [Q, chunk] score tile of the plain twin
 
 
@@ -154,16 +156,41 @@ def fused_topk_block_plain(
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _n_splits(dev: torch.device, n_qtiles: int, rows: int) -> Tuple[int, int]:
-    """(splits, rows per split): about two resident blocks per SM over the
-    grid, each split at least _MIN_SPLIT_ROWS rows, rows a multiple of 64."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-2 * sms // n_qtiles))
-    by_rows = max(1, rows // _MIN_SPLIT_ROWS)
-    splits = max(1, min(want, by_rows, 65535))
-    per = -(-max(rows, 1) // splits)
-    per = -(-per // 64) * 64
-    return -(-max(rows, 1) // per), per
+# waves the split kernel's grid may take to fill its SMs: an unseeded
+# block's first tile passes every score (~7% of a block at Q 256), so
+# unseeded grids take fewer, longer blocks; seeded blocks pay nothing of
+# the kind and take whole waves (probes/probe_torch_v3.py --geometries)
+MAX_WAVES_UNSEEDED = 2
+MAX_WAVES_SEEDED = 8
+
+
+@functools.lru_cache(maxsize=256)
+def split_geometry(Q: int, rows: int, sms: int, qb: int,
+                   max_waves: int = MAX_WAVES_UNSEEDED) -> Tuple[int, int]:
+    """(splits, rows per split) of the split kernel's grid: ceil(Q / qb)
+    query tiles x splits blocks at one block an SM.  Of the split counts
+    whose grid takes at most ``max_waves`` waves over ``sms`` SMs (one
+    split where a single split's grid takes more), the one that fills its
+    waves the most, the fewest of those: whole waves wherever the query
+    tiles allow it (at two waves, Q 1 to 512 and 1,024 at 128 queries a
+    tile over 132 SMs), else the fullest fill below (two waves, Q 513-640:
+    26 splits, one wave on 130 of 132 SMs), never more splits than the
+    rows hold 128-row tiles.  Rows per split are a multiple of TILE_ROWS
+    and the splits cover ``rows`` (the last ones may be short or empty),
+    so every block but the last splits' takes the same number of tiles.
+    0 rows or 0 queries: one split of one tile."""
+    tiles = -(-max(rows, 0) // TILE_ROWS)
+    if Q <= 0 or tiles == 0:
+        return 1, TILE_ROWS
+    n_qt = -(-Q // qb)
+
+    def fill(s: int) -> float:
+        blocks = s * n_qt
+        return blocks / (-(-blocks // sms) * sms)
+
+    top = min(tiles, MAX_SPLITS, max(1, max_waves * sms // n_qt))
+    splits = max(range(1, top + 1), key=lambda s: (fill(s), -s))
+    return splits, -(-tiles // splits) * TILE_ROWS
 
 
 def _check(queries, passages, k, init_scores):
@@ -224,7 +251,10 @@ def fused_topk_block(
     if init_scores is not None:
         seed = init_scores.to(device=dev, dtype=torch.float32).contiguous()
         thr = seed_threshold(seed, k)
-    splits, per = _n_splits(dev, -(-Q // 64), rows)
+    qb = lib.hc_topk_split_qb(Q, k, _DTYPE_CODE[passages.dtype])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = MAX_WAVES_UNSEEDED if thr is None else MAX_WAVES_SEEDED
+    splits, per = split_geometry(Q, rows, sms, qb, waves)
     cand = torch.empty((splits, Q, k), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -37,7 +37,6 @@ from haconvdr_torch.ops.fused_topk import MAX_K as MERGE_MAX_K
 from haconvdr_torch.ops.fused_topk import (
     _PLAIN_CHUNK,
     _finish,
-    _n_splits,
     query_dtype,
     scan_topk_keys,
 )
@@ -95,6 +94,18 @@ def topk_block_v2_plain(
     _check(queries, passages, k, q_tile, p_chunk, group)
     COUNTS["plain"] += 1
     return _finish(scan_topk_keys(queries, passages, n_valid, k, _PLAIN_CHUNK))
+
+
+def _n_splits(dev: torch.device, n_qtiles: int, rows: int) -> Tuple[int, int]:
+    """(splits, rows per split): about two resident blocks per SM over the
+    grid, each split at least 2,048 rows, rows a multiple of 64."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = max(1, -(-2 * sms // n_qtiles))
+    by_rows = max(1, rows // 2048)
+    splits = max(1, min(want, by_rows, 65535))
+    per = -(-max(rows, 1) // splits)
+    per = -(-per // 64) * 64
+    return -(-max(rows, 1) // per), per
 
 
 def topk_block_v2(

@@ -22,12 +22,12 @@ each line with the card's name and power limit:
   build/variants/<name>, timed in two turns beside this checkout's at the
   cases each names, its panels compared with this checkout's bit for bit;
 - with ``--other DIR``: DIR's window kernel (built with DIR's own
-  ``_build.py``, called through its own C interface as DIR's wrapper calls
-  it) and this checkout's default route at Q 1, 8, 64, 256 and 512, in
-  device ms in the order other, this, this, other; the panels (v1, a1,
-  v2) of the two compared bit for bit, and this checkout's against
-  ``rescore_windows`` bit for bit on each query's flagged windows and on
-  random ones.
+  ``_build.py``, called through its own C interface, which must take the
+  route as an argument, as this checkout's does) and this checkout's
+  default route at Q 1, 8, 64, 256 and 512, in device ms in the order other,
+  this, this, other; the panels (v1, a1, v2) of the two compared bit for
+  bit, and this checkout's against ``rescore_windows`` bit for bit on
+  each query's flagged windows and on random ones.
 
 Any disagreement exits 1.
 """
@@ -63,19 +63,22 @@ def edits(**kw):
             for k, v in kw.items()]
 
 
-def lit(old: str, new: str):
-    """A text edit of csrc/topk_v4.cu: the one occurrence of ``old``."""
-    return [("topk_v4.cu", re.compile(re.escape(old)), new)]
+def lit(old: str, new: str, src: str = "topk_v4.cu"):
+    """A text edit of csrc/<src>: the one occurrence of ``old``."""
+    return [(src, re.compile(re.escape(old)), new)]
 
 
 # route B's main loop under text edits that take one part away (wrong
 # answers; timed only): the shared-memory loads of the operands (values
-# made in registers instead), the copies after the first stages, the block
-# barrier of each stage
-B_NO_LDS = lit("x[i] = *reinterpret_cast<const float4*>(pr + 8 * i * fp + 4 * d4);",
-               "x[i] = make_float4((float)(st + i), (float)d4, (float)kt, (float)tid);") + lit(
-    "const float4 w = *reinterpret_cast<const float4*>(qr + 4 * j * fp + 4 * d4);",
-    "const float4 w = make_float4((float)(st + j), (float)d4, (float)tile, (float)lane);")
+# made in registers from the stage's address instead: the product of
+# csrc/tile_fmaf.cuh, which row 2 shares), the copies after the first
+# stages, the block barrier of each stage
+B_NO_LDS = lit("x[i] = *reinterpret_cast<const float4*>(pr + 8 * i * FPP + 4 * d4);",
+               "x[i] = make_float4((float)(uintptr_t)pr, (float)d4, (float)i, (float)lane);",
+               "tile_fmaf.cuh") + lit(
+    "const float4 w = *reinterpret_cast<const float4*>(qr + 4 * j * FPQ + 4 * d4);",
+    "const float4 w = make_float4((float)(uintptr_t)qr, (float)d4, (float)j, (float)warp);",
+    "tile_fmaf.cuh")
 B_NO_REFILL = lit("if (st + K::STAGES - 1 < steps) fill_stage(", "if (false) fill_stage(")
 B_NO_BARRIER = lit("__syncthreads();  // step st is in;", "__syncwarp();  // step st is in;")
 
@@ -169,20 +172,19 @@ def bounds(name: str, route: str, Q: int, p: torch.Tensor):
 
 
 def other_window(lib, q, p, n_valid, sw):
-    """DIR's window kernel through its own C interface, with the grid its
-    wrapper computes (64-query tiles, about two blocks an SM)."""
+    """DIR's window kernel through its own C interface, on the route this
+    checkout's window_route names for Q (route 0 A, 1 B, 2 C; the kernel
+    sizes its own grid)."""
     Q, D = q.shape
     N = p.shape[0]
     W = -(-N // sw)
-    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
-    want = max(1, -(-2 * sms // -(-Q // 64)))
-    per = -(-W // max(1, min(want, W, 65535)))
     dev = p.device
     v1 = torch.empty((W, Q), dtype=torch.float32, device=dev)
     a1 = torch.empty((W, Q), dtype=torch.int32, device=dev)
     v2 = torch.empty((W, Q), dtype=torch.float32, device=dev)
-    err = lib.hc_window_top2(q.data_ptr(), p.data_ptr(), Q, N, D, n_valid, sw, W, per,
-                             -(-W // per), v1.data_ptr(), a1.data_ptr(), v2.data_ptr(),
+    route = {"a": 0, "b": 1, "c": 2}[v4.window_route(Q, p.dtype, D)]
+    err = lib.hc_window_top2(q.data_ptr(), p.data_ptr(), Q, N, D, n_valid, sw, W, route,
+                             v1.data_ptr(), a1.data_ptr(), v2.data_ptr(),
                              {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[p.dtype],
                              torch.cuda.current_stream().cuda_stream)
     if err:

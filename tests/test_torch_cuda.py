@@ -115,6 +115,133 @@ def test_topk_kernel_small_and_tied(dev):
     assert bool((i[:, 7:] == -1).all()) and bool(torch.isneginf(s[:, 7:]).all())
 
 
+# The split kernel's tiles (64 or 128 queries, 128 rows), its filter and its
+# candidate lists, on inputs whose scores are exact integers: small integer
+# operands, so the fmaf chain and the plain twin's matmul give the same
+# floats, and ties are everywhere (the order (score desc, id asc) then
+# decides every id).  Every case is held to the twin exactly.
+
+def _int_operands(gen, dev, Q, N, D, dtype, lo=-8, hi=9):
+    q = torch.randint(lo, hi, (Q, D), device=dev, generator=gen).float()
+    p = torch.randint(lo, hi, (N, D), device=dev, generator=gen)
+    return q, p.to(dtype) if dtype != torch.float32 else p.float()
+
+
+def _topk_exact(q, p, n_valid, k, init=None):
+    from haconvdr_torch.ops import fused_topk as ft
+
+    before = ft.COUNTS["kernel"]
+    s, i = ft.fused_topk_block(q, p, n_valid, k, init_scores=init)
+    torch.cuda.synchronize()
+    assert ft.COUNTS["kernel"] == before + 1
+    rs, ri = ft.fused_topk_block_plain(q, p, n_valid, k, init_scores=init)
+    assert torch.equal(s, rs) and torch.equal(i, ri)
+    assert int(i.max()) < n_valid
+    return s, i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("D", [64, 768])
+@pytest.mark.parametrize("Q", [1, 7, 64, 65, 129, 256])
+def test_topk_kernel_query_tiles_exact(dev, gen, dtype, D, Q):
+    """Each query count (64-query tiles up to Q 64, 128 past it, partial
+    tiles), D 64 and 768, n_valid not a multiple of 128 with rows past it
+    that would win; f32, bf16 and the int8 mode (bf16 queries)."""
+    q, p = _int_operands(gen, dev, Q, 30_000, D, dtype)
+    p[29_937:] = 8  # past n_valid: would win every query with a positive sum
+    _topk_exact(q, p, 29_937, 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Q", [65, 256])
+@pytest.mark.parametrize("k", [1, 37, 100, 128])
+def test_topk_kernel_k_exact(dev, gen, dtype, Q, k):
+    """k 1 to 128: at k 128 the buffers of 128 queries do not fit beside the
+    stages, and the kernel takes 64-query tiles."""
+    from haconvdr_torch.ops import _build
+    from haconvdr_torch.ops.fused_topk import _DTYPE_CODE
+
+    q, p = _int_operands(gen, dev, Q, 20_000, 768, dtype)
+    _topk_exact(q, p, 19_999, k)
+    qb = _build.library().hc_topk_split_qb(Q, k, _DTYPE_CODE[dtype])
+    assert qb == (64 if k == 128 else 128)
+
+
+@pytest.mark.parametrize("Q", [1, 129])
+def test_topk_kernel_fewer_rows_than_k(dev, gen, Q):
+    q, p = _int_operands(gen, dev, Q, 500, 768, torch.float32)
+    s, i = _topk_exact(q, p, 90, 100)
+    assert bool((i[:, 90:] == -1).all()) and bool(torch.isneginf(s[:, 90:]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_topk_kernel_duplicate_rows_tie_to_lower_id(dev, gen, dtype):
+    """Each of 600 rows copied 50 times across the block (other tiles and
+    other splits): each tie class comes back whole, in id order."""
+    q, base = _int_operands(gen, dev, 129, 600, 768, dtype, -3, 4)
+    p = base.repeat(50, 1)
+    s, i = _topk_exact(q, p, p.shape[0], 128)
+    for r in (0, 64, 128):
+        row = list(zip((-s[r]).tolist(), i[r].tolist()))
+        assert row == sorted(row) and len(set(s[r].tolist())) < 128
+
+
+@pytest.mark.parametrize("Q", [7, 129])
+def test_topk_kernel_every_score_passes(dev, Q):
+    """Scores that rise with the row: every row beats every earlier one, so
+    every score of every tile passes the filter (the first tile's 128 x QB
+    survivors and every later tile's) and enters its buffer."""
+    N, D = 40_000, 64
+    p = torch.zeros(N, D, device=dev)
+    p[:, 0] = torch.arange(N, device=dev, dtype=torch.float32)
+    q = torch.zeros(Q, D, device=dev)
+    q[:, 0] = torch.arange(1, Q + 1, device=dev, dtype=torch.float32)
+    s, i = _topk_exact(q, p, N - 5, 100)
+    assert torch.equal(i[0], torch.arange(N - 6, N - 106, -1, device=dev, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("Q", [1, 64, 129, 256])
+def test_topk_kernel_int8_codes_exact(dev, gen, Q):
+    """The int8 mode with int8 codes as queries (v4's fallback): every
+    score an exact integer, equal to the plain twin's, ids identical."""
+    from haconvdr_torch.index.quantize import quantize_queries_int8
+
+    codes, scale = _int8_index(gen, dev, 30_000, 768)
+    q8 = quantize_queries_int8(torch.randn(Q, 768, device=dev, generator=gen) * scale)[0]
+    s, _ = _topk_exact(q8, codes, 29_001, 100)
+    assert torch.equal(s, s.round())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Q", [7, 129])
+def test_topk_kernel_seeded_is_top_k_of_unseeded_and_seed(dev, gen, dtype, Q):
+    """The seeded answer equals, key for key, the top k of the unseeded
+    answer joined with the seed's entries (id -1)."""
+    from haconvdr_torch.ops import fused_topk as ft
+
+    k = 100
+    q = torch.randn(Q, 768, device=dev, generator=gen)
+    p = torch.randn(50_000, 768, device=dev, generator=gen)
+    if dtype == torch.int8:
+        from haconvdr_torch.index.quantize import quantize_int8_torch
+
+        p, scale = quantize_int8_torch(p)
+        q = q * scale
+    else:
+        p = p.to(dtype)
+    s, i = ft.fused_topk_block(q, p, 49_500, k)
+    ref = torch.sort(s.float(), dim=1, descending=True).values
+    # a seed interleaving with the block's own top rows, with repeats
+    init = torch.cat([ref[:, 5:60:2], ref[:, 5:60:2], ref[:, 50:94] - 1.0], dim=1).contiguous()
+    assert init.shape[1] == k  # a threshold: its k-th largest value
+    ss, si = ft.fused_topk_block(q, p, 49_500, k, init_scores=init)
+    torch.cuda.synchronize()
+    minus_one = torch.full((1, 1), -1, dtype=torch.int64, device=dev)
+    want = ft.top_keys(torch.cat([ft.order_keys(s, i), ft.order_keys(init, minus_one)], 1), k)
+    assert torch.equal(ft.order_keys(ss, si), want)
+    assert bool((si == -1).any()) and bool((si >= 0).any())
+
+
 # --- the streaming top-k (ops/topk_stream.py) ------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

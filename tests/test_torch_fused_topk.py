@@ -195,3 +195,93 @@ def test_int8_mode_matches_kernel(rng, queries):
     if queries == "codes":
         full = q.astype(np.int64) @ codes[:1000].astype(np.int64).T
         np.testing.assert_array_equal(s, -np.sort(-full, axis=1)[:, :10].astype(np.float32))
+
+
+# --- the split kernel's grid (split_geometry, a pure function) -------------
+
+@pytest.mark.parametrize("rows", [2_499_000, 2_500_000, 625_000, 500_000, 1_000, 128, 1])
+@pytest.mark.parametrize("Q", [1, 7, 64, 65, 256, 512, 1000, 1024])
+def test_split_geometry_covers_the_rows_in_whole_waves(Q, rows):
+    """The splits cover exactly ``rows`` (each row in one split; splits past
+    the rows, at the end, are empty), rows a split are a multiple of 128, splits <= 65,535, and the grid
+    (query tiles x splits) is a whole number of waves of 132 SMs at one
+    block an SM wherever the rows hold enough 128-row tiles."""
+    from haconvdr_torch.ops.fused_topk import MAX_SPLITS, TILE_ROWS, split_geometry
+
+    qb = 64 if Q <= 64 else 128
+    splits, per = split_geometry(Q, rows, 132, qb)
+    assert per % TILE_ROWS == 0 and 1 <= splits <= MAX_SPLITS
+    starts = [s * per for s in range(splits)]
+    covered = sum(max(0, min(rows, a + per) - a) for a in starts)
+    assert covered == rows
+    tiles = -(-rows // TILE_ROWS)
+    blocks = -(-Q // qb) * splits
+    if tiles >= 132:
+        assert blocks % 132 == 0
+        # every block takes the same number of tiles, but for the last split
+        assert per // TILE_ROWS == -(-tiles // splits)
+    else:
+        assert splits == min(tiles, 132)
+
+
+@pytest.mark.parametrize("Q, qb, want", [(1, 64, 132), (64, 64, 132), (65, 128, 132),
+                                         (256, 128, 66), (512, 128, 33), (1024, 128, 33)])
+def test_split_geometry_splits_at_the_reference_scale(Q, qb, want):
+    """2,500,000 rows (one block of the reference's index): one wave at Q 1
+    to 512, two at 1,024 (8 query tiles)."""
+    from haconvdr_torch.ops.fused_topk import split_geometry
+
+    splits, per = split_geometry(Q, 2_500_000, 132, qb)
+    assert splits == want and splits * per >= 2_500_000 > (splits - 1) * per
+
+
+@pytest.mark.parametrize("Q, rows", [(0, 1000), (5, 0), (0, 0), (3, -4)])
+def test_split_geometry_empty(Q, rows):
+    from haconvdr_torch.ops.fused_topk import TILE_ROWS, split_geometry
+
+    assert split_geometry(Q, rows, 132, 64) == (1, TILE_ROWS)
+
+
+def test_split_geometry_other_sm_counts():
+    """An SM count the query tiles do not divide: the fewest splits that
+    make whole waves (132 SMs, 8 tiles: 33 splits; 114 SMs, 3 tiles: 38);
+    past two waves' worth of query tiles, one split."""
+    from haconvdr_torch.ops.fused_topk import split_geometry
+
+    assert split_geometry(1024, 10_000_000, 132, 128)[0] == 33
+    assert split_geometry(384, 10_000_000, 114, 128)[0] == 38
+    assert split_geometry(10**6, 10_000_000, 132, 128)[0] == 1  # 7,813 tiles, 60 waves
+
+
+@pytest.mark.parametrize("Q, qb, want, waves", [
+    (640, 128, 26, 1), (513, 128, 26, 1), (896, 128, 37, 2), (769, 128, 37, 2),
+    (384, 128, 44, 1), (768, 128, 22, 1), (1024, 64, 8, 1), (961, 64, 8, 1)])
+def test_split_geometry_caps_the_waves_where_the_tiles_do_not_divide(Q, qb, want, waves):
+    """Query tiles that share no factor with 132 SMs (5 and 7 at Q 513-640
+    and 769-896) would take 132 splits and 5-7 waves to fill whole waves;
+    the grid stays within two waves at 98% of the SMs or more, and 16 tiles
+    (64-query tiles at Q 1,024) within one at 97%.  Q 257-384 and 641-768
+    still fill one wave exactly."""
+    from haconvdr_torch.ops.fused_topk import TILE_ROWS, split_geometry
+
+    splits, per = split_geometry(Q, 2_500_000, 132, qb)
+    blocks = -(-Q // qb) * splits
+    assert (splits, -(-blocks // 132)) == (want, waves)
+    assert blocks >= 0.969 * 132 * waves
+    assert per % TILE_ROWS == 0 and splits * per >= 2_500_000 > (splits - 1) * per
+
+
+@pytest.mark.parametrize("Q, qb, want, waves", [
+    (640, 128, 132, 5), (896, 128, 132, 7), (1024, 64, 33, 4), (256, 128, 66, 1),
+    (1024, 128, 33, 2), (10**6, 128, 1, 60)])
+def test_split_geometry_seeded_grids_take_whole_waves(Q, qb, want, waves):
+    """The seeded cap (MAX_WAVES_SEEDED, eight waves): whole waves wherever
+    eight waves allow it, the fewest splits that make them; the same grid
+    as the unseeded cap where that one fills whole waves too; one split
+    past eight waves' worth of query tiles."""
+    from haconvdr_torch.ops.fused_topk import MAX_WAVES_SEEDED, split_geometry
+
+    splits, per = split_geometry(Q, 2_500_000, 132, qb, MAX_WAVES_SEEDED)
+    blocks = -(-Q // qb) * splits
+    assert (splits, -(-blocks // 132)) == (want, waves)
+    assert splits * per >= 2_500_000 > (splits - 1) * per
