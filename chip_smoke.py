@@ -20,7 +20,9 @@ order; any failure raises and the script exits non-zero:
    tiled routes, at 64), at Q 1 and 64, where it must also equal
    rescore_windows bit for bit on each query's own flagged windows, with a
    context line timing torch.matmul of the same float32 operands at Q 256
-   (scores only); the rescore kernel; the select kernel in both
+   (scores only); the rescore kernel (row 5) at Q 1, 8 and 256 on 7
+   random windows and an empty slot a query, bit for bit against the
+   window kernel's max, its row and second max; the select kernel in both
    layouts at Q 256, 7 and 1, split (the path's route) and in one launch,
    on the panels the path hands it: the window maxima v1T [W, Q] at k 100
    and the flagged second maxima at k = budget (both cold), the pool
@@ -51,7 +53,9 @@ order; any failure raises and the script exits non-zero:
    ms, SDPA ms (row 12: SDPA's backward alone, then forward + backward
    against SDPA's forward + backward), bound ms and ms / SDPA, with the
    card's name and power limit; one per case of rows 8-10 and of row
-   7 past k 128: ms, plain ms, library ms, bound ms and ms / bound; and
+   7 (k 100, 129 and 1,024, device ms): ms, plain ms, library ms, bound
+   ms and ms / bound; one per mode and Q (1, 8, 256) of row 5: device
+   ms, bound ms, ms / bound and plain ms; and
    one per mode and Q (1, 64, 256) of row 3: device ms, the route, the
    bound at the route's rate and ms / that bound; one per mode, Q of
    ROW2_QS and seed of row 2: device ms, plain ms, the bound at the
@@ -270,6 +274,8 @@ ROW2_QS = (1, 64, Q_KERNEL, 512)
 # row 3 (the window kernel) beside Q_KERNEL: a single request, and the
 # largest dispatch of BatchingRetriever(max_batch=64)
 WINDOW_QS = (1, 64)
+# row 5 (the rescore kernel): a single request, a small batch, Q_KERNEL
+RESCORE_QS = (1, 8, Q_KERNEL)
 # the rate each route of row 3 does its operations at: fmaf on the CUDA
 # cores (A and B, float modes), dp4a (A, int8: four int8 products an
 # instruction at the fmaf rate), the int8 tensor cores (C)
@@ -606,8 +612,10 @@ def print_redesigned(rows, card: str) -> None:
     library call's (SDPA or torch.topk), the bound and the kernel's time
     over the library call's; row 12 against SDPA's backward alone, then
     its forward + backward against SDPA's forward + backward.  Rows 8-10
-    per case and row 7 past k 128: ms, plain ms, library ms (or none),
-    bound and ms / bound.  Row 3 (the window kernel) per mode at Q 1, 64
+    per case and row 7 (k 100 in float32 and bfloat16, k 129 and 1,024 in
+    float32): ms (row 7: device), plain ms, library ms (or none), bound and
+    ms / bound.  Row 5 (the rescore kernel) per mode at Q 1, 8 and 256:
+    device ms, the bound, ms / bound and the plain twin's ms.  Row 3 (the window kernel) per mode at Q 1, 64
     and 256: device ms, its route, the bound at the route's rate, ms / that
     bound and the plain twin's ms.  Row 2 (the v3 kernel) per mode, Q of
     ROW2_QS and seed: device ms, plain ms, the bound at the passages' type
@@ -636,8 +644,14 @@ def print_redesigned(rows, card: str) -> None:
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}), ms / torch.topk "
                   f"{r['ms'] / r['library_ms']:.2f} [{card}]")
             continue
-        if r["kernel"] in ("fused_ln", "fused_ln_quant", "fused_mlp") or (
-                r["kernel"] == "topk_stream" and ", k " in r["config"]):
+        if r["kernel"] == "rescore_windows":
+            mode, _, q = r["config"].partition(", Q ")
+            print(f"redesigned rescore_windows [{mode}, Q {q or Q_KERNEL}] {r['shape']}: "
+                  f"{r['ms']:.4f} ms device, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                  f"ms / bound {r['ms'] / r['bound_ms']:.2f}; plain {r['plain_ms']:.4f} ms "
+                  f"[{card}]")
+            continue
+        if r["kernel"] in ("fused_ln", "fused_ln_quant", "fused_mlp", "topk_stream"):
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
             print(f"redesigned {r['kernel']} [{r['config']}] {r['shape']}: {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.5f} ms "
@@ -678,8 +692,8 @@ def kernels_stream(dev, g, passages_f32, rows):
         check(torch.equal(s, vs) and torch.equal(i, vi),
               f"topk_stream {name}: not bit-equal to the unseeded v3 kernel")
         rows.append(dict(kernel="topk_stream", config=name, max_abs_err=err,
-                         # on no path: one timed call each, warm from the checks
-                         ms=cuda_ms(lambda: ts.topk_block_v2(q, p, n_valid, TOP_K), 1, 0),
+                         ms=device_ms(lambda: ts.topk_block_v2(q, p, n_valid, TOP_K), 3),
+                         # one warm call each
                          plain_ms=cuda_ms(
                              lambda: ts.topk_block_v2_plain(q, p, n_valid, TOP_K), 1, 0),
                          v3_ms=cuda_ms(lambda: fused_topk_block(q, p, n_valid, TOP_K), 1, 0),
@@ -687,8 +701,8 @@ def kernels_stream(dev, g, passages_f32, rows):
                          shape=[Q_KERNEL, N_STREAM, DIM, TOP_K],
                          **search_bound(p, Q_KERNEL, n_valid, name, Q_KERNEL * TOP_K * 8)))
         del p, s, i, rs, ri, vs, vi
-    # k past 128 (fewer queries a block, the wide merge), float32: against the
-    # twin only (the v3 kernel takes k <= 128)
+    # k past 128 (the buffers in device memory, the wide merge), float32:
+    # against the twin only (the v3 kernel takes k <= 128)
     p = passages_f32[:N_STREAM]
     for k in STREAM_WIDE_K:
         s, i = ts.topk_block_v2(q, p, n_valid, k)
@@ -697,9 +711,7 @@ def kernels_stream(dev, g, passages_f32, rows):
         err = compare_topk(s, i, rs, ri, f"topk_stream float32 k {k}")
         check(int(i.max()) < n_valid, f"topk_stream k {k}: a row past n_valid surfaced")
         rows.append(dict(kernel="topk_stream", config=f"float32, k {k}", max_abs_err=err,
-                         # one timed call each (the checked calls warmed them): k
-                         # 1,024 takes ~0.2 s a call
-                         ms=cuda_ms(lambda: ts.topk_block_v2(q, p, n_valid, k), 1, 0),
+                         ms=device_ms(lambda: ts.topk_block_v2(q, p, n_valid, k), 3),
                          plain_ms=cuda_ms(lambda: ts.topk_block_v2_plain(q, p, n_valid, k), 1, 0),
                          library_ms=None, shape=[Q_KERNEL, N_STREAM, DIM, k],
                          **search_bound(p, Q_KERNEL, n_valid, "float32", Q_KERNEL * k * 8)))
@@ -778,6 +790,50 @@ def window_row(name: str, q, p, n_valid: int, sw: int, budget: int, rows) -> Non
                      **search_bound(p, Q, n_valid, name, 3 * got[0].numel() * 4)))
 
 
+def rescore_row(name: str, q, p, win, panels, n_valid: int, sw: int, rows) -> None:
+    """Row 5 at Q = q.shape[0] (RESCORE_QS) on win [Q, 8] (7 windows and an
+    empty slot a query): against the plain twin, bit for bit against the
+    window kernel's panels of the same queries (the rows' max, its row and
+    the second max), the empty slot -inf; then timed in device ms beside
+    its bound (the distinct windows read once) and the plain twin."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    v1, a1, v2 = panels
+    Q, B = win.shape
+    exact = name == "int8"
+    tag = name if Q == Q_KERNEL else f"{name}, Q {Q}"
+    resc = v4.rescore_windows(p, q, win, sw, n_valid)
+    torch.cuda.synchronize()
+    ref = v4.rescore_windows_plain(p, q, win, sw, n_valid)
+    fin = torch.isfinite(ref)
+    check(torch.equal(fin, torch.isfinite(resc)), f"rescore {tag}: -inf differs")
+    d = (resc[fin] - ref[fin]).abs()
+    check(bool((d <= (0.0 if exact else 1e-4) * ref[fin].abs() + (0 if exact else 1e-4)).all()),
+          f"rescore {tag}: beyond tolerance ({float(d.max())})")
+    r3 = resc.view(Q, B, sw)[:, : B - 1]
+    qi = torch.arange(Q, device=p.device)[:, None].expand(-1, B - 1)
+    w = win[:, : B - 1].long()
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    top = r3.amax(2)
+    pos = torch.where(r3 == top[..., None], torch.arange(sw, device=p.device), sw).amin(2)
+    check(torch.equal(bits(top), bits(v1[w, qi])), f"rescore {tag}: max != window v1")
+    check(torch.equal(pos + w * sw, a1[w, qi].long()), f"rescore {tag}: its row != window a1")
+    check(torch.equal(bits(r3.scatter(2, pos[..., None], float("-inf")).amax(2)),
+                      bits(v2[w, qi])), f"rescore {tag}: second max != window v2")
+    check(bool(torch.isneginf(resc.view(Q, B, sw)[:, -1]).all()),
+          f"rescore {tag}: empty slot not -inf")
+    # the distinct windows this run's queries name, each read once
+    n_win = int(torch.unique(win[win >= 0]).numel())
+    rows.append(dict(kernel="rescore_windows", config=tag, max_abs_err=float(d.max()),
+                     ms=device_ms(lambda: v4.rescore_windows(p, q, win, sw, n_valid)),
+                     plain_ms=cuda_ms(lambda: v4.rescore_windows_plain(p, q, win, sw, n_valid), 3),
+                     library_ms=None, shape=[Q, B, sw, DIM],
+                     **bound_row(2.0 * Q * (B - 1) * sw * DIM,
+                                 n_win * sw * DIM * p.element_size() + q.numel()
+                                 * q.element_size() + win.numel() * 4 + resc.numel() * 4,
+                                 PEAK_OF[name])))
+
+
 def v4_operands(dev, g, passages_f32, codes, scale):
     """Per dtype: (queries in the kernels' dtype, passages, folded float
     queries for topk_block_v4)."""
@@ -824,41 +880,17 @@ def kernels_v4(dev, g, passages_f32, codes, scale, rows):
             mm_ms = device_ms(lambda: torch.matmul(q, p.T), 3)
             print(f"context: torch.matmul float32 [{Q_KERNEL}, {DIM}] x [{DIM}, {N_ROWS}] "
                   f"(scores only, no window triples) {mm_ms:.4f} ms device [{card_line()}]")
-        # -- rescore: budget 8 random windows, bit for bit against the window kernel
+        # -- rescore: 7 random windows and an empty slot a query, at Q 1, 8 and
+        # Q_KERNEL, bit for bit against the window kernel's panels
         W = v1.shape[0]
         win = torch.randint(0, W, (Q_KERNEL, 8), device=dev, generator=g, dtype=torch.int32)
         win[:, -1] = -1  # an empty slot
-        resc = v4.rescore_windows(p, q, win, sw, n_valid)
-        torch.cuda.synchronize()
-        ref = v4.rescore_windows_plain(p, q, win, sw, n_valid)
-        fin = torch.isfinite(ref)
-        check(torch.equal(fin, torch.isfinite(resc)), f"rescore {name}: -inf differs")
-        d = (resc[fin] - ref[fin]).abs()
-        check(bool((d <= (0.0 if exact else 1e-4) * ref[fin].abs() + (0 if exact else 1e-4)).all()),
-              f"rescore {name}: beyond tolerance ({float(d.max())})")
-        r3 = resc.view(Q_KERNEL, 8, sw)[:, :7]
-        qi = torch.arange(Q_KERNEL, device=dev)[:, None].expand(-1, 7)
-        w = win[:, :7].long()
-        check(torch.equal(r3.amax(2), v1[w, qi]), f"rescore {name}: max != window v1")
-        pos = a1[w, qi].long() - w * sw
-        check(torch.equal(r3.scatter(2, pos[..., None], float("-inf")).amax(2), v2[w, qi]),
-              f"rescore {name}: second max != window v2")
-        check(bool(torch.isneginf(resc.view(Q_KERNEL, 8, sw)[:, -1]).all()),
-              f"rescore {name}: empty slot not -inf")
-        # the distinct windows this run's queries name, each read once
-        n_win = int(torch.unique(win[win >= 0]).numel())
-        rows.append(dict(kernel="rescore_windows", config=name, max_abs_err=float(d.max()),
-                         ms=cuda_ms(lambda: v4.rescore_windows(p, q, win, sw, n_valid), 3),
-                         plain_ms=cuda_ms(
-                             lambda: v4.rescore_windows_plain(p, q, win, sw, n_valid), 3),
-                         library_ms=None, shape=[Q_KERNEL, 8, sw, DIM],
-                         **bound_row(2.0 * Q_KERNEL * 7 * sw * DIM,
-                                     n_win * sw * DIM * p.element_size() + q.numel()
-                                     * q.element_size() + win.numel() * 4 + resc.numel() * 4,
-                                     PEAK_OF[name])))
+        for Qr in RESCORE_QS:
+            rescore_row(name, q[:Qr].contiguous(), p, win[:Qr].contiguous(), (v1, a1, v2),
+                        n_valid, sw, rows)
         if name == "float32":  # select panels from real window scores
             panels = select_panels(v1, r2, sw, budget)
-        del v1, a1, v2, r1, ra, r2, resc, ref
+        del v1, a1, v2, r1, ra, r2
         # -- the whole v4 search against the plain exact top-k
         s, i = v4.topk_block_v4(qf, p, n_valid, TOP_K)
         torch.cuda.synchronize()

@@ -32,7 +32,7 @@ Layers, entry point first:
   ops/topk                  block_topk routing, merges, BlockSearcher
   ops/topk_v4               CUDA kernels: v4 window top-2, select, rescore
   ops/fused_topk            CUDA kernel: fused score matmul + exact top-k
-  ops/topk_stream           CUDA kernel: cp.async streaming top-k (on no path)
+  ops/topk_stream           CUDA kernel: v3's split pass unseeded, k <= 1,024 (on no path)
   ops/fused_attention       CUDA kernel: inference attention, fused QKV
   ops/flash_attention       CUDA kernels: trainable attention fwd + bwd
   ops/fused_ln, fused_mlp   CUDA kernels: the int8 tower's LN and MLP

@@ -11,9 +11,9 @@
 //
 // Score arithmetic (shared with fused_topk.cu, so that a row scores the
 // same float in every kernel): float modes convert each operand to float
-// and run one fmaf chain over d = 0 .. D-1, zero-padded to a multiple of
-// DK, from 0.0f (zeros add nothing to the chain, so the window kernel pads
-// to its own stage depth); the int8 x int8 mode sums products in int32
+// and run one fmaf chain over d = 0 .. D-1 from 0.0f, zero-padded to the
+// kernel's own stage depth (zeros add nothing to the chain); the int8 x
+// int8 mode sums products in int32
 // (__dp4a; mma.sync in the window kernel's route C), which is exact
 // (|s| <= 768 * 127^2 < 2^24) in any order, and converts to float once.
 //
@@ -32,9 +32,6 @@
 #include "topk_keys.cuh"
 
 namespace {
-
-constexpr int DK = 32;   // depth per shared-memory stage (floats, or int8x4 words)
-constexpr int RS_NT = 256;      // threads (= rows per pass) of a rescore block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -617,85 +614,203 @@ __global__ void __launch_bounds__(T_THREADS, MODE == 2 ? C_MIN_BLOCKS : B_MIN_BL
 }  // namespace window
 
 // ---------------------------------------------------------------------------
-// 2. rescore_kernel (replaces _rescore_kernel, pallas_topk_v4.py:522)
+// 2. rescore_stream (replaces _rescore_kernel, pallas_topk_v4.py:522)
 //
-// Bound on the H100: memory.  Each (query, slot) reads one whole [sw, D]
-// window (786 KB in f32 at sw = 256): Q * budget windows per search, 1.6
-// GB at Q = 256, budget 8, against 0.4 GFLOP.
+// out[q, b * sw + r] is query q's score of row win_ids[q, b] * sw + r;
+// rows at or past n_valid and every row of a slot whose window id is
+// negative (no flagged window; nothing is read for it) come out -inf.
 //
-// Design: one block per (query, budget slot); the TPU's 8-row query groups
-// are a block-shape rule of Mosaic and are dropped.  The block stages the
-// window through shared memory DK columns at a time with coalesced row
-// reads, and each thread runs its row's score chain exactly as the window
-// kernel does (same conversions, same fmaf order, same zero padding), so a
-// rescored row equals the window kernel's value for it bit for bit.  A
-// slot whose window id is negative (no flagged window) and rows at or past
-// n_valid come out -inf; the TPU gathers window 0 for such slots and masks
-// afterwards.
+// Bound on the H100: the bytes of the flagged windows, each read once
+// (sw x D x the element size, 786 KB in f32 at sw 256: seven windows a
+// query at Q 256 are 1.29 GB, 0.386 ms at 3.35 TB/s); each row costs 2 D
+// operations, 256 times fewer a byte than the window kernel's at Q 256.
+//
+// Design: route A's streaming (section 1) with one query.  The grid is a
+// list of warp tasks (query, slot, piece), the pieces of a window
+// neighbours, one warp a block; a piece is ROWS rows of the slot's window,
+// one a lane (a single request's seven windows at sw 256 give 112 warps).
+// Each warp is its own task: it starts its ring's 16-byte cp.async copies
+// of whole rows (2-byte loads off the 16-byte path), stages its query into
+// its own shared memory (floats, or int8 words) while they are in flight,
+// runs each row's chain in d order and stores its rows' scores; no block
+// barrier, no merge.  A row's chain is the window kernel's (the same
+// conversions, one fmaf chain from 0.0f in d order, zeros past D; in int8
+// the exact int32 dp4a sum), so a rescored row equals the window kernel's
+// value for it bit for bit.
 // ---------------------------------------------------------------------------
+namespace rescore {
+
+// pieces of 16 rows, one a lane (lanes 16-31 only copy), two 256-byte
+// stages, one warp a block, so that a single request's rows spread over
+// as many warps and SMs as they can (probes/probe_torch_rescore.py
+// --variants: 32-row pieces and three stages were slower; 8-row pieces
+// faster at Q 1 only; 512-byte stages 0.5-1.5% faster in float32 at Q 8
+// and 256, slower elsewhere; two rows a lane in 64-row pieces faster only
+// at 32,768 rows, by 2.4 us at Q 16, and slower at Q 32 to 256)
+constexpr int ROWS = 16;
+constexpr int LANES = ROWS;          // lanes that score rows
+constexpr int CH = 256;              // bytes of a row a stage
+constexpr int PITCH = CH + 16;       // bytes between staged rows: 8 rows fill the banks
+constexpr int STAGES = 2;
+constexpr int BYTES = STAGES * ROWS * PITCH;  // a warp's ring
+static_assert(CH % 16 == 0, "16-byte pieces");
+static_assert(ROWS <= 32, "one row a lane");
+
+// bytes of a staged query: floats (float modes), int8 words (mode 2), in
+// chunks of CH bytes of a row
 template <int MODE>
-__global__ void __launch_bounds__(RS_NT) rescore_kernel(
-    const void* __restrict__ q_, const void* __restrict__ p_, int D, int row_end, int sw,
-    int B, const int* __restrict__ win_ids, float* __restrict__ out) {
-  __shared__ float qs[DK];
-  __shared__ float ps[RS_NT * (DK + 1)];
-  const int tid = threadIdx.x;
-  const int qb = blockIdx.x;  // query * B + slot
-  const int q = qb / B;
-  const int win = win_ids[qb];
-  float* o = out + (size_t)qb * sw;
-  if (win < 0) {
-    for (int r = tid; r < sw; r += RS_NT) o[r] = -INFINITY;
+int query_bytes(int D) {
+  const int size = window::Elem<MODE>::SIZE;
+  const int nch = (D * size + CH - 1) / CH;
+  return nch * (MODE == 2 ? CH : CH / size * 4);
+}
+
+// query q into qs, nch chunks of CH bytes of a row, zeros past D; the
+// lanes of one warp, 16 bytes a load where `vec` (16-byte rows and base)
+template <int MODE>
+__device__ __forceinline__ void stage_query(const void* __restrict__ q_, int D, int q, int nch,
+                                            bool vec, unsigned char* qs) {
+  using T = typename window::Elem<MODE>::T;
+  constexpr int SIZE = window::Elem<MODE>::SIZE;
+  const int lane = threadIdx.x & 31;
+  const T* qr = static_cast<const T*>(q_) + (size_t)q * D;
+  const int n16 = nch * (CH / 16);  // 16-byte pieces of the staged row
+  if (vec) {
+    constexpr int PER = 16 / SIZE;  // elements of a piece
+#pragma unroll 4
+    for (int v = lane; v < n16; v += 32) {
+      const uint4 u = v * PER < D ? __ldg(reinterpret_cast<const uint4*>(qr) + v)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (MODE == 1) {  // 8 bf16 widened: 32 bytes of floats
+        float4* o = reinterpret_cast<float4*>(qs) + 2 * v;
+        o[0] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                           __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+        o[1] = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
+                           __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
+      } else {  // floats, or int8 words, as they are
+        reinterpret_cast<uint4*>(qs)[v] = u;
+      }
+    }
     return;
   }
-  const int row0 = win * sw;
-  for (int rb = 0; rb < sw; rb += RS_NT) {
-    float score;
-    if constexpr (MODE == 2) {
-      const int D4 = D / 4;
-      const int* q4 = static_cast<const int*>(q_) + (size_t)q * D4;
-      const int* p4 = static_cast<const int*>(p_);
-      int* qsi = reinterpret_cast<int*>(qs);
-      int* psi = reinterpret_cast<int*>(ps);
-      int acc = 0;
-      for (int d0 = 0; d0 < D4; d0 += DK) {
-        __syncthreads();
-        if (tid < DK) qsi[tid] = d0 + tid < D4 ? q4[d0 + tid] : 0;
-        for (int e = tid; e < RS_NT * DK; e += RS_NT) {
-          const int rr = e / DK, dd = e % DK;
-          const int r = rb + rr, row = row0 + r, d = d0 + dd;
-          psi[rr * (DK + 1) + dd] =
-              (r < sw && row < row_end && d < D4) ? p4[(size_t)row * D4 + d] : 0;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int dd = 0; dd < DK; ++dd) acc = __dp4a(qsi[dd], psi[tid * (DK + 1) + dd], acc);
-      }
-      score = (float)acc;
-    } else {
-      using T = typename std::conditional<MODE == 0, float, __nv_bfloat16>::type;
-      const T* qrow = static_cast<const T*>(q_) + (size_t)q * D;
-      const T* p = static_cast<const T*>(p_);
-      float acc = 0.0f;
-      for (int d0 = 0; d0 < D; d0 += DK) {
-        __syncthreads();
-        if (tid < DK) qs[tid] = d0 + tid < D ? to_f(qrow[d0 + tid]) : 0.0f;
-        for (int e = tid; e < RS_NT * DK; e += RS_NT) {
-          const int rr = e / DK, dd = e % DK;
-          const int r = rb + rr, row = row0 + r, d = d0 + dd;
-          ps[rr * (DK + 1) + dd] =
-              (r < sw && row < row_end && d < D) ? to_f(p[(size_t)row * D + d]) : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int dd = 0; dd < DK; ++dd) acc = fmaf(qs[dd], ps[tid * (DK + 1) + dd], acc);
-      }
-      score = acc;
-    }
-    const int r = rb + tid;
-    if (r < sw) o[r] = row0 + r < row_end ? score : -INFINITY;
+  if constexpr (MODE == 2) {
+    const int D4 = D / 4, n4 = nch * (CH / 4);
+    const int* q4 = reinterpret_cast<const int*>(qr);
+    int* out = reinterpret_cast<int*>(qs);
+    for (int d = lane; d < n4; d += 32) out[d] = d < D4 ? q4[d] : 0;
+  } else {
+    const int nd = nch * (CH / SIZE);
+    float* out = reinterpret_cast<float*>(qs);
+    for (int d = lane; d < nd; d += 32) out[d] = d < D ? to_f(qr[d]) : 0.0f;
   }
 }
+
+template <int MODE>
+__global__ void __launch_bounds__(32) rescore_stream(
+    const void* __restrict__ q_, const void* __restrict__ p_, int D, int row_end, int sw,
+    int B, int pieces, long long n_tasks, bool vec, bool qvec, const int* __restrict__ win_ids,
+    float* __restrict__ out) {
+  constexpr int SIZE = window::Elem<MODE>::SIZE;
+  using Acc = typename std::conditional<MODE == 2, int, float>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;
+  const long long task = blockIdx.x;
+  if (task >= n_tasks) return;
+  const long long qb = task / pieces;  // query * B + slot
+  const int r0 = (int)(task - qb * pieces) * ROWS;  // the piece's first row in the window
+  const int nr = min(ROWS, sw - r0);                // rows of the piece
+  float* o = out + qb * sw + r0;
+  const int win = win_ids[qb];
+  const long long row0 = (long long)win * sw + r0;  // its first row in the passages
+  const int live = win < 0 ? 0 : (int)max(0LL, min((long long)nr, row_end - row0));
+  if (live == 0) {  // an empty slot, or a piece wholly past n_valid: read nothing
+    for (int r = lane; r < nr; r += 32) o[r] = -INFINITY;
+    return;
+  }
+  const int row_bytes = D * SIZE;
+  const int nch = (row_bytes + CH - 1) / CH;
+  unsigned char* ring = smem;
+  unsigned char* qs = ring + BYTES;
+  const unsigned char* pb = static_cast<const unsigned char*>(p_) + row0 * row_bytes;
+
+  auto fill_stage = [&](int c) {
+    unsigned char* dst = ring + (c % STAGES) * (ROWS * PITCH);
+    constexpr int PIECES = CH / 16;  // 16-byte pieces of a staged row
+#pragma unroll
+    for (int k = 0; k < ROWS * PIECES / 32; ++k) {
+      const int e = lane + 32 * k, row = e / PIECES, u = e % PIECES;
+      window::stage_piece(dst + row * PITCH + 16 * u,
+                          row < live ? pb + (size_t)row * row_bytes : nullptr, c * CH + 16 * u,
+                          row_bytes, vec, p_);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nch) fill_stage(s);
+    window::cp_async_commit();
+  }
+  // the query while the first stages are in flight (the loop's first
+  // __syncwarp shows it to every lane)
+  stage_query<MODE>(q_, D, (int)(qb / B), nch, qvec, qs);
+  Acc acc = 0;  // the chain of row lane
+  for (int c = 0; c < nch; ++c) {
+    window::cp_async_wait<STAGES - 2>();
+    __syncwarp();  // every lane's copies of stage c are in; stage c - 1's slot is free
+    if (c + STAGES - 1 < nch) fill_stage(c + STAGES - 1);
+    window::cp_async_commit();  // an empty group at the end keeps the wait count uniform
+    if (lane >= LANES) continue;  // copies only
+    const unsigned char* ra = ring + (c % STAGES) * (ROWS * PITCH) + lane * PITCH;
+    if constexpr (MODE == 2) {
+      const int* qc = reinterpret_cast<const int*>(qs) + c * (CH / 4);
+#pragma unroll
+      for (int sub = 0; sub < CH / 16; ++sub) {
+        const int4 w = *reinterpret_cast<const int4*>(qc + 4 * sub);
+        const int4 x = *reinterpret_cast<const int4*>(ra + 16 * sub);
+        acc = __dp4a(w.x, x.x, acc);
+        acc = __dp4a(w.y, x.y, acc);
+        acc = __dp4a(w.z, x.z, acc);
+        acc = __dp4a(w.w, x.w, acc);
+      }
+    } else {
+      constexpr int PER_CHUNK = CH / SIZE;  // elements of a row a stage
+      const float* qc = reinterpret_cast<const float*>(qs) + c * PER_CHUNK;
+#pragma unroll
+      for (int sub = 0; sub < PER_CHUNK / 8; ++sub) {
+        const float4 w0 = *reinterpret_cast<const float4*>(qc + 8 * sub);
+        const float4 w1 = *reinterpret_cast<const float4*>(qc + 8 * sub + 4);
+        const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        float x[8];
+        window::load8<MODE>(ra + 8 * SIZE * sub, x);
+#pragma unroll
+        for (int d = 0; d < 8; ++d) acc = fmaf(w[d], x[d], acc);
+      }
+    }
+  }
+  if (lane < nr) o[lane] = lane < live ? (float)acc : -INFINITY;
+}
+
+template <int MODE>
+cudaError_t launch(const void* q, const void* p, int Q, int D, int row_end, int sw, int B,
+                   const int* win_ids, float* out, cudaStream_t stream) {
+  // 16-byte copies need 16-byte rows and bases; else 2-byte loads (rows)
+  // and scalar ones (the query)
+  const bool rows16 = (D * window::Elem<MODE>::SIZE) % 16 == 0;
+  const bool vec = rows16 && ((uintptr_t)p & 15) == 0;
+  const bool qvec = rows16 && ((uintptr_t)q & 15) == 0;
+  const int smem = BYTES + query_bytes<MODE>(D);
+  if (smem > window::SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(rescore_stream<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int pieces = (sw + ROWS - 1) / ROWS;
+  const long long n_tasks = (long long)Q * B * pieces;
+  if (n_tasks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  rescore_stream<MODE><<<(unsigned)n_tasks, 32, (size_t)smem, stream>>>(
+      q, p, D, row_end, sw, B, pieces, n_tasks, vec, qvec, win_ids, out);
+  return cudaGetLastError();
+}
+
+}  // namespace rescore
 
 // ---------------------------------------------------------------------------
 // 3. select_kernel (replaces _select_t_kernel, pallas_topk_v4.py:612, and
@@ -1137,14 +1252,6 @@ cudaError_t launch(int route, const void* q, const void* p, int Q, int D, int ro
 
 }  // namespace window
 
-template <int MODE>
-cudaError_t launch_rescore(const void* q, const void* p, int Q, int D, int row_end, int sw,
-                           int B, const int* win_ids, float* out, cudaStream_t stream) {
-  rescore_kernel<MODE><<<(unsigned)Q * B, RS_NT, 0, stream>>>(q, p, D, row_end, sw, B,
-                                                              win_ids, out);
-  return cudaGetLastError();
-}
-
 bool bad_mode_shape(int mode, int D, const void* q, const void* p) {
   if (mode < 0 || mode > 2) return true;
   // int8 x int8 reads 4-byte words: rows of D % 4 == 0 bytes, aligned bases
@@ -1191,9 +1298,9 @@ extern "C" int hc_rescore_windows(const void* q, const void* p, int Q, int N, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* w = static_cast<const int*>(win_ids);
   float* o = static_cast<float*>(out);
-  if (mode == 0) return (int)launch_rescore<0>(q, p, Q, D, row_end, sw, B, w, o, s);
-  if (mode == 1) return (int)launch_rescore<1>(q, p, Q, D, row_end, sw, B, w, o, s);
-  return (int)launch_rescore<2>(q, p, Q, D, row_end, sw, B, w, o, s);
+  if (mode == 0) return (int)rescore::launch<0>(q, p, Q, D, row_end, sw, B, w, o, s);
+  if (mode == 1) return (int)rescore::launch<1>(q, p, Q, D, row_end, sw, B, w, o, s);
+  return (int)rescore::launch<2>(q, p, Q, D, row_end, sw, B, w, o, s);
 }
 
 // Kernel 3.  Entry (q, c) of scores (and of ids, when not NULL) lies at

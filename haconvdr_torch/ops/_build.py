@@ -41,11 +41,10 @@ SIGNATURES = {
     "hc_topk_split": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P],
     # Q, k, dtype -> queries per block of hc_topk_split (0: k or dtype refused)
     "hc_topk_split_qb": [_I, _I, _I],
-    # q, p, Q, N, D, n_valid, k, rows_per_split, n_splits,
-    # cand_keys(uint64 [S, Q, k]), dtype, stream
-    "hc_topk_stream": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    # k -> queries per block of hc_topk_stream (0: k out of range)
-    "hc_topk_stream_qt": [_I],
+    # q, p, Q, N, D, n_valid, k, qb (64 or 128), rows_per_split, n_splits,
+    # cand_keys(uint64 [S, Q, k]), spare(uint64 [S, Q, k] past k 128, else
+    # NULL), dtype, stream
+    "hc_topk_stream": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # cand_keys(uint64 [S, Q, k]), n_splits, Q, k (128 < k <= 1024),
     # out_scores(float [Q, k]), out_ids(int32 [Q, k]), stream
     "hc_topk_stream_merge": [_P, _I, _I, _I, _P, _P, _P],

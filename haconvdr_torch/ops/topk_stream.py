@@ -1,9 +1,9 @@
 """Streaming exact inner-product top-k over one passage block (counterpart
 of haconvdr_tpu/ops/pallas_topk_v2.py:pallas_topk_block_v2).
 
-``topk_block_v2`` launches the CUDA kernel (csrc/topk_stream.cu: cp.async
-double-buffered passage stages, grouped selection, then fused_topk.cu's
-split merge) for CUDA tensors and runs the plain twin
+``topk_block_v2`` launches the CUDA kernel (csrc/topk_stream.cu: the split
+pass of the v3 kernel, csrc/topk_split.cuh, run unseeded, then a merge of
+the splits) for CUDA tensors and runs the plain twin
 ``topk_block_v2_plain`` for CPU tensors; there is no other route.  No path
 of either package calls it: the JAX package runs its kernel only in tests.
 
@@ -18,12 +18,15 @@ Contract of both, as the JAX function's:
 * float32 scores [Q, k] and int32 row ids [Q, k], ordered (score desc, id
   asc); empty slots (k past the valid rows) are (-inf, -1);
 * ``q_tile`` only sets the JAX kernel's query tile; the CUDA kernel tiles
-  by 64 queries (fewer above k = 128) whatever it is.
+  by 64 or 128 queries (:func:`stream_plan`) whatever it is.
 
 k is at most ``MAX_K`` = 1024 (STREAM_KMAX of csrc/topk_stream.cu; the
-JAX kernel takes any k): both functions raise ValueError above it.  Above
-k = 128 the kernel takes fewer queries per block (its key buffer is
-[queries, k] in shared memory) and its own wide split merge.
+JAX kernel takes any k): both functions raise ValueError above it.  The
+kernel is the unseeded v3 kernel's split pass on the v3 kernel's unseeded
+grid at every k (:func:`stream_plan`).  Up to k = 128 its per-query
+buffers are in shared memory and its answer equals the v3 kernel's bit for
+bit; above, each block keeps its buffers in device memory (two a query,
+cand and a spare array of the same shape).
 """
 
 from __future__ import annotations
@@ -35,10 +38,12 @@ import torch
 from haconvdr_torch.ops import _build
 from haconvdr_torch.ops.fused_topk import MAX_K as MERGE_MAX_K
 from haconvdr_torch.ops.fused_topk import (
+    MAX_WAVES_UNSEEDED,
     _PLAIN_CHUNK,
     _finish,
     query_dtype,
     scan_topk_keys,
+    split_geometry,
 )
 
 # launches of the CUDA kernel (split + merge count once) / plain-twin calls
@@ -96,16 +101,27 @@ def topk_block_v2_plain(
     return _finish(scan_topk_keys(queries, passages, n_valid, k, _PLAIN_CHUNK))
 
 
-def _n_splits(dev: torch.device, n_qtiles: int, rows: int) -> Tuple[int, int]:
-    """(splits, rows per split): about two resident blocks per SM over the
-    grid, each split at least 2,048 rows, rows a multiple of 64."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-2 * sms // n_qtiles))
-    by_rows = max(1, rows // 2048)
-    splits = max(1, min(want, by_rows, 65535))
-    per = -(-max(rows, 1) // splits)
-    per = -(-per // 64) * 64
-    return -(-max(rows, 1) // per), per
+def stream_plan(
+    Q: int, k: int, rows: int, sms: int, dtype: torch.dtype, lib
+) -> Tuple[int, int, int, bool]:
+    """The kernel's launch for Q queries, k and ``rows`` rows over ``sms``
+    SMs: (queries a block, splits, rows a split, whether the per-query
+    buffers live in device memory).
+
+    * Queries a block: up to k 128 the v3 kernel's split pass's, asked of
+      ``lib`` (``hc_topk_split_qb``: 128 past Q 64 where a block's shared
+      memory holds their buffers, else 64); past k 128, where the buffers
+      are in device memory (cand and a spare array), 128 past Q 64, else
+      64, and ``lib`` is not asked.
+    * The grid: the v3 kernel's unseeded grid (``split_geometry`` at
+      MAX_WAVES_UNSEEDED) at every k, rows a split a multiple of 128.
+      Fewer, longer splits past k 128 (16 k rows each at least) measured
+      slower at Q 1, 64 and 256 (probes/probe_torch_stream.py
+      --geometries)."""
+    wide = k > MERGE_MAX_K
+    qb = (128 if Q > 64 else 64) if wide else lib.hc_topk_split_qb(Q, k, _DTYPE_CODE[dtype])
+    splits, per = split_geometry(Q, rows, sms, qb, MAX_WAVES_UNSEEDED)
+    return qb, splits, per, wide
 
 
 def topk_block_v2(
@@ -130,29 +146,28 @@ def topk_block_v2(
     if not passages.is_contiguous():
         raise ValueError("passages must be contiguous")
     D = passages.shape[1]
-    if D % (16 // passages.element_size()):
-        raise ValueError(f"rows must be 16-byte multiples for cp.async, got D = {D}")
     lib = _build.library()
     dev = passages.device
     q = queries.to(query_dtype(passages.dtype)).contiguous()
-    if q.data_ptr() % 16 or passages.data_ptr() % 16:
-        raise ValueError("queries and passages must start on a 16-byte boundary for cp.async")
     Q, N = q.shape[0], passages.shape[0]
     rows = max(0, min(int(n_valid), N))
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    splits, per = _n_splits(dev, -(-Q // lib.hc_topk_stream_qt(k)), rows)
+    code = _DTYPE_CODE[passages.dtype]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qb, splits, per, wide = stream_plan(Q, k, rows, sms, passages.dtype, lib)
     cand = torch.empty((splits, Q, k), dtype=torch.int64, device=dev)
+    spare = torch.empty_like(cand) if wide else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.hc_topk_stream(
-            q.data_ptr(), passages.data_ptr(), Q, N, D, rows, k, per, splits,
-            cand.data_ptr(), _DTYPE_CODE[passages.dtype], stream,
+            q.data_ptr(), passages.data_ptr(), Q, N, D, rows, k, qb, per, splits,
+            cand.data_ptr(), None if spare is None else spare.data_ptr(), code, stream,
         )
         _build.check(err, "hc_topk_stream")
-        if k <= MERGE_MAX_K:
+        if not wide:
             err = lib.hc_topk_merge(
                 cand.data_ptr(), splits, Q, k, None, 0, out_s.data_ptr(), out_i.data_ptr(),
                 stream,

@@ -15,8 +15,8 @@ seeded (the top 100 of the queries against 100,000 other rows, as phase
   csrc/fused_topk.cu (ptxas -v);
 - with ``--other DIR``: DIR's v3 kernel (built with DIR's own
   ``_build.py``, called through its own C interface with the grid its
-  wrapper computed: 64-query tiles, about two blocks an SM, splits of at
-  least 2,048 rows) and this checkout's at each Q of ``--qs``, in device
+  wrapper computed: ``split_geometry`` over DIR's query tile) and this
+  checkout's at each Q of ``--qs``, in device
   ms (calls queued behind a spin of the card, ``chip_smoke.device_ms``) in
   the order other, this, this, other, with the bound at the fmaf chain's
   rate (2 Q n_valid D operations at 67 TFLOP/s) and the two answers
@@ -59,23 +59,24 @@ N_ROWS, DIM, N_PAD, TOP_K = 2_500_000, 768, 1_000, 100
 N_EXTRA = 100_000
 
 
-def lit(old: str, new: str):
-    """A text edit of csrc/fused_topk.cu: the one occurrence of ``old``."""
-    return [("fused_topk.cu", re.compile(re.escape(old)), new.replace("\\", r"\\"))]
+def lit(old: str, new: str, src: str = "topk_split.cuh"):
+    """A text edit of csrc/<src> (the split body that rows 2 and 7 share,
+    by default): the one occurrence of ``old``."""
+    return [(src, re.compile(re.escape(old)), new.replace("\\", r"\\"))]
 
 
 VARIANTS = {
     # 64-query tiles at every Q (the narrower tile every k fits)
-    "qb64": lit("return Q > 64 && Split<MODE, 128>::smem(k) <= (size_t)SMEM_MAX ? 128 : 64;",
-                "return 64;"),
+    "qb64": lit("return Q > 64 && Split<MODE, 128, false>::smem(k) <= (size_t)SMEM_MAX ? 128 : 64;",
+                "return 64;", "fused_topk.cu"),
     # the k-buffers in the block's own slice of cand in device memory (L2)
     "buf-l2": lit("uint64_t* buf = reinterpret_cast<uint64_t*>(smem + K::BUF_OFF);",
                   "uint64_t* buf = cand + ((size_t)split * Q + q0) * k;")
-    + lit("static size_t smem(int k) { return (size_t)BUF_OFF + 8 * (size_t)QB * k; }",
+    + lit("static size_t smem(int k) { return (size_t)BUF_OFF + (WIDE ? 0 : 8 * (size_t)QB * k); }",
           "static size_t smem(int) { return (size_t)BUF_OFF; }"),
     # survivor lists of 16 keys a query (f32 at QB 128: k <= 100)
-    "list16": [("fused_topk.cu", re.compile(r"constexpr int LIST = \d+;"),
-                "constexpr int LIST = 16;")],
+    "list16": [("topk_split.cuh", re.compile(r"constexpr int LIST_SHARED = \d+;"),
+                "constexpr int LIST_SHARED = 16;")],
     # diagnostic (a wrong answer, timed only): no survivor ever (the product,
     # the filter and one barrier a tile)
     "diag-no-select": lit("const float th = tau[qj(j)];",
@@ -106,20 +107,18 @@ VARIANTS = {
 
 
 def other_topk(lib, q, p, n_valid, k, seed):
-    """DIR's v3 kernel through its own C interface, with its wrapper's grid
-    (the parent's _n_splits: 64-query tiles, about two blocks an SM, each
-    split at least 2,048 rows, rows a multiple of 64)."""
+    """DIR's v3 kernel through its own C interface, with the grid its
+    wrapper computes: ``split_geometry`` over DIR's own query tile
+    (``hc_topk_split_qb``), at most two waves unseeded and eight seeded."""
     dev = p.device
     q = q.to(ft.query_dtype(p.dtype)).contiguous()
     Q, D = q.shape
     N = p.shape[0]
     rows = max(0, min(int(n_valid), N))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-2 * sms // -(-Q // 64)))
-    splits = max(1, min(want, max(1, rows // 2048), 65535))
-    per = -(-max(rows, 1) // splits)
-    per = -(-per // 64) * 64
-    splits = -(-max(rows, 1) // per)
+    qb = lib.hc_topk_split_qb(Q, k, ft._DTYPE_CODE[p.dtype])
+    waves = ft.MAX_WAVES_UNSEEDED if seed is None else ft.MAX_WAVES_SEEDED
+    splits, per = ft.split_geometry(Q, rows, sms, qb, waves)
     thr = None if seed is None else ft.seed_threshold(seed, k)
     cand = torch.empty((splits, Q, k), dtype=torch.int64, device=dev)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)

@@ -245,8 +245,10 @@ def test_topk_kernel_seeded_is_top_k_of_unseeded_and_seed(dev, gen, dtype, Q):
 # --- the streaming top-k (ops/topk_stream.py) ------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k, n_valid", [(100, 49_000), (37, 49_000), (128, 53_248), (10, 5)])
-def test_topk_stream_kernel_matches_plain_and_v3(dev, gen, dtype, k, n_valid):
+@pytest.mark.parametrize("k, n_valid, Q", [(100, 49_000, 70), (37, 49_000, 70), (128, 53_248, 70),
+                                           (10, 5, 70), (1, 49_000, 1), (128, 49_000, 7),
+                                           (100, 49_000, 256)])
+def test_topk_stream_kernel_matches_plain_and_v3(dev, gen, dtype, k, n_valid, Q):
     """Against its plain twin (scores within 1e-4 relative, plus 1e-4 for
     the near-0 scores that k past n_valid returns; ids identical) and bit
     for bit against the unseeded v3 kernel: both form every score with the
@@ -254,7 +256,7 @@ def test_topk_stream_kernel_matches_plain_and_v3(dev, gen, dtype, k, n_valid):
     from haconvdr_torch.ops import fused_topk as ft
     from haconvdr_torch.ops import topk_stream as ts
 
-    q = torch.randn(70, 768, device=dev, generator=gen)
+    q = torch.randn(Q, 768, device=dev, generator=gen)
     p = torch.randn(13 * 4096, 768, device=dev, generator=gen).to(dtype)  # p_chunk * group
     p[n_valid:] *= 100.0  # past n_valid: must never surface
     before = dict(ts.COUNTS)
@@ -273,9 +275,10 @@ def test_topk_stream_kernel_matches_plain_and_v3(dev, gen, dtype, k, n_valid):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k, Q", [(129, 70), (256, 70), (1024, 70), (1024, 3)])
+@pytest.mark.parametrize("k, Q", [(129, 70), (256, 70), (1024, 70), (1024, 3), (129, 1),
+                                  (512, 7), (512, 256), (1024, 64), (129, 256)])
 def test_topk_stream_kernel_above_k_128(dev, gen, dtype, k, Q):
-    """k > 128: fewer queries a block and the wide merge.  Against the
+    """k > 128: the buffers in device memory and the wide merge.  Against the
     plain twin as above, with a tie class of 300 equal rows planted for the
     first query across rank 128 (and across k at k 129 and 256: the twin
     keeps the class's lowest ids, and so must the kernel), and rows past
@@ -312,6 +315,116 @@ def test_topk_stream_kernel_above_k_128(dev, gen, dtype, k, Q):
     assert tie.numel() > 1 and torch.equal(tie, tie_class(rs[0], ri[0]))
     assert bool((tie[1:] > tie[:-1]).all())  # ties in id order
     assert int(i.max()) < n_valid and bool((s[:, :-1] >= s[:, 1:]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q", [1, 7, 64, 256])
+@pytest.mark.parametrize("k", [1, 128, 129, 512, 1024])
+def test_topk_stream_kernel_exact_on_integer_ties(dev, gen, dtype, Q, k):
+    """Integer-valued operands in [-3, 3], so every score is an exact
+    integer on both sides and ties are everywhere: the (score desc, id asc)
+    order decides every id.  Equal to the plain twin at every position; at
+    k <= 128 also to the unseeded v3 kernel; rows past n_valid would win."""
+    from haconvdr_torch.ops import fused_topk as ft
+    from haconvdr_torch.ops import topk_stream as ts
+
+    n_valid = 40_000 - 77
+    q, p = _int_operands(gen, dev, Q, 40_960, 64, dtype, -3, 4)
+    p[n_valid:] = 3
+    s, i = ts.topk_block_v2(q, p, n_valid, k)
+    torch.cuda.synchronize()
+    rs, ri = ts.topk_block_v2_plain(q, p, n_valid, k)
+    assert torch.equal(s, rs) and torch.equal(i, ri)
+    assert int(i.max()) < n_valid
+    if k <= 128:
+        vs, vi = ft.fused_topk_block(q, p, n_valid, k)
+        assert torch.equal(s, vs) and torch.equal(i, vi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_stream_qb_fits_the_kernel(dev, gen, dtype):
+    """ops/topk_stream.stream_plan picks QBs the kernel takes at every k
+    where it changes (the kernel refuses a QB whose shared memory does not
+    fit): up to k 128 the v3 kernel's (hc_topk_split_qb), 128 queries a
+    block refused where that picks 64; past k 128, 128 past Q 64."""
+    from haconvdr_torch.ops import _build
+    from haconvdr_torch.ops import topk_stream as ts
+
+    q, p = _int_operands(gen, dev, 65, 4096, 64, dtype, -3, 4)
+    for k in (100, 101, 102, 113, 114, 128, 129, 1024):
+        s, i = ts.topk_block_v2(q, p, 4000, k)
+        torch.cuda.synchronize()
+        rs, ri = ts.topk_block_v2_plain(q, p, 4000, k)
+        assert torch.equal(s, rs) and torch.equal(i, ri), k
+    lib = _build.library()
+    code = ts._DTYPE_CODE[dtype]
+    qp = q.to(dtype)
+    last_k_at_128 = {torch.float32: 101, torch.bfloat16: 113}[dtype]
+    qb = {k: ts.stream_plan(65, k, 4000, 132, dtype, lib)[0] for k in (last_k_at_128, 129)}
+    assert qb == {last_k_at_128: 128, 129: 128}
+    for k in (last_k_at_128 + 1, 128):
+        assert ts.stream_plan(65, k, 4000, 132, dtype, lib)[0] == 64
+        cand = torch.empty((1, 65, k), dtype=torch.int64, device=dev)
+        err = lib.hc_topk_stream(qp.data_ptr(), p.data_ptr(), 65, 4096, 64, 4000, k, 128, 4096,
+                                 1, cand.data_ptr(), None, code,
+                                 torch.cuda.current_stream().cuda_stream)
+        assert err != 0, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [100, 1024])
+def test_topk_stream_kernel_unaligned_rows(dev, gen, dtype, k):
+    """Rows of odd width (77) and a passage view one element off a 16-byte
+    boundary take the split body's narrow loads: the same bits as the
+    aligned rows give, and the plain twin's answer on integer operands."""
+    from haconvdr_torch.ops import topk_stream as ts
+
+    q, _ = _int_operands(gen, dev, 70, 1, 77, dtype, -3, 4)
+    base = torch.randint(-3, 4, (4096 * 77 + 1,), device=dev, generator=gen).to(dtype)
+    p = base[1:].view(4096, 77)  # one element past the allocation
+    assert p.data_ptr() % 16 != 0 and p.is_contiguous()
+    aligned = p.clone()
+    s, i = ts.topk_block_v2(q, p, 4000, k)
+    torch.cuda.synchronize()
+    sa, ia = ts.topk_block_v2(q, aligned, 4000, k)
+    assert torch.equal(_bits(s), _bits(sa)) and torch.equal(i, ia)
+    rs, ri = ts.topk_block_v2_plain(q, p, 4000, k)
+    assert torch.equal(s, rs) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("Q", [1, 64, 256])
+def test_v3_kernel_is_the_exact_top_k_of_the_fmaf_chain(dev, gen, dtype, seeded, Q):
+    """Row 2's scores and ids on random rows are the exact top k, by (score
+    desc, id asc), of every row's fmaf chain as the rescore kernel computes
+    it (the same conversions and order): one chain and one total order give
+    one answer, so the split body's move into csrc/topk_split.cuh left row
+    2's bits as they were.  Seeded: the seed's entries join with id -1."""
+    from haconvdr_torch.ops import fused_topk as ft
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    N, n_valid, k, sw = 30_720, 30_001, 100, 256
+    q = torch.randn(Q, 768, device=dev, generator=gen).to(dtype)
+    p = torch.randn(N, 768, device=dev, generator=gen).to(dtype)
+    init = None
+    if seeded:
+        extra = torch.randn(500, 768, device=dev, generator=gen)
+        init = torch.topk(q.float() @ extra.T, k, dim=1).values.contiguous()
+    s, i = ft.fused_topk_block(q, p, n_valid, k, init_scores=init)
+    W = N // sw
+    win = torch.arange(W, device=dev, dtype=torch.int32)[None, :].expand(Q, -1).contiguous()
+    chain = v4.rescore_windows(p, q, win, sw, n_valid)  # [Q, N]: every row's chain
+    rows = torch.arange(N, device=dev)[None, :]
+    keys = ft.order_keys(chain, rows).masked_fill(rows >= n_valid, torch.iinfo(torch.int64).min)
+    if seeded:
+        minus_one = torch.full((1, 1), -1, dtype=torch.int64, device=dev)
+        thr = ft.seed_threshold(init, k)
+        keys = keys.masked_fill(~(chain > thr[:, None]), torch.iinfo(torch.int64).min)
+        keys = torch.cat([keys, ft.order_keys(init, minus_one)], 1)
+    want_s, want_i = ft.decode_keys(ft.top_keys(keys, k))
+    torch.cuda.synchronize()
+    assert torch.equal(s.view(torch.int32), want_s.view(torch.int32)) and torch.equal(i, want_i)
 
 
 def test_topk_stream_rejects_unsupported(dev):
@@ -390,13 +503,13 @@ WINDOW_QS = [1, 7, 16, 17, 64, 70, 129, 256]
     "Q, route",
     [(70, None), (1, "a"), (16, "a"), (64, "a"), (64, "tiled"), (256, "tiled"), (1, "tiled")],
 )
-def test_rescore_equals_window_kernel_bit_for_bit(dev, gen, dtype, Q, route):
+@pytest.mark.parametrize("sw, B", [(256, 8), (128, 4), (256, 6)])  # (256, 6): the int8 budget
+def test_rescore_equals_window_kernel_bit_for_bit(dev, gen, dtype, Q, route, sw, B):
     from haconvdr_torch.ops import topk_v4 as v4
 
     q, p = _v4_inputs(gen, dev, dtype, Q=Q)
     if route == "tiled":
         route = WINDOW_ROUTES[dtype][1]
-    sw, B = 256, 8
     v1, a1, v2 = v4.window_top2(q, p, 49_000, sw, route=route)
     W = v1.shape[0]
     win = torch.randint(0, W, (q.shape[0], B), device=dev, generator=gen, dtype=torch.int32)
@@ -414,6 +527,73 @@ def test_rescore_equals_window_kernel_bit_for_bit(dev, gen, dtype, Q, route):
     pos = a1[w, qi].long() - w * sw
     masked = resc[:, : B - 1].scatter(2, pos[..., None], float("-inf"))
     assert torch.equal(masked.amax(2), v2[w, qi])
+
+
+def _assert_rescore_matches_window(resc, win, v1, a1, v2, sw):
+    """resc [Q, B, sw] of rescore_windows on win [Q, B]: on every slot that
+    names a window, its max, that max's lowest row and the second max equal
+    the window kernel's (v1, a1, v2) [W, Q] bit for bit."""
+    Q, B = win.shape
+    live = win >= 0
+    w = win.clamp(min=0).long()
+    qi = torch.arange(Q, device=win.device)[:, None].expand(-1, B)
+    top = resc.amax(2)
+    assert torch.equal(_bits(top[live]), _bits(v1[w, qi][live]))
+    lane = torch.arange(sw, device=win.device)
+    pos = torch.where(resc == top[..., None], lane, sw).amin(2)
+    fin = live & torch.isfinite(top)
+    assert torch.equal((pos + w * sw)[fin], a1[w, qi].long()[fin])
+    second = resc.scatter(2, pos.clamp(max=sw - 1)[..., None], float("-inf")).amax(2)
+    assert torch.equal(_bits(second[fin]), _bits(v2[w, qi][fin]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Q", [1, 8, 33])
+@pytest.mark.parametrize("sw", [64, 128, 256, 96])
+def test_rescore_kernel_edges(dev, gen, dtype, Q, sw):
+    """The rescore kernel (16-row pieces, one row a lane) at an n_valid
+    inside one slot's window (the window straddles it: rows before it
+    score, rows from it -inf), a window wholly past it, and a query whose
+    slots are all -1 (all -inf, nothing read), against its plain twin and
+    the window kernel's (route A) triples bit for bit; sw 96 is no multiple
+    of the window kernel's rows and is held to the twin only."""
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    N = 20_000
+    W = -(-N // sw)
+    n_valid = (W - 2) * sw + sw // 3 + 1  # inside window W - 2; window W - 1 wholly past it
+    q, p = _v4_inputs(gen, dev, dtype, Q=Q, N=N)
+    B = 6
+    win = torch.randint(0, W, (Q, B), device=dev, generator=gen, dtype=torch.int32)
+    win[:, 0] = W - 2  # straddles n_valid
+    win[:, 1] = W - 1  # wholly past n_valid
+    win[:, -1] = -1
+    win[-1] = -1  # every slot empty
+    resc = v4.rescore_windows(p, q, win, sw, n_valid).view(Q, B, sw)
+    torch.cuda.synchronize()
+    ref = v4.rescore_windows_plain(p, q, win, sw, n_valid).view(Q, B, sw)
+    f = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(resc), f)
+    # summation order only: rows score near 0 as often as not, hence the atol
+    assert bool(((resc[f] - ref[f]).abs() <= 1e-4 * ref[f].abs() + 1e-4).all())
+    assert bool(torch.isneginf(resc[-1]).all()) and bool(torch.isneginf(resc[:, 1]).all())
+    straddle = resc[:-1, 0]
+    cut = n_valid - (W - 2) * sw
+    assert bool(torch.isfinite(straddle[:, :cut]).all())
+    assert bool(torch.isneginf(straddle[:, cut:]).all())
+    if sw % 64 == 0:  # the window kernel's windows
+        v1, a1, v2 = v4.window_top2(q, p, n_valid, sw, route="a")
+        _assert_rescore_matches_window(resc, win, v1, a1, v2, sw)
+
+
+def test_rescore_rejects_unsupported(dev):
+    from haconvdr_torch.ops import topk_v4 as v4
+
+    q = torch.zeros(2, 64, device=dev)
+    p = torch.zeros(1024, 64, device=dev)
+    win = torch.zeros(2, 4, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="win_ids must be"):
+        v4.rescore_windows(p, q, win.long(), 128, 1024)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -507,7 +687,7 @@ def test_window_route_refusals(dev):
 def test_window_kernel_unaligned_rows(dev, gen):
     """Rows of odd bf16 width and a passage view 2 bytes off a 16-byte
     boundary take the kernel's 2-byte staging: the same bits as the
-    aligned rows give, on every route."""
+    aligned rows give, on every route, and in the rescore kernel too."""
     from haconvdr_torch.ops import topk_v4 as v4
 
     q = torch.randn(20, 77, device=dev, generator=gen).to(torch.bfloat16)
@@ -526,6 +706,21 @@ def test_window_kernel_unaligned_rows(dev, gen):
             r1, _, _ = v4.window_top2_plain(q[:Q], p, 4_900, 128)
             f = torch.isfinite(r1)
             assert bool(((got[0][f] - r1[f]).abs() <= 1e-4 * r1[f].abs()).all())
+    # the rescore kernel on the same rows (2-byte row loads, scalar query
+    # loads): the aligned rows' bits, and the window kernel's triples, with a
+    # window straddling n_valid and an empty slot
+    win = torch.randint(0, 38, (20, 4), device=dev, generator=gen, dtype=torch.int32)
+    win[:, 0] = 38  # rows 4,864-4,991: n_valid 4,900 inside it
+    win[:, -1] = -1
+    v1, a1, v2 = v4.window_top2(q, aligned, 4_900, 128, route="a")
+    for Q in (1, 20):
+        qq, w = q[:Q].contiguous(), win[:Q].contiguous()
+        got = v4.rescore_windows(p, qq, w, 128, 4_900)
+        want = v4.rescore_windows(aligned, qq, w, 128, 4_900)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want))
+        _assert_rescore_matches_window(got.view(Q, 4, 128), w, v1[:, :Q], a1[:, :Q], v2[:, :Q],
+                                       128)
 
 
 @pytest.mark.parametrize("layout", ["t", "rows"])

@@ -142,3 +142,67 @@ def test_default_chunk_follows_the_dtype():
     for dt in (torch.float32, torch.bfloat16):
         s, i = topk_block_v2(q, torch.randn(4096, D).to(dt), 4000, 8)
         assert s.shape == (5, 8) and int(i.max()) < 4000
+
+
+# --- the kernel's grid and block shape (pure functions) --------------------
+
+class _SplitQB:
+    """A stand-in for the kernels' library: answers hc_topk_split_qb with
+    ``qb`` (default: 128 past Q 64, else 64) and records its calls."""
+
+    def __init__(self, qb=None):
+        self.qb = qb
+        self.calls = []
+
+    def hc_topk_split_qb(self, Q, k, code):
+        self.calls.append((Q, k, code))
+        return self.qb if self.qb is not None else 128 if Q > 64 else 64
+
+
+@pytest.mark.parametrize("k", [1, 100, 128, 129, 256, 512, 1024])
+@pytest.mark.parametrize("Q", [1, 7, 64, 65, 256])
+@pytest.mark.parametrize("rows", [2_498_560, 625_000, 498_712, 53_248, 40_000, 1_000, 1])
+def test_stream_plan_covers_the_rows_on_the_v3_grid(k, Q, rows):
+    """Each row in one split (splits past the rows, at the end, empty), rows
+    a split a multiple of 128, on the v3 kernel's unseeded grid at every k
+    (also where k 1,024 leaves a split few rows: at 498,712 rows, the
+    probe's shape, 16 k rows a split at least measured 1.04-3.2x slower
+    at k 512 and 1,024); the buffers in device memory exactly past k 128."""
+    from haconvdr_torch.ops.fused_topk import MAX_WAVES_UNSEEDED, TILE_ROWS, split_geometry
+
+    qb, splits, per, wide = topk_stream.stream_plan(Q, k, rows, 132, torch.float32, _SplitQB())
+    assert qb == (128 if Q > 64 else 64) and wide is (k > 128)
+    assert per % TILE_ROWS == 0 and splits >= 1
+    covered = sum(max(0, min(rows, s * per + per) - s * per) for s in range(splits))
+    assert covered == rows
+    assert (splits, per) == split_geometry(Q, rows, 132, qb, MAX_WAVES_UNSEEDED)
+
+
+@pytest.mark.parametrize("Q, k, want", [(256, 100, 66), (256, 129, 66), (256, 1024, 66),
+                                        (1, 1024, 132), (1, 100, 132), (64, 512, 132)])
+def test_stream_geometry_at_the_smoke_scale(Q, k, want):
+    """2,498,560 rows (chip_smoke's row 7): the v3 kernel's one wave of 132
+    blocks at every k."""
+    _, splits, per, _ = topk_stream.stream_plan(Q, k, 2_498_560, 132, torch.float32, _SplitQB())
+    assert splits == want and per * want >= 2_498_560
+
+
+@pytest.mark.parametrize("dtype, code", [(torch.float32, 0), (torch.bfloat16, 1)])
+def test_stream_qb_by_k_and_q(dtype, code):
+    """Up to k 128 the v3 kernel's QB, asked of the library (one rule for
+    the block's shared memory, in csrc/topk_split.cuh); past k 128, where
+    the buffers are in device memory, 128 queries a block past Q 64 and 64
+    at Q <= 64, without the library."""
+    lib = _SplitQB(qb=77)
+    plan = topk_stream.stream_plan
+    assert plan(65, 101, 4000, 132, dtype, lib)[0] == 77
+    assert plan(3, 128, 4000, 132, dtype, lib)[0] == 77
+    assert lib.calls == [(65, 101, code), (3, 128, code)]
+    assert all(plan(Q, k, 4000, 132, dtype, None)[0] == 128
+               for Q in (65, 256) for k in (129, 512, 1024))
+    assert all(plan(Q, k, 4000, 132, dtype, None)[0] == 64 for Q in (1, 7, 64) for k in (129, 1024))
+
+
+@pytest.mark.parametrize("k, device", [(1, False), (128, False), (129, True), (1024, True)])
+def test_buffer_placement_by_k(k, device):
+    assert topk_stream.stream_plan(256, k, 4000, 132, torch.float32, _SplitQB())[3] is device
