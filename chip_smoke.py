@@ -136,8 +136,28 @@ order; any failure raises and the script exits non-zero:
    exact launch counts (flash fwd and bwd 12 each, f32 inference attention
    12 x 3, no int8 kernel, no plain twin), finite losses, the frozen tower
    unchanged; examples/s, peak memory, and one profiled accumulation
-   window's idle share and the attention kernels' shares.
-Each of phases 4-11 zeroes every launch count just before it (phase 10:
+   window's idle share and the attention kernels' shares;
+12. load and serve over HTTP: phase 4's rows (regenerated from the seed)
+   written as an EmbeddingBlockStore of one 2,500,000 x 768 float32 block
+   with an offset2pid pickle, and phase 4's tower as an HF checkpoint
+   (save_hf_checkpoint), under the first of the temporary directory and
+   build/ with room, beside offline byte-level tokenizer files;
+   Retriever.load reads them back onto the card through the installed
+   RobertaTokenizer (its seconds printed; without transformers a stand-in
+   module hands out HashTokenizer, as phase 4 used), and its
+   tower must equal phase 4's and
+   its index phase 4's rows bit for bit.  RetrievalServer(max_batch=64,
+   max_wait_ms=2.0) answers one lone POST /retrieve, then 128 concurrent
+   clients (phase 4's requests, one thread each), then one
+   /retrieve_batch of 64, /healthz and /stats, and close(); a request
+   after close() must be refused.  Every answer holds k hits and agrees
+   with Retriever.search and a sequential Retriever.retrieve of its
+   request (the HTTP rule below); /stats counts every request
+   served, 0 errors, and a dispatch of more than one request; the window
+   kernel's launches match the routes of the dispatched batch sizes.  It
+   prints requests/s over the burst, /stats' p50 / p90 / p99 and the
+   dispatch histogram.
+Each of phases 4-12 zeroes every launch count just before it (phase 10:
 before the encode, the search and the labeling) and reads them just
 after: each kernel of that path must have launched, and no plain twin may
 have run.
@@ -187,6 +207,16 @@ Tolerances (kernel vs plain twin on the same inputs):
                      kernel bit for bit (one fmaf chain, one merge)
   offline eval run   as top-k ids and scores above, against the plain
                      twins' top-100
+  HTTP answers       bit for bit Retriever.search of the same request
+                     embedded in a batch of its dispatch's bucket (a row's
+                     embedding depends on the batch shape, not on the
+                     other rows); against a sequential Retriever.retrieve
+                     (batch 1): scores within 1e-4 |ref| + delta, ids
+                     where the neighbouring scores (the 101st included)
+                     differ by more than 1e-5 |s| + 2 delta, delta =
+                     ||q_bucket - q_1|| x the index's largest row norm,
+                     with ||q_bucket - q_1|| <= 1e-5 ||q_1|| and at least
+                     half the ranks so separated (phase 12)
   train micro step   the trained tower through the kernels vs through
                      its plain twins, the same int8 frozen towers (phase
                      9a): loss within TRAIN_LOSS_RTOL = 1% and the whole
@@ -1390,9 +1420,10 @@ def phase_main_path(seed: int, dev, passages_f32, params, cfg, card: str):
         compare_topk(s, i, rs[j : j + 1].cpu(), ri_pid[j : j + 1], f"request {j}")
     print(f"main path answers match the plain twins for {len(got)} requests "
           f"(query embedding max |diff| {emb_err:.3g})")
+    served = {k: v.detach().cpu().clone() for k, v in retriever.encoder.state_dict().items()}
     del retriever, ref_enc
     torch.cuda.empty_cache()
-    return counts, metrics, got_q
+    return counts, metrics, got_q, served
 
 
 def phase_int8_path(seed: int, dev, passages_f32, params, cfg, card: str):
@@ -2255,6 +2286,281 @@ def phase_offline_eval(seed: int, dev, params, cfg, card: str):
     return counts, stages
 
 
+# ---------------------------------------------------------------------------
+# phase 12: load and serve over HTTP
+# ---------------------------------------------------------------------------
+
+HTTP_CLIENTS = 128  # the burst: phase 4's batched requests, one client thread each
+HTTP_BATCH = 64  # one POST /retrieve_batch
+
+
+def http_call(srv, path: str, body=None, timeout: float = 600.0):
+    """(status, JSON reply) of a GET (body None) or a JSON POST."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://{srv.host}:{srv.port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"},
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def http_body(req) -> dict:
+    question, history, passages = req
+    return {"question": question, "history": [list(t) for t in history],
+            "history_passages": passages}
+
+
+def room_for(need: int) -> pathlib.Path:
+    """The first of the temporary directory and the checkout's build/ with
+    ``need`` bytes free beyond a 2 GiB margin."""
+    import shutil
+    import tempfile
+
+    cands = [pathlib.Path(tempfile.gettempdir()), HERE / "build"]
+    cands[1].mkdir(exist_ok=True)
+    free = [(shutil.disk_usage(c).free, c) for c in cands]
+    for f, c in free:
+        if f >= need + (2 << 30):
+            return c
+    raise RuntimeError(f"no room for {need} bytes: {[(str(c), f) for f, c in free]}")
+
+
+def phase_http(seed: int, dev, params, cfg, served, p_sum: float, card: str):
+    """Phase 12: the phase-4 index and tower written to disk (an
+    EmbeddingBlockStore of one block, an offset2pid pickle, an HF
+    checkpoint), loaded back by Retriever.load, and served by
+    RetrievalServer to 128 concurrent HTTP clients, then one
+    /retrieve_batch of 64; answers held to sequential Retriever.retrieve."""
+    import tempfile
+    import urllib.error
+
+    from haconvdr_torch.config import DataConfig, SearchConfig
+    from haconvdr_torch.index.store import EmbeddingBlockStore
+    from haconvdr_torch.models.hf_import import load_tokenizer, save_hf_checkpoint
+    from haconvdr_torch.serve import Retriever
+    from haconvdr_torch.serve_http import RetrievalServer
+    from haconvdr_torch.utils.io import pload, pstore
+    from haconvdr_torch.utils.testing import hash_tokenizer_transformers, write_tokenizer_files
+
+    stages = {}
+    root = room_for(N_ROWS * (DIM * 4 + 8) + (1 << 30))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    passages = torch.randn(N_ROWS, DIM, device=dev, generator=g)  # phase 4's rows
+    check(float(passages.sum(dtype=torch.float64)) == p_sum,
+          "load and serve: the regenerated rows differ from phase 4's")
+    import importlib.util
+
+    real = importlib.util.find_spec("transformers") is not None
+    if real:
+        from importlib.metadata import version
+
+        print(f"load and serve: transformers {version('transformers')} installed; "
+              f"Retriever.load reads a RobertaTokenizer from offline byte-level vocab.json / "
+              f"merges.txt in the checkpoint")
+    else:
+        sys.modules["transformers"] = hash_tokenizer_transformers(cfg.vocab_size)
+        print(f"load and serve: transformers not installed; a stand-in module hands out "
+              f"HashTokenizer({cfg.vocab_size}), as phase 4's retriever used")
+    try:
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            t = time.perf_counter()
+            EmbeddingBlockStore(f"{tmp}/emb").write_block(
+                0, passages.cpu().numpy(), np.arange(N_ROWS, dtype=np.int64))
+            offset2pid = np.arange(N_ROWS, dtype=np.int64) * 7 + 11  # as phase 4
+            pstore(offset2pid, f"{tmp}/offset2pid.pickle")
+            save_hf_checkpoint(params, cfg, f"{tmp}/ckpt")
+            if real:
+                write_tokenizer_files(f"{tmp}/ckpt")
+            stages["write_s"] = time.perf_counter() - t
+            print(f"load and serve: store of {N_ROWS}x{DIM} float32 "
+                  f"({N_ROWS * DIM * 4 / 1e9:.2f} GB), offset2pid and checkpoint written "
+                  f"under {root} in {stages['write_s']:.1f} s")
+            if real:  # transformers' first use (its lazy imports), timed apart
+                t = time.perf_counter()
+                load_tokenizer("ANCE", f"{tmp}/ckpt")
+                stages["tokenizer_first_s"] = time.perf_counter() - t
+                print(f"load and serve: the first tokenizer load took "
+                      f"{stages['tokenizer_first_s']:.2f} s (a cold start's share, not in "
+                      f"Retriever.load's seconds below)")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            retriever = Retriever.load(
+                f"{tmp}/ckpt", f"{tmp}/emb", offset2pid=pload(f"{tmp}/offset2pid.pickle"),
+                data_cfg=DataConfig(is_train=False, use_PRL=False),  # max_concat_length 512
+                search_cfg=SearchConfig(top_k=TOP_K, per_device_test_batch_size=64),
+                resident=True, store_dtype="float32", device=dev,
+            )
+            torch.cuda.synchronize()
+            stages["load_s"] = time.perf_counter() - t
+        sd = retriever.encoder.state_dict()
+        check(sd.keys() == served.keys() and all(torch.equal(sd[k].cpu(), served[k]) for k in sd),
+              "load and serve: the loaded tower differs from the one phase 4 served")
+        check(torch.equal(retriever.index.passages, passages),
+              "load and serve: the loaded index differs from phase 4's rows")
+        del passages, sd
+        torch.cuda.empty_cache()
+        print(f"load and serve: Retriever.load {stages['load_s']:.2f} s (checkpoint read, "
+              f"store read and copy to the card); the tower equals phase 4's bit for bit, the "
+              f"index its rows [{card}]")
+
+        reqs = make_requests(seed, N_BATCHED + N_SINGLE)  # phase 4's requests
+        burst, lone = reqs[:HTTP_CLIENTS], reqs[HTTP_CLIENTS]
+        search_qs = []
+        search = retriever.index.search
+
+        def recording_search(queries, k):
+            search_qs.append(int(np.asarray(queries).shape[0]))
+            return search(queries, k)
+
+        retriever.index.search = recording_search
+        srv = RetrievalServer(retriever, port=0, max_batch=64, max_wait_ms=2.0).start()
+        answers = [None] * HTTP_CLIENTS
+        latency = [0.0] * HTTP_CLIENTS
+        gate = threading.Barrier(HTTP_CLIENTS + 1)
+
+        failed = {}
+
+        def client(j):
+            gate.wait()
+            t0 = time.perf_counter()
+            try:
+                answers[j] = http_call(srv, "/retrieve", http_body(burst[j]))[1]["hits"]
+            except urllib.error.HTTPError as e:
+                failed[j] = f"{e.code} {e.read()[:200]!r}"
+            latency[j] = time.perf_counter() - t0
+
+        zero_counts()
+        try:
+            # one lone request first (a dispatch of one: route a), then the burst
+            lone_hits = http_call(srv, "/retrieve", http_body(lone))[1]["hits"]
+            threads = [threading.Thread(target=client, args=(j,)) for j in range(HTTP_CLIENTS)]
+            for th in threads:
+                th.start()
+            gate.wait()
+            t = time.perf_counter()
+            for th in threads:
+                th.join(timeout=900)
+            stages["burst_wall_s"] = time.perf_counter() - t
+            check(all(not th.is_alive() and a is not None for th, a in zip(threads, answers)),
+                  f"load and serve: burst clients did not all finish ({len(failed)} refused, "
+                  f"first {list(failed.items())[:2]})")
+            _, batch = http_call(srv, "/retrieve_batch",
+                                 {"queries": [http_body(r) for r in burst[:HTTP_BATCH]]})
+            code, health = http_call(srv, "/healthz")
+            check(code == 200 and health["ok"] is True, f"load and serve: /healthz {health}")
+            _, stats = http_call(srv, "/stats")
+        finally:
+            srv.close()
+        counts = read_counts()
+        refused = False
+        try:
+            http_call(srv, "/retrieve", http_body(lone), timeout=10)
+        except (urllib.error.URLError, ConnectionError, OSError):
+            refused = True
+        check(refused, "load and serve: a request after close() was answered")
+        print("load and serve launch counts:", json.dumps(counts))
+        check_counts(counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
+                              ("topk_v4", "select_t"), ("topk_v4", "select")], "load and serve")
+        check_window_routes(counts, search_qs, torch.float32, "load and serve", card)
+        n_served = 1 + HTTP_CLIENTS + HTTP_BATCH
+        hist = {int(n): c for n, c in stats["batch_histogram"].items()}
+        check(stats["served"] == n_served and stats["queries"] == n_served
+              and stats["errors"] == 0,
+              f"load and serve: /stats served {stats['served']}, queries {stats['queries']}, "
+              f"errors {stats['errors']}; {n_served} were sent")
+        check(sum(n * c for n, c in hist.items()) == n_served and max(hist) > 1,
+              f"load and serve: dispatch histogram {hist}")
+        check(stats["dispatches"] == len(search_qs), "load and serve: dispatches vs searches")
+
+        # ---- every answer against the retriever's own answer for the same
+        # request.  A dispatch of n requests embeds them in a batch of its
+        # bucket (the power of two >= n); a row's embedding depends on that
+        # batch shape (the GEMMs' tiling), not on the other rows.  So each
+        # answer must equal, bit for bit, Retriever.search of its request
+        # embedded in a batch of one of the buckets dispatched; and it is
+        # held to a sequential Retriever.retrieve (batch 1) as kernel
+        # answers are held to plain ones, with the id rule's separation
+        # widened by the most the batch-1 embedding can move a score,
+        # delta = ||q_bucket - q_1|| x the largest row norm of the index.
+        # The drift itself is held to 1e-5 ||q_1|| (float32 tiling noise),
+        # and at least half the ranks must stay separated, so a batched
+        # tower that drifts fails rather than widening its own tolerance.
+        from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
+
+        got = [lone_hits] + answers + [r["hits"] for r in batch["results"]]
+        asked = [HTTP_CLIENTS] + list(range(HTTP_CLIENTS)) + list(range(HTTP_BATCH))  # in reqs
+        examples = [retriever.build_query(*r) for r in reqs[:HTTP_CLIENTS + 1]]
+        by_bucket = {}
+        for b in sorted(set(search_qs)):
+            q = encode_batches(retriever.encoder, batch_iter(examples, b), "conv_qp",
+                               "conv_qp_mask")[0]
+            hits = []
+            for c0 in range(0, len(q), b):
+                chunk = q[c0:c0 + b]
+                pad = np.broadcast_to(chunk[:1], (b - len(chunk), chunk.shape[1]))
+                sc, ids = retriever.search(np.concatenate([chunk, pad]))
+                hits += [[(int(i), float(x)) for i, x in zip(ids[j], sc[j])]
+                         for j in range(len(chunk))]
+            by_bucket[b] = (q, hits)
+        max_norm = float(retriever.index.passages.norm(dim=1).max())
+        seq, deltas, drifts, seps, buckets_used = {}, [], [], [], set()
+        for j, r in enumerate(asked):
+            hits = [(h["pid"], h["score"]) for h in got[j]]
+            match = [b for b, (_, ans) in by_bucket.items() if ans[r] == hits]
+            check(len(hits) == TOP_K and bool(match),
+                  f"load and serve: request {j}: {len(hits)} hits, equal to no bucket's answer")
+            buckets_used.add(match[0])
+            if r not in seq:  # k + 1: the gap past the last rank is known
+                seq[r] = (retriever.retrieve(*reqs[r], k=TOP_K + 1),
+                          retriever.embed([examples[r]])[0])
+            ref, q1 = seq[r]
+            check(len(ref) == TOP_K + 1, f"load and serve: sequential request {j}: "
+                  f"{len(ref)} hits")
+            drift = float(np.linalg.norm(by_bucket[match[0]][0][r] - q1))
+            rel = drift / float(np.linalg.norm(q1))
+            check(rel <= 1e-5, f"load and serve: request {j}: the bucket-{match[0]} embedding "
+                  f"is {rel:.3g} of its norm from the batch-1 one (limit 1e-5)")
+            delta = drift * max_norm
+            deltas.append(delta)
+            drifts.append(rel)
+            s, rs = np.array([x for _, x in hits]), np.array([x for _, x in ref])
+            check(bool((np.abs(s - rs[:TOP_K]) <= 1e-4 * np.abs(rs[:TOP_K]) + delta).all()),
+                  f"load and serve: request {j}: scores beyond 1e-4 rel + {delta:.3g}")
+            gap = np.abs(np.diff(rs)) > 1e-5 * np.abs(rs[1:]) + 2 * delta  # TOP_K gaps
+            sep = np.concatenate([[True], gap[:-1]]) & gap
+            seps.append(int(sep.sum()))
+            check(sep.sum() >= TOP_K // 2, f"load and serve: request {j}: only {sep.sum()} of "
+                  f"{TOP_K} ranks separated (delta {delta:.3g})")
+            check(np.array_equal(np.array([p for p, _ in hits])[sep],
+                                 np.array([p for p, _ in ref[:TOP_K]])[sep]),
+                  f"load and serve: request {j}: ids differ from the sequential answer at "
+                  f"separated scores (delta {delta:.3g})")
+        stages.update(seq_delta_max=max(deltas), seq_drift_max=max(drifts),
+                      separated_min=min(seps))
+        print(f"load and serve: every answer equals Retriever.search of its request in a batch "
+              f"of its bucket (buckets {sorted(buckets_used)}), bit for bit; against sequential "
+              f"Retriever.retrieve within delta <= {max(deltas):.3g} (embedding drift <= "
+              f"{max(drifts):.3g} of its norm), ids equal at >= {min(seps)} of {TOP_K} ranks")
+        stages.update(
+            requests_per_s=HTTP_CLIENTS / stages["burst_wall_s"],
+            client_p50_ms=float(np.median(latency)) * 1e3, client_max_ms=max(latency) * 1e3,
+            server_latency_ms=stats["latency_ms"], dispatches=stats["dispatches"],
+            batch_histogram=dict(sorted(hist.items())),
+        )
+        print(f"load and serve: {n_served} answers over HTTP ({HTTP_CLIENTS} concurrent, one "
+              f"/retrieve_batch of {HTTP_BATCH}, one alone); /stats served {stats['served']}, "
+              f"errors 0")
+        print("load and serve e2e:", json.dumps(stages), f"[{card}]")
+    finally:
+        if not real:
+            sys.modules.pop("transformers", None)
+    del retriever
+    torch.cuda.empty_cache()
+    return counts, stages
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2292,7 +2598,8 @@ def main(argv=None) -> int:
 
     cfg = ModelConfig()  # ANCE RoBERTa-base: 12 x 768, 12 heads, 3072, 50265
     params = init_params_numpy(cfg, args.seed)
-    c4, e2e, queries = phase_main_path(args.seed, dev, passages, params, cfg, card)
+    p_sum = float(passages.sum(dtype=torch.float64))  # phase 12 regenerates these rows
+    c4, e2e, queries, served = phase_main_path(args.seed, dev, passages, params, cfg, card)
     c5, e2e8, scale8 = phase_int8_path(args.seed, dev, passages, params, cfg, card)
     check(torch.equal(scale8, scale), "int8 path: index scale differs from quantize_int8_torch")
     c6 = phase_streaming(dev, passages, scale, queries)
@@ -2303,10 +2610,12 @@ def main(argv=None) -> int:
     c9, _ = phase_training(args.seed, dev, card)
     c10, _ = phase_offline_eval(args.seed, dev, params, cfg, card)
     c11, _ = phase_train_f32(args.seed, dev, card)
+    c12, _ = phase_http(args.seed, dev, params, cfg, served, p_sum, card)
+    del served
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def launches(mod, key):
-        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10, c11))
+        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10, c11, c12))
 
     def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]

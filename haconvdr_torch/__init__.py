@@ -4,19 +4,26 @@ A second implementation beside the JAX package ``haconvdr_tpu`` (the
 reference it is held against in tests/test_torch_*.py).  This package
 imports ``torch`` and never ``jax`` or ``haconvdr_tpu``: it keeps its own
 copies of the framework-free layers it needs (``config``, ``data.*``,
-``eval.*``, ``mine.prj``, ``utils.io``, ``index.store``,
-``index.rescore``, the numpy half of ``index.quantize``, and
-``index.build``'s ``tokenize_collection``), with the same names and the
-same on-disk formats, so a store written by one package reads in the
-other.  Entry points run on the CUDA card unless the caller passes
+``eval.*``, ``mine.*``, ``preprocess.*``, ``utils.io``,
+``utils.telemetry``, ``index.store``, ``index.rescore``, the numpy half
+of ``index.quantize``, and ``index.build``'s ``tokenize_collection``),
+with the same names and the same on-disk formats, so a store written by
+one package reads in the other.  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 
 Layers, entry point first:
-  serve.py                  Retriever / BatchingRetriever (query -> pids)
+  cli/serve, serve_http     HTTP/JSON daemon (RetrievalServer) over
+                            BatchingRetriever; 503 / 504 backpressure
+  cli/test_retrieval, test_prj, train_retrieval, gen_doc_embeddings
+                            the reference's scripts (--device cuda|cpu)
+  cli/gen_tokenized_doc, bm25_search   host-only CLIs (no device)
+  serve.py                  Retriever (+ .load) / BatchingRetriever
   retrieval.py              offline evaluation: test queries -> blocked
                             store search -> TREC run + metrics; PRJ labels
   eval/metrics, trec, analysis  trec_eval-style metrics, run files
   mine/prj                  PRJ probes and the MRR-difference judge
+  mine/bm25, analysis       BM25 index + native scorer, Lucene analyzer
+  preprocess/*              L0 dataset preprocessing (TopiOCQA, QReCC)
   train/trainer             Trainer.fit, make_train_step, AdamW + clip
   train/loss                contrastive ranking losses
   train/checkpoint          train-state save / restore (torch.save)
@@ -29,6 +36,8 @@ Layers, entry point first:
   index/quantize, rescore   int8 codes and scales, exact second stage
   models/encoder            ANCE RoBERTa tower (inference and train mode)
   models/convert            JAX-layout numpy params <-> module state dict
+  models/hf_import          HF checkpoints <-> params; load_model
+  utils/telemetry           JSONL event sink (Trainer metrics)
   ops/topk                  block_topk routing, merges, BlockSearcher
   ops/topk_v4               CUDA kernels: v4 window top-2, select, rescore
   ops/fused_topk            CUDA kernel: fused score matmul + exact top-k

@@ -17,8 +17,8 @@ plain twins on the CPU.
 """
 
 import logging
-import sys
 
+from haconvdr_torch.cli._args import pop_device
 from haconvdr_torch.config import config_from_argv
 from haconvdr_torch.device import resolve_device
 from haconvdr_torch.index.build import encode_corpus
@@ -32,26 +32,15 @@ logger = logging.getLogger(__name__)
 
 def main(argv=None):
     setup_logging()
-    argv = list(sys.argv[1:] if argv is None else argv)
+    device, argv = pop_device(argv)
     extra = {"shard_stride": "1", "shard_offset": "0", "start_block_id": "0"}
-    device = "cuda"
     rest = []
-    i = 0
-    while i < len(argv):
-        a = argv[i]
+    for a in argv:
         k, _, v = a.partition("=")
-        if a == "--device":
-            if i + 1 == len(argv):
-                raise ValueError("--device needs a value (cuda or cpu)")
-            device = argv[i + 1]
-            i += 1
-        elif k == "--device":
-            device = v
-        elif k in extra:
+        if k in extra:
             extra[k] = v
         else:
             rest.append(a)
-        i += 1
     dev = resolve_device(device)  # raises before any work without the card
     cfg = config_from_argv(rest)
     corpus = TokenizedCorpus(cfg.index.tokenized_dir or cfg.index.data_output_path)

@@ -92,40 +92,36 @@ class ModelConfig:
     embedding_dim: int = 768  # output of the ANCE head
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
-    # compute dtype for matmuls on TPU; params stay f32
+    # compute dtype of the tower's products ("float32" | "bfloat16");
+    # params stay float32.  A bfloat16 int8 tower runs the fused
+    # LayerNorm-quant and MLP kernels (csrc/fused_ln.cu, csrc/fused_mlp.cu);
+    # bfloat16 attention runs the tensor-core route of
+    # csrc/attention_tc.cuh, float32 the 3xTF32 route.
     dtype: str = "float32"
-    # fused Pallas flash attention (TPU): the [B, L, 3H] fused-QKV kernel
-    # avoids materializing the [B, H, L, L] score tensor AND the
-    # head-split transposes (together the majority of 384/512-token encode
-    # time).  Default ON: it gates itself off-TPU, under attention-probs
-    # dropout, and at unsupported shapes (exact XLA attention fallback).
+    # the JAX package's switch for its fused attention kernel.  The port
+    # reads it from TOML files and overrides and does not consult it: a
+    # CUDA tensor always takes the attention kernels (csrc/
+    # fused_attention.cu for inference, csrc/flash_attention.cu for a
+    # trainable tower or under dropout), a CPU tensor their plain twins.
     use_flash_attention: bool = True
-    # fused residual+LayerNorm+int8-quant Pallas kernel (TPU, int8
-    # inference towers only): each LN output and its dynamic per-token
-    # int8 quantization (the next int8 dense's input) in one HBM pass —
-    # the LN passes + quantize passes are the measured non-matmul tail of
-    # the corpus-encode step (probes/probe_encode_bisect_int8.py).  Gates
-    # itself off-TPU, on trainable/dropout/bf16-weight towers (no custom
-    # VJP; plain LN-only fusion measured neutral, NOTES.md round 4), and
-    # at unsupported shapes.
+    # residual + LayerNorm + per-token int8 codes in one kernel
+    # (ops/fused_ln.fused_residual_ln_quant, csrc/fused_ln.cu): each
+    # LayerNorm output and the codes the next int8 dense takes.  Used by
+    # int8 towers with a bfloat16 carry, in eval mode; float towers and
+    # float32 carries take the plain LayerNorm.
     use_fused_ln: bool = True
-    # fully-fused int8 MLP-block kernel (ops/fused_mlp.py): dense -> gelu
-    # -> quant -> dense -> residual -> LN -> quant with both weight
-    # matrices VMEM-resident; the [B*L, intermediate] tensor never
-    # touches HBM.  Same gates as use_fused_ln (requires it).
+    # the whole int8 MLP block (dense -> gelu -> requantize -> dense ->
+    # residual -> LayerNorm -> codes) in csrc/fused_mlp.cu
+    # (ops/fused_mlp.fused_mlp_block).  Same gates as use_fused_ln, and
+    # needs it.
     use_fused_mlp: bool = True
-    # rematerialization in the backward pass (jax.checkpoint):
-    #   True  — checkpoint each transformer layer: trades ~30% recompute
-    #           for dropping the O(B H L^2) saved attention probs; needed
-    #           to fit batch-64 x 512-token training on one 16 GB chip
-    #           when the XLA attention path is in use.
-    #   "mlp" — checkpoint only the MLP block: with the flash-VJP
-    #           attention kernel (ops/flash_attention.py) nothing
-    #           [L, L]-shaped is saved anyway, so this drops just the
-    #           [B, L, 4H] MLP intermediates (2.25 GB/layer at reference
-    #           geometry) and re-runs only two dense matmuls — the fastest
-    #           fitting configuration.
-    #   False — save everything (small models / ample HBM).
+    # recomputation in the backward pass (torch.utils.checkpoint):
+    #   True  — checkpoint each transformer layer, so only its input is
+    #           saved;
+    #   "mlp" — checkpoint only the MLP block: the flash-attention kernels
+    #           save nothing [L, L]-shaped, so this drops the [B, L, 4H]
+    #           MLP intermediates and re-runs two dense products;
+    #   False — save everything (small models, ample device memory).
     remat: "bool | str" = False
 
     @classmethod
@@ -160,12 +156,13 @@ class TrainConfig:
     alpha: float = 1.0  # pseudo-prepos weight (src/train_HAConvDR_topiocqa.py:66)
     is_pseudo_prepos: bool = False
     is_prepos_neg: bool = True
-    # compute dtype for the FROZEN passage towers only ("" = model dtype).
-    # They carry no gradients (stop_gradient), so "bfloat16" routes them
-    # through the fused inference attention kernel + bf16 carry — the same
-    # optimization that took corpus encode 0.40->0.74 Mtok/s — while the
-    # trained query tower keeps full-precision grads.  Set "" for bitwise
-    # loss parity with the all-f32 reference semantics.
+    # compute dtype of the FROZEN passage towers only ("" = the model's
+    # dtype).  They carry no gradients, so "bfloat16" runs them on the
+    # tensor-core attention route with a bfloat16 carry, and "int8"
+    # quantizes them once into int8 towers (the fused LayerNorm-quant and
+    # MLP kernels with a bfloat16 carry), while the trained query tower
+    # keeps float32 gradients.  "" keeps the all-float32 reference
+    # semantics.
     frozen_dtype: str = ""
     model_output_path: str = "output/model"
     seed: int = 42
@@ -181,15 +178,15 @@ class IndexConfig:
     per_device_eval_batch_size: int = 256
     num_tokenize_workers: int = 8
     per_block_passage_num: int = 2_500_000
-    # embedding storage dtype: float32 | bfloat16 (halves HBM per passage)
-    # | int8 (quarters it; per-block scalar quantization, index/quantize.py)
+    # embedding storage dtype: float32 | bfloat16 (half the bytes per
+    # passage) | int8 (a quarter; per-block scalar scales,
+    # index/quantize.py)
     store_dtype: str = "float32"
     # int8-quantize the encoder's dense kernels for corpus encoding
-    # (models/encoder.py:quantize_encoder_params): the six dense matmuls
-    # per layer run the MXU in int8 x int8 at 2x the bf16 rate with
-    # dynamic per-token activation quantization; embeddings/LN/head stay
-    # f32.  Inference-only approximation — embedding quality shifts
-    # slightly (validate with cli.ivf_sweep recall curves on real data).
+    # (models/encoder.py:quantize_encoder_params): the six dense products
+    # of a layer run int8 x int8 with per-token activation codes;
+    # embeddings, LayerNorms and the head stay float32.  An
+    # inference-only approximation: embeddings move slightly.
     compute_int8: bool = False
 
 
@@ -207,25 +204,26 @@ class SearchConfig:
     trec_gold_qrel_file_path: str = ""
     query_chunk: int = 256  # queries per search dispatch
     passage_chunk: int = 131072  # passage tile per scan step
+    # the JAX package's kernel switch; the port reads it and does not
+    # consult it: a CUDA tensor always takes the search kernels (v4, v3
+    # fused top-k), a CPU tensor their plain twins
     use_pallas: bool = True
-    # >0: streaming searches accumulate incoming blocks into one
+    # >0: streaming searches copy incoming blocks into one
     # device-resident [superblock_rows, D] buffer and search each filled
-    # buffer once at resident speed (ops/topk.py BlockSearcher
-    # superblock_rows; pick as large as HBM allows, 2048-multiple on the
-    # pallas path).  0 keeps the per-block seeded-ramp strategy.
+    # buffer once, as a resident index (ops/topk.py BlockSearcher
+    # superblock_rows; rows past the fill are masked by n_valid).  0
+    # keeps the per-block seeded strategy.
     superblock_rows: int = 0
-    # "int8": the super-block accumulator itself stays int8 — 4x the rows
-    # per fill AND the filled buffer searches through v4's int8 x int8
-    # MXU mode; incoming blocks requantize to the store's global_scale()
-    # (derived automatically when all blocks are int8).  "" = accumulate
-    # in the float compute dtype (int8 blocks dequantized on insert).
+    # "int8": the super-block buffer itself stays int8, holding four
+    # times the rows of a float32 one, and each filled buffer searches
+    # through the v4 search's int8 x int8 mode; incoming blocks
+    # requantize to the store's global_scale().  "" = the buffer holds
+    # the float compute dtype (int8 blocks dequantized on insert).
     superblock_dtype: str = ""
-    # >1: two-stage serving — the (typically int8-resident) first stage
-    # retrieves ceil(top_k * rescore_oversample) candidates and the exact
-    # rows are re-scored from the FLOAT disk store on the host
-    # (index/rescore.py).  Restores exact recall at int8 HBM cost: on the
-    # real-geometry matrix the true top-100 is 100% inside the int8
-    # top-500 (oversample 5).  0/1 = off.
+    # >1: two-stage serving: the first stage (typically int8-resident)
+    # retrieves ceil(top_k * rescore_oversample) candidates, and their
+    # exact rows are re-scored from the float disk store on the host
+    # (index/rescore.py).  0/1 = off.
     rescore_oversample: float = 0.0
 
 
@@ -258,22 +256,22 @@ class ServeConfig:
     # (504 past it — a stalled dispatch must not pin request threads)
     queue_depth: int = 1024
     request_timeout_s: float = 30.0
-    # index residency (serve.Retriever): resident=True loads the store
-    # into device HBM; ivf=True builds/loads the cluster-pruned index —
-    # the LATENCY tier (single-query ~1 ms vs ~4-6 ms flat at 2.5M); keep
-    # ivf=False for the THROUGHPUT tier (the flat scan's matmul amortizes
-    # the corpus stream across a coalesced batch, IVF's per-query bucket
-    # gathers do not — see BASELINE.md's batched-IVF crossover row)
+    # index residency (serve.Retriever): resident=True copies the store
+    # onto the card as one flat index (ShardedIndex, searched by the v4
+    # kernels); resident=False streams its blocks through BlockSearcher
+    # per search (first block v4, later blocks the seeded v3 kernel).
+    # ivf=True (the cluster-pruned index and its ivf_* knobs) is not
+    # ported: Retriever raises NotImplementedError
     resident: bool = True
     ivf: bool = False
     ivf_nlist: int = 1024
     ivf_nprobe: int = -1  # -1: library default
     ivf_dir: str = ""  # persist/reload the built IVF index
     store_dtype: str = "float32"  # residency dtype: float32|bfloat16|int8
-    # int8-weight query tower (serve.Retriever(encoder_int8=True)): the
-    # batched-tier knob — ~1.2x faster encode at batch >= 8 (measured
-    # e2e-batch 1,254 -> 1,514 QPS), ~0.4 ms SLOWER at B=1; quality
-    # drift is cos > 0.9999 per query (probes/probe_tower_int8_recall.py)
+    # int8-weight query tower (serve.Retriever(encoder_int8=True)); with a
+    # bfloat16 model dtype it runs the fused LayerNorm-quant and MLP
+    # kernels.  Query embeddings move slightly against the float tower
+    # (tests/test_torch_serve.py holds the bounds).
     encoder_int8: bool = False
     checkpoint_path: str = ""  # trained query-encoder checkpoint
     embeddings_dir: str = ""  # EmbeddingBlockStore directory

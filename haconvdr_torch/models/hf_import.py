@@ -7,8 +7,9 @@ map an HF state dict (``pytorch_model.bin`` or ``model.safetensors`` in a
 local directory) to and from the JAX package's nested-dict params with
 numpy leaves, the layout ``AnceEncoder.from_jax_params`` and
 ``quantize_encoder_params`` take.  The JAX module cannot be shared: it
-imports JAX through ``models.encoder``.  ``load_model`` and its tokenizer
-need ``transformers`` and are not ported: it raises NotImplementedError.
+imports JAX through ``models.encoder``.  ``load_model`` gives the
+tokenizer and an ``AnceEncoder``; the tokenizer needs ``transformers``,
+which ``load_tokenizer`` imports only when it is called.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import numpy as np
 import torch
 
 from haconvdr_torch.config import ModelConfig
+from haconvdr_torch.device import DeviceLike, resolve_device
+from haconvdr_torch.models.encoder import AnceEncoder
 
 EncoderParams = Dict[str, Any]
 
@@ -171,11 +174,34 @@ def save_hf_checkpoint(params: EncoderParams, cfg: ModelConfig, out_dir: str) ->
         json.dump(hf_cfg, f, indent=2)
 
 
-def load_model(model_type: str, model_path: str):
-    """The JAX package's factory (haconvdr_tpu/models/hf_import.py:182):
-    "ANCE_Query"/"ANCE_Passage"/"BERT_*" -> (tokenizer, encoder).  Not
-    ported yet."""
-    raise NotImplementedError(
-        f"hf_import.load_model({model_type!r}, ...) is not ported yet: "
-        "ROADMAP.md queue 1 item 2"
-    )
+def load_tokenizer(model_type: str, path: str):
+    """The HF tokenizer saved beside a checkpoint: ``BertTokenizer`` for a
+    ``"BERT*"`` model type, ``RobertaTokenizer`` otherwise, lower-cased as
+    the reference loads it (src/models.py:112-136).  ``transformers`` is
+    imported here, not at module import."""
+    if model_type.upper().startswith("BERT"):
+        from transformers import BertTokenizer as cls
+    else:
+        from transformers import RobertaTokenizer as cls
+    return cls.from_pretrained(path, do_lower_case=True)
+
+
+def load_checkpoint(model_type: str, path: str):
+    """(tokenizer, params, ModelConfig) of an HF checkpoint directory for
+    ``"ANCE_*"`` / ``"BERT_*"`` (or ``"ANCE"`` / ``"BERT"``); any other
+    family raises ValueError, as the reference's factory does."""
+    base = model_type.split("_")[0].upper()
+    if base not in ("ANCE", "BERT"):
+        raise ValueError(f"unknown model type {model_type!r}")
+    params, cfg = load_hf_checkpoint(path, base)
+    return load_tokenizer(base, path), params, cfg
+
+
+def load_model(model_type: str, model_path: str, device: DeviceLike = None):
+    """The reference's factory (src/models.py:112-136; the JAX package's
+    haconvdr_tpu/models/hf_import.py:182): ``"ANCE_Query"`` /
+    ``"ANCE_Passage"`` / ``"BERT_*"`` -> (tokenizer, ``AnceEncoder`` on
+    ``device``, the CUDA card unless told ``"cpu"``)."""
+    dev = resolve_device(device)  # raises without the card before any read
+    tokenizer, params, cfg = load_checkpoint(model_type, model_path)
+    return tokenizer, AnceEncoder.from_jax_params(params, cfg, dev)

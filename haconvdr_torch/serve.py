@@ -27,6 +27,7 @@ from haconvdr_torch.device import DeviceLike, resolve_device
 from haconvdr_torch.index.rescore import StoreRescorer
 from haconvdr_torch.index.store import EmbeddingBlockStore
 from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+from haconvdr_torch.models.hf_import import load_checkpoint
 from haconvdr_torch.ops.topk import BlockSearcher
 from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
 from haconvdr_torch.parallel.sharded_search import ShardedIndex
@@ -80,6 +81,10 @@ class Retriever:
             params = quantize_encoder_params(params)
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
+        # a Rust-backed HF tokenizer sets its truncation on every encode and
+        # raises "Already borrowed" when two threads encode at once (the
+        # HTTP server builds queries in its handler threads)
+        self._tokenizer_lock = threading.Lock()
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg or DataConfig(is_train=False, use_PRL=False)
         self.search_cfg = search_cfg or SearchConfig()
@@ -126,13 +131,14 @@ class Retriever:
         model_type: str = "ANCE",
         **kw,
     ) -> "Retriever":
-        """A Retriever from an HF checkpoint and an embeddings directory
-        (haconvdr_tpu/serve.py:229-240).  Not ported yet: it needs
-        ``models.hf_import.load_model``."""
-        raise NotImplementedError(
-            "Retriever.load needs hf_import.load_model, which is not ported yet: "
-            "ROADMAP.md queue 1 item 2"
-        )
+        """A Retriever from an HF checkpoint (weights and the tokenizer
+        saved beside them) and an embeddings directory
+        (haconvdr_tpu/serve.py:229-240).  ``kw`` goes to ``Retriever``,
+        ``device`` included."""
+        resolve_device(kw.get("device"))  # raises without the card before any read
+        tokenizer, params, model_cfg = load_checkpoint(model_type, checkpoint_path)
+        store = EmbeddingBlockStore.open_auto(embeddings_dir)
+        return cls(tokenizer, params, model_cfg, store, **kw)
 
     # -- query construction -------------------------------------------------
     def build_query(
@@ -143,7 +149,12 @@ class Retriever:
     ) -> Dict:
         """convqp-style input (haconvdr_tpu/serve.py:243): the current
         question, then prior turns newest first (passage, answer,
-        question), under the shared truncation rule."""
+        question), under the shared truncation rule.  Safe from any number
+        of threads: the tokenizer is used by one at a time."""
+        with self._tokenizer_lock:
+            return self._build_query(question, history, history_passages)
+
+    def _build_query(self, question, history, history_passages) -> Dict:
         d = self.data_cfg
         concat = ConcatBuilder(d.max_concat_length)
         concat.ids.extend(encode_no_trunc(self.tokenizer, question, d.max_query_length))

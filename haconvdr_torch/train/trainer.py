@@ -279,8 +279,9 @@ class Trainer:
     """Host loop: epochs x shuffled batches -> ``make_train_step``; the
     best-loss ``save_fn`` and the periodic train-state checkpoints
     (``state_ckpt_dir`` every ``state_ckpt_every`` micro steps, ``resume``)
-    as in the JAX package (trainer.py:253-347).  ``metrics`` (telemetry)
-    is not ported: anything but None raises NotImplementedError."""
+    as in the JAX package (trainer.py:253-347).  ``metrics``
+    (``utils.telemetry.MetricsLogger``) gets one ``train_step`` event
+    (epoch, micro step, loss) after each micro step."""
 
     device: DeviceLike
     model_cfg: ModelConfig
@@ -291,14 +292,7 @@ class Trainer:
     state_ckpt_dir: str = ""
     state_ckpt_every: int = 0
     resume: bool = False
-    metrics: Any = None  # the JAX package's utils.telemetry.MetricsLogger
-
-    def __post_init__(self):
-        if self.metrics is not None:
-            raise NotImplementedError(
-                "Trainer(metrics=...) needs utils/telemetry.py, which is not ported "
-                "yet: ROADMAP.md queue 1 item 4"
-            )
+    metrics: Any = None  # utils.telemetry.MetricsLogger
 
     def fit(self, params, frozen_params, examples, collate_batches=None):
         """Train from the JAX package's nested-dict ``params`` (the query
@@ -349,6 +343,10 @@ class Trainer:
                     logger.info(
                         "epoch %d step %d loss %.5f total %.2f (%.1fs)",
                         epoch + 1, global_micro, loss, total_loss, time.time() - t0,
+                    )
+                if self.metrics is not None:
+                    self.metrics.log(
+                        "train_step", epoch=epoch + 1, micro_step=global_micro, loss=loss,
                     )
                 if loss < best_loss:  # per-batch best, ":206-208"
                     best_loss = loss

@@ -1500,3 +1500,67 @@ def test_two_train_steps_on_the_card(dev):
     assert fused_mlp.COUNTS["kernel"] - m0 == 2 * 2 * 2  # 2 frozen forwards x 2 layers x 2 steps
     for k, v in frozen.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+def test_retriever_load_and_http_server_answer_as_on_the_cpu(dev, tmp_path, monkeypatch):
+    """Retriever.load (a two-layer checkpoint with 64-wide heads, the width
+    the attention kernel takes; a 5,000 x 64 float32 store) behind
+    RetrievalServer(max_batch=1) on the card and on the CPU, top 20.  On
+    each device the HTTP answers equal Retriever.retrieve bit for bit;
+    across devices the scores agree within 1e-4 relative plus delta, and
+    the ids wherever neighbouring scores (the 21st included) are further
+    apart than 1e-5 relative plus 2 delta, where delta = ||q_cuda - q_cpu||
+    x the largest row norm bounds how far the two towers' embeddings can
+    move a score.  The tokenizer comes from the HashTokenizer stand-in for
+    ``transformers``."""
+    import json
+    import sys
+    import urllib.request
+
+    import numpy as np
+
+    from haconvdr_torch.config import DataConfig, ModelConfig, SearchConfig
+    from haconvdr_torch.index.store import EmbeddingBlockStore
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.models.hf_import import save_hf_checkpoint
+    from haconvdr_torch.serve import Retriever
+    from haconvdr_torch.serve_http import RetrievalServer
+    from haconvdr_torch.utils.testing import hash_tokenizer_transformers
+
+    cfg = ModelConfig.tiny(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+                           vocab_size=512, embedding_dim=64, max_position_embeddings=130)
+    save_hf_checkpoint(init_params_numpy(cfg, seed=2), cfg, str(tmp_path / "ckpt"))
+    rng = np.random.default_rng(3)
+    rows = rng.standard_normal((5000, 64)).astype(np.float32)
+    store = EmbeddingBlockStore(str(tmp_path / "emb"))
+    store.write_block(0, rows, np.arange(5000, dtype=np.int64))
+    max_norm = float(np.linalg.norm(rows, axis=1).max())
+    monkeypatch.setitem(sys.modules, "transformers", hash_tokenizer_transformers(512))
+    questions = [f"w{i} w{i + 1} about w{3 * i}" for i in range(12)]
+    answers, embs = {}, {}
+    for name in ("cuda", "cpu"):
+        r = Retriever.load(str(tmp_path / "ckpt"), str(tmp_path / "emb"),
+                           data_cfg=DataConfig(is_train=False, use_PRL=False, max_concat_length=64),
+                           search_cfg=SearchConfig(top_k=21), device=name)
+        assert r.index.passages.device.type == name
+        with RetrievalServer(r, port=0, max_batch=1).start() as srv:
+            req = urllib.request.Request(
+                f"http://{srv.host}:{srv.port}/retrieve_batch", method="POST",
+                data=json.dumps({"queries": [{"question": q, "k": 20} for q in questions]}).encode())
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                answers[name] = [[(h["pid"], h["score"]) for h in x["hits"]]
+                                 for x in json.loads(resp.read())["results"]]
+        assert answers[name] == [r.retrieve(q, k=20) for q in questions]
+        embs[name] = r.embed([r.build_query(q) for q in questions])
+        if name == "cpu":  # with the 21st, the gap past the last rank is known
+            answers["cpu"] = [r.retrieve(q, k=21) for q in questions]
+    for n, (got, want) in enumerate(zip(answers["cuda"], answers["cpu"])):
+        delta = float(np.linalg.norm(embs["cuda"][n] - embs["cpu"][n])) * max_norm
+        s, rs = np.array([x for _, x in got]), np.array([x for _, x in want])
+        assert len(got) == 20 and len(want) == 21
+        assert np.all(np.abs(s - rs[:20]) <= 1e-4 * np.abs(rs[:20]) + delta)
+        gap = np.abs(np.diff(rs)) > 1e-5 * np.abs(rs[1:]) + 2 * delta  # 20 gaps
+        sep = np.concatenate([[True], gap[:-1]]) & gap
+        ids, rids = np.array([p for p, _ in got]), np.array([p for p, _ in want[:20]])
+        assert np.array_equal(ids[sep], rids[sep])
+        assert sep.sum() >= 10  # most ranks are separated

@@ -17,6 +17,9 @@ from haconvdr_torch.device import resolve_device, to_numpy, to_torch
 from haconvdr_torch.ops import _build, fused_attention, fused_topk, topk_stream
 
 PKG = pathlib.Path(haconvdr_torch.__file__).parent
+CLIS = ("gen_doc_embeddings", "gen_tokenized_doc", "test_retrieval", "test_prj",
+        "train_retrieval", "serve", "bm25_search")
+DEVICE_CLIS = ("gen_doc_embeddings", "test_retrieval", "test_prj", "train_retrieval", "serve")
 SMOKE = PKG.parent / "chip_smoke.py"
 
 
@@ -47,7 +50,10 @@ def test_every_module_imports_with_jax_blocked():
         "haconvdr_torch.eval.trec", "haconvdr_torch.eval.analysis",
         "haconvdr_torch.data.topiocqa", "haconvdr_torch.data.qrecc", "haconvdr_torch.data.cast",
         "haconvdr_torch.data.prj", "haconvdr_torch.mine", "haconvdr_torch.mine.prj",
-        "haconvdr_torch.retrieval",
+        "haconvdr_torch.retrieval", "haconvdr_torch.serve_http", "haconvdr_torch.utils.telemetry",
+        "haconvdr_torch.models.hf_import", "haconvdr_torch.mine.analysis", "haconvdr_torch.mine.bm25",
+        "haconvdr_torch.preprocess.collections", "haconvdr_torch.preprocess.topiocqa",
+        "haconvdr_torch.preprocess.qrecc", *(f"haconvdr_torch.cli.{c}" for c in CLIS),
     } <= set(mods)
     smoke = _smoke_imports()
     assert "haconvdr_torch.train.trainer" in smoke
@@ -55,11 +61,12 @@ def test_every_module_imports_with_jax_blocked():
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['haconvdr_tpu'] = None\n"
+        "sys.modules['transformers'] = None  # imported only inside load_tokenizer\n"
         f"for m in {mods + smoke!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [k for k, v in sys.modules.items() if v is not None and "
-        "k.split('.')[0] in ('jax', 'haconvdr_tpu')]\n"
+        "k.split('.')[0] in ('jax', 'haconvdr_tpu', 'transformers')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -89,22 +96,86 @@ def test_resolve_device_refuses_missing_cuda(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_entry_points_need_the_card_unless_told_cpu(monkeypatch):
-    """Each entry point that takes a device resolves None to CUDA."""
+def test_entry_points_need_the_card_unless_told_cpu(monkeypatch, tmp_path):
+    """Each entry point that takes a device resolves None to CUDA, and
+    refuses before it reads anything (the paths below do not exist)."""
+    import importlib
+
     from haconvdr_torch.config import ModelConfig
     from haconvdr_torch.models.convert import init_params_numpy
     from haconvdr_torch.models.encoder import AnceEncoder
+    from haconvdr_torch.models.hf_import import load_model
     from haconvdr_torch.ops.topk import BlockSearcher
+    from haconvdr_torch.serve import Retriever
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ModelConfig.tiny()
     params = init_params_numpy(cfg, seed=0)
-    with pytest.raises(RuntimeError, match="is_available"):
-        AnceEncoder.from_jax_params(params, cfg)
-    with pytest.raises(RuntimeError, match="is_available"):
-        BlockSearcher(top_k=3)
+    missing = str(tmp_path / "missing")
+    refusals = [
+        lambda: AnceEncoder.from_jax_params(params, cfg),
+        lambda: BlockSearcher(top_k=3),
+        lambda: load_model("ANCE_Query", missing),
+        lambda: Retriever.load(missing, missing),
+        *(lambda c=c: importlib.import_module(f"haconvdr_torch.cli.{c}").main(
+            [f"model.pretrained_encoder_path={missing}", f"serve.checkpoint_path={missing}"])
+          for c in DEVICE_CLIS),
+    ]
+    for refuse in refusals:
+        with pytest.raises(RuntimeError, match="is_available"):
+            refuse()
     assert next(AnceEncoder.from_jax_params(params, cfg, "cpu").parameters()).device.type == "cpu"
     assert BlockSearcher(top_k=3, device="cpu").device.type == "cpu"
+    with pytest.raises(FileNotFoundError):  # told cpu, it goes on to read
+        load_model("ANCE_Query", missing, device="cpu")
+    for c in CLIS:  # the host-only CLIs take no --device
+        src = (PKG / "cli" / f"{c}.py").read_text()
+        assert ("pop_device" in src) == (c in DEVICE_CLIS), c
+
+
+@pytest.mark.parametrize("argv, device, rest", [
+    (["a=1", "--device", "cpu", "b=2"], "cpu", ["a=1", "b=2"]),
+    (["--device=cpu", "--config", "x.toml"], "cpu", ["--config", "x.toml"]),
+    (["a=1", "shard_stride=2"], "cuda", ["a=1", "shard_stride=2"]),
+    (["a=1", "--device"], None, None),
+], ids=["spaced", "equals", "default", "missing_value"])
+def test_device_argument(argv, device, rest):
+    """The CLIs' one --device parser (cli/_args.py)."""
+    from haconvdr_torch.cli._args import pop_device
+
+    if device is None:
+        with pytest.raises(ValueError, match="needs a value"):
+            pop_device(argv)
+    else:
+        assert pop_device(argv) == (device, rest)
+
+
+def test_config_matches_jax_and_states_no_tpu_figure():
+    """The port's config.py keeps the JAX package's fields, types and
+    defaults (TOML files and overrides read the same), and its comments
+    state no TPU figure."""
+    import dataclasses
+
+    from haconvdr_torch import config as tconfig
+    from haconvdr_tpu import config as jconfig
+
+    names = [n for n, v in vars(jconfig).items()
+             if dataclasses.is_dataclass(v) and v.__module__ == jconfig.__name__]
+    assert "ServeConfig" in names and "ModelConfig" in names
+    for name in names:
+        ours, ref = getattr(tconfig, name), getattr(jconfig, name)
+
+        def spec(cls):
+            return [(f.name, str(f.type), f.default, f.default_factory)
+                    for f in dataclasses.fields(cls)]
+
+        assert [s[:3] for s in spec(ours)] == [s[:3] for s in spec(ref)], name
+        assert [dataclasses.asdict(f()) if f is not dataclasses.MISSING else None
+                for *_, f in spec(ours)] == [
+            dataclasses.asdict(f()) if f is not dataclasses.MISSING else None
+            for *_, f in spec(ref)], name
+    src = (PKG / "config.py").read_text()
+    assert not re.findall(r"QPS|MXU|VMEM|TPU|16 GB", src)
 
 
 def test_tf32_is_off():

@@ -282,11 +282,3 @@ def test_cli_refuses_to_run_without_the_card(corpus, checkpoint, tmp_path, monke
     assert not (tmp_path / "out").exists()
     store = torch_main(args + ["--device=cpu"])
     assert store.num_blocks() == 1
-
-
-@pytest.mark.parametrize("model_type", ["ANCE_Query", "BERT_Passage"])
-def test_load_model_raises_naming_its_roadmap_item(tmp_path, model_type):
-    """JAX's ``load_model`` (haconvdr_tpu/models/hf_import.py:182) is not
-    ported: the port's raises NotImplementedError, not ImportError."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        thf.load_model(model_type, str(tmp_path))

@@ -8,6 +8,7 @@ streaming and bfloat16 streaming are held against JAX the same way (the
 int8 scoring-model difference is stated in its test)."""
 
 import dataclasses
+import json
 import threading
 
 import numpy as np
@@ -21,7 +22,7 @@ from haconvdr_tpu.serve import Retriever as JaxRetriever
 from haconvdr_torch.index.quantize import quantize_queries_int8
 from haconvdr_torch.models.convert import init_params_numpy
 from haconvdr_torch.serve import BacklogFull, BatchingRetriever, Retriever
-from haconvdr_torch.utils.testing import HashTokenizer
+from haconvdr_torch.utils.testing import HashTokenizer, write_tiny_hf_checkpoint
 
 N_PASSAGES = 90
 QUERIES = [
@@ -229,10 +230,30 @@ def test_unported_modes_raise(setup):
             Retriever(setup["tok"], setup["params"], setup["cfg"], setup["store"], **kw)
 
 
-def test_retriever_load_raises_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        Retriever.load(str(tmp_path / "ckpt"), str(tmp_path / "emb"), model_type="ANCE",
-                       device="cpu")
+@pytest.mark.parametrize("resident", [True, False], ids=["resident", "streamed"])
+def test_retriever_load_matches_jax(setup, tmp_path, resident):
+    """Retriever.load in both packages on one checkpoint (weights and the
+    RoBERTa tokenizer saved beside them) and one store: the same ids,
+    scores within 1e-5."""
+    pytest.importorskip("transformers")
+    ckpt = write_tiny_hf_checkpoint(tmp_path / "ckpt", seed=21, max_position_embeddings=130)
+    kw = dict(
+        offset2pid=setup["offset2pid"], data_cfg=setup["data_cfg"],
+        search_cfg=SearchConfig(top_k=8), resident=resident,
+    )
+    jr = JaxRetriever.load(ckpt, setup["store"].dir_path, **kw)
+    tr = Retriever.load(ckpt, setup["store"].dir_path, model_type="ANCE", **kw, device="cpu")
+    assert type(tr.tokenizer) is type(jr.tokenizer)
+    assert tr.encoder.cfg.num_hidden_layers == 2 and (tr.index is not None) == resident
+    for question, history in QUERIES:
+        assert tr.build_query(question, history) == jr.build_query(question, history)
+        ours = tr.retrieve(question, history)
+        assert len(ours) == 8
+        _assert_same(ours, jr.retrieve(question, history))
+    with pytest.raises(ValueError, match="unknown model type"):
+        Retriever.load(ckpt, setup["store"].dir_path, model_type="T5", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        Retriever.load(ckpt, setup["store"].dir_path, ivf=True, device="cpu")
 
 
 def test_ivf_arguments_without_ivf_answer_as_without_them(setup, tmp_path):

@@ -348,11 +348,72 @@ def test_trainer_fit_smoke(tmp_path):
     assert latest_step(str(tmp_path / "ckpt")) == 4
 
 
-def test_trainer_metrics_raises_naming_its_roadmap_item():
-    """JAX's Trainer takes ``metrics`` (haconvdr_tpu/train/trainer.py:271);
-    the port accepts the argument and refuses anything but None until
-    utils/telemetry.py is ported."""
+def test_trainer_metrics_log_the_jax_trainers_events(tmp_path):
+    """``Trainer(metrics=MetricsLogger(path))`` in both packages on the same
+    examples and seed (dropout off, the JAX Trainer on a one-device mesh so
+    both take batches of 4): the same train_step events (keys, epochs,
+    micro steps), losses within 2e-4."""
+    import json
+
+    from haconvdr_tpu.utils.telemetry import MetricsLogger as JMetricsLogger
+    from haconvdr_torch.utils.telemetry import MetricsLogger
+
     cfg = ModelConfig.tiny()
-    Trainer("cpu", cfg, TrainConfig(), metrics=None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        Trainer("cpu", cfg, TrainConfig(), metrics=object())
+    tcfg = TrainConfig(
+        num_train_epochs=2, per_device_train_batch_size=4, accumulation_steps=2,
+        learning_rate=1e-3, is_pseudo_prepos=False, is_prepos_neg=False, print_steps=0,
+    )
+    rng = np.random.default_rng(6)
+    examples = [
+        {
+            "sample_id": f"s{i}",
+            "conv_qp": rng.integers(4, cfg.vocab_size, 6).tolist(), "conv_qp_mask": [1] * 6,
+            "pos_docs": rng.integers(4, cfg.vocab_size, 5).tolist(), "pos_docs_mask": [1] * 5,
+            "neg_docs": rng.integers(4, cfg.vocab_size, 5).tolist(), "neg_docs_mask": [1] * 5,
+        }
+        for i in range(12)
+    ]
+    params, frozen = init_params_numpy(cfg, 0), init_params_numpy(cfg, 1)
+    events = {}
+    for name, logger_cls, trainer in (
+        ("jax", JMetricsLogger, lambda m: jtrain.Trainer(
+            make_mesh(devices=jax.devices()[:1]), JModelConfig(**dataclasses.asdict(cfg)),
+            JTrainConfig(**dataclasses.asdict(tcfg)), metrics=m)),
+        ("torch", MetricsLogger, lambda m: Trainer("cpu", cfg, tcfg, metrics=m)),
+    ):
+        metrics = logger_cls(str(tmp_path / f"{name}.jsonl"))
+        trainer(metrics).fit(params, frozen, examples)
+        metrics.close()
+        events[name] = [json.loads(line) for line in open(tmp_path / f"{name}.jsonl")]
+    ours, ref = events["torch"], events["jax"]
+    assert len(ours) == len(ref) == 6  # 2 epochs x 3 batches
+    for got, want in zip(ours, ref):
+        assert got.keys() == want.keys() == {"t", "event", "epoch", "micro_step", "loss"}
+        assert (got["event"], got["epoch"], got["micro_step"]) == (
+            want["event"], want["epoch"], want["micro_step"])
+    assert [e["micro_step"] for e in ours] == list(range(1, 7))
+    np.testing.assert_allclose([e["loss"] for e in ours], [e["loss"] for e in ref],
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_metrics_logger_and_timer(tmp_path):
+    """The port's telemetry copy writes what tests/test_mine.py's
+    test_metrics_logger holds the JAX one to; a logger with no path is a
+    no-op."""
+    import json
+
+    from haconvdr_torch.utils.telemetry import MetricsLogger, Timer
+
+    path = str(tmp_path / "sub" / "m.jsonl")
+    m = MetricsLogger(path, flush_every=1)
+    m.log("train_step", loss=1.5, step=3)
+    with Timer(m, "search", block=0) as t:
+        pass
+    m.close()
+    recs = [json.loads(line) for line in open(path)]
+    assert recs[0]["event"] == "train_step" and recs[0]["loss"] == 1.5
+    assert recs[1]["event"] == "search" and recs[1]["block"] == 0
+    assert recs[1]["seconds"] == round(t.elapsed, 6)
+    m2 = MetricsLogger("")
+    m2.log("x")
+    m2.close()
