@@ -156,8 +156,27 @@ order; any failure raises and the script exits non-zero:
    served, 0 errors, and a dispatch of more than one request; the window
    kernel's launches match the routes of the dispatched batch sizes.  It
    prints requests/s over the burst, /stats' p50 / p90 / p99 and the
-   dispatch histogram.
-Each of phases 4-12 zeroes every launch count just before it (phase 10:
+   dispatch histogram;
+13. the IVF serving tier: a 2,500,000 x 768 Gaussian mixture (64
+   unit-norm modes plus noise, made on the card from the seed) written as
+   one float32 store block under the first of the temporary directory and
+   build/ with room; cli/build_ivf (nlist 1024, nprobe 32, bfloat16) into
+   an ivf_dir; Retriever(ivf=True, ivf_dir=...) with phase 4's f32 tower
+   reloads it, and its index and answers must equal the build's bit for
+   bit; an in-process residual-int8 build (rescore_oversample 3).  At
+   nprobe = nlist the IVF answers must equal the flat bf16 v4 search (the
+   buckets' scoring model), and ivf_search on the card the CPU's for 8
+   queries (the top-k rule below); recall@100 at nprobe 32 must reach
+   0.99.  300 single requests through the IVF retriever and flat f32 and
+   bf16 ones in turn, and 128 concurrent clients through
+   BatchingRetriever(max_batch=16) over IVF and flat bf16: each IVF
+   answer must equal Retriever.search of its request embedded in a batch
+   of a dispatched bucket.  It prints build, save, load and reload
+   seconds, the buckets' bytes, recall@100 against the flat search at
+   nprobe 8, 32 and 64, the search ms at Q 1, 8 and 64 beside the flat v4
+   search (CUDA events and torch.profiler's device ms), single-request
+   percentiles and requests/s, IVF against flat.
+Each of phases 4-13 zeroes every launch count just before it (phase 10:
 before the encode, the search and the labeling) and reads them just
 after: each kernel of that path must have launched, and no plain twin may
 have run.
@@ -207,6 +226,11 @@ Tolerances (kernel vs plain twin on the same inputs):
                      kernel bit for bit (one fmaf chain, one merge)
   offline eval run   as top-k ids and scores above, against the plain
                      twins' top-100
+  IVF (phase 13)     as top-k ids and scores above: full probe against
+                     the flat bf16 search, the card against the CPU (two
+                     float32 sums of exact products in another order); a
+                     reload, and every served answer against
+                     Retriever.search at its bucket, bit for bit
   HTTP answers       bit for bit Retriever.search of the same request
                      embedded in a batch of its dispatch's bucket (a row's
                      embedding depends on the batch shape, not on the
@@ -1815,6 +1839,29 @@ def profile_window(run, n: int):
     return wall_ms, dev_ms, by_name
 
 
+def profiled_ms(fn, n: int):
+    """(wall ms, device ms, device operations) per call of ``fn`` over ``n``
+    calls after a warm-up, under torch.profiler.  The device ms sum the
+    durations of the calls' kernels, copies and fills (one stream, so none
+    overlap); the wall ms include the host's time to enqueue them and the
+    profiler's own cost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    check(dev_ms > 0, "profiled_ms: the profiler saw no device time")
+    return wall_ms / n, dev_ms / n, len(ops) / n
+
+
 def phase_training(seed: int, dev, card: str):
     """Phase 9 at the reference geometry; returns (launch counts, metrics)."""
     from haconvdr_torch.config import ModelConfig, TrainConfig
@@ -2561,6 +2608,306 @@ def phase_http(seed: int, dev, params, cfg, served, p_sum: float, card: str):
     return counts, stages
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the IVF serving tier
+# ---------------------------------------------------------------------------
+
+# 64 unit-norm modes and a per-dimension noise of 0.06: a mode spans ~16 of
+# the 1,024 clusters, so nprobe 8 misses part of a query's top 100 and
+# nprobe 32 covers it (probes/probe_torch_ivf.py)
+IVF_MODES, IVF_NOISE = 64, 0.06
+IVF_NLIST, IVF_NPROBE = 1024, 32
+IVF_PROBES = (8, 32, 64)  # recall@100 against the flat search
+IVF_RECALL_FLOOR = 0.99  # recall@100 at IVF_NPROBE
+IVF_QS = (1, 8, 64)  # search ms, IVF beside the flat v4 search
+IVF_RECALL_Q, IVF_FULL_Q, IVF_CPU_Q = 256, 32, 8
+IVF_BATCHED = 128  # concurrent clients, as phase 12 (max_batch 16)
+# the caching allocator's counters read around the serving runs: a device
+# malloc or free (and a retry, which frees cached blocks) synchronizes
+ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_sync_all_streams", "num_alloc_retries")
+IVF_SINGLE = 300  # single requests through each retriever, in turn
+
+
+def ivf_corpus(seed: int, dev, n_modes: int = IVF_MODES, noise: float = IVF_NOISE):
+    """(rows [N_ROWS, DIM], queries [IVF_RECALL_Q, DIM]) float32 on the card:
+    ``n_modes`` unit-norm modes plus N(0, noise^2) noise per dimension,
+    from the seed.  Isotropic rows would not cluster."""
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    modes = F.normalize(torch.randn(n_modes, DIM, device=dev, generator=g), dim=1)
+
+    def draw(n):
+        pick = torch.randint(0, n_modes, (n,), device=dev, generator=g)
+        return modes[pick] + noise * torch.randn(n, DIM, device=dev, generator=g)
+
+    rows = torch.empty(N_ROWS, DIM, device=dev)
+    for r0 in range(0, N_ROWS, 1 << 18):
+        rows[r0 : r0 + (1 << 18)] = draw(min(1 << 18, N_ROWS - r0))
+    return rows, draw(IVF_RECALL_Q)
+
+
+def alloc_counts() -> dict:
+    st = torch.cuda.memory_stats()
+    return {k: st.get(k, 0) for k in ALLOC_KEYS}
+
+
+def alloc_delta(before: dict) -> dict:
+    after = alloc_counts()
+    return {k: after[k] - before[k] for k in ALLOC_KEYS}
+
+
+def recall_at(ids, ref_ids) -> float:
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(b)
+                          for a, b in zip(ids, ref_ids)]))
+
+
+def phase_ivf(seed: int, dev, params, cfg, card: str):
+    """Phase 13: cli/build_ivf over a 2.5M x 768 Gaussian-mixture store,
+    Retriever(ivf=True) reloading its directory with the f32 tower, an
+    in-process residual-int8 build with the two-stage rescore, single
+    requests and BatchingRetriever(max_batch=16) beside flat retrievers;
+    answers held to the flat v4 search, the CPU and the build."""
+    import tempfile
+
+    from haconvdr_torch.cli import build_ivf as build_cli
+    from haconvdr_torch.config import DataConfig, SearchConfig
+    from haconvdr_torch.index import ivf
+    from haconvdr_torch.index.store import EmbeddingBlockStore
+    from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
+    from haconvdr_torch.parallel.sharded_ivf import load_ivf_sharded
+    from haconvdr_torch.parallel.sharded_search import ShardedIndex
+    from haconvdr_torch.serve import BatchingRetriever, Retriever
+    from haconvdr_torch.utils.testing import HashTokenizer
+
+    stages = {}
+    rows, mq = ivf_corpus(seed, dev)
+    flat16 = ShardedIndex.from_tensor(rows, dtype="bfloat16")  # the buckets' scoring model
+    flat32 = ShardedIndex.from_tensor(rows)
+    root = room_for(N_ROWS * (DIM * 4 + 8) + 2 * N_ROWS * DIM * 2)  # store + buckets (< 2x)
+
+    def retriever(store, store_dtype, ivf_dir=None, **kw):
+        return Retriever(
+            HashTokenizer(cfg.vocab_size), params, cfg, store,
+            data_cfg=DataConfig(is_train=False, use_PRL=False),
+            search_cfg=SearchConfig(top_k=TOP_K, per_device_test_batch_size=64, **kw),
+            store_dtype=store_dtype, ivf=True, ivf_nlist=IVF_NLIST, ivf_nprobe=IVF_NPROBE,
+            ivf_dir=ivf_dir, device=dev,
+        )
+
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        t = time.perf_counter()
+        EmbeddingBlockStore(f"{tmp}/emb").write_block(
+            0, rows.cpu().numpy(), np.arange(N_ROWS, dtype=np.int64))
+        stages["store_write_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        built, stats = build_cli.main([
+            f"embeddings={tmp}/emb", f"out={tmp}/ivf", f"nlist={IVF_NLIST}",
+            f"nprobe={IVF_NPROBE}", "dtype=bfloat16", f"seed={seed}", "--device", str(dev)])
+        stages["build_cli_s"] = time.perf_counter() - t
+        stages.update(build_s=stats["build_s"], save_s=stats["save_s"],
+                      capacity=stats["capacity"], tail_rows=stats["tail_rows"],
+                      bucket_bytes=(built.buckets.numel() + built.tail.numel()) * 2)
+        check(stats["nlist"] == IVF_NLIST and stats["dtype"] == "bfloat16",
+              f"ivf: build_ivf printed {stats}")
+        t = time.perf_counter()
+        load_ivf_sharded(f"{tmp}/ivf", device=dev)  # the index alone, then the retriever
+        torch.cuda.synchronize()
+        stages["load_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        r16 = retriever(EmbeddingBlockStore(f"{tmp}/emb"), "bfloat16", ivf_dir=f"{tmp}/ivf")
+        torch.cuda.synchronize()
+        stages["reload_s"] = time.perf_counter() - t
+        check(r16.ivf_index is not None and r16.index is None, "ivf: no IVF index reloaded")
+        t = time.perf_counter()
+        r8 = retriever(EmbeddingBlockStore(f"{tmp}/emb"), "int8", rescore_oversample=3.0)
+        torch.cuda.synchronize()
+        stages["int8_build_s"] = time.perf_counter() - t
+        idx, idx8 = r16.ivf_index, r8.ivf_index
+        check(idx8.buckets.dtype == torch.int8 and idx8.means is not None,
+              "ivf: the int8 build is not residual int8")
+        for name in ivf.ARRAYS:
+            check(torch.equal(getattr(idx, name), getattr(built, name)),
+                  f"ivf: the reloaded {name} differs from the build's")
+        q64 = mq[:64]
+        s_b, i_b = ivf.ivf_search(built, q64, k=TOP_K)
+        s_r, i_r = r16.search(q64.cpu().numpy())
+        check(np.array_equal(s_b, s_r) and np.array_equal(i_b, i_r),
+              "ivf: the reloaded retriever's answers differ from the build's")
+        del built
+        # the two-stage int8 answers (the rescore reads the store on disk)
+        s8, i8 = r8.search(mq.cpu().numpy())
+        _, i8_all = ivf.ivf_search(idx8, mq[:IVF_FULL_Q], k=TOP_K, nprobe=IVF_NLIST)
+    del r8
+    torch.cuda.empty_cache()
+    print(f"ivf: {N_ROWS}x{DIM} f32 store written in {stages['store_write_s']:.1f} s under "
+          f"{root}; cli/build_ivf nlist {IVF_NLIST} bfloat16: build {stats['build_s']} s, save "
+          f"{stats['save_s']} s ({stages['build_cli_s']:.1f} s in all), capacity "
+          f"{stats['capacity']}, tail {stats['tail_rows']} rows, buckets "
+          f"{stages['bucket_bytes'] / 1e9:.3f} GB; load_ivf_sharded {stages['load_s']:.2f} s, "
+          f"Retriever(ivf=True) reload {stages['reload_s']:.2f} s (the tower with it), equal to "
+          f"the build bit for bit; residual-int8 build "
+          f"{stages['int8_build_s']:.1f} s [{card}]")
+
+    # ---- full probe equals the flat search; the card equals the CPU
+    fs, fi = flat16.search(mq[:IVF_FULL_Q], TOP_K)
+    s, i = ivf.ivf_search(idx, mq[:IVF_FULL_Q], k=TOP_K, nprobe=IVF_NLIST)
+    compare_topk(torch.from_numpy(s), torch.from_numpy(i), torch.from_numpy(fs),
+                 torch.from_numpy(fi), "ivf: nprobe = nlist against the flat bf16 search")
+    cpu = ivf.IVFIndex(*[x.cpu() if isinstance(x, torch.Tensor) else x for x in idx])
+    t = time.perf_counter()
+    cs, ci = ivf.ivf_search(cpu, mq[:IVF_CPU_Q].cpu(), k=TOP_K)
+    stages["cpu_search_s"] = time.perf_counter() - t
+    del cpu
+    s, i = ivf.ivf_search(idx, mq[:IVF_CPU_Q], k=TOP_K)
+    compare_topk(torch.from_numpy(s), torch.from_numpy(i), torch.from_numpy(cs),
+                 torch.from_numpy(ci), "ivf: the card against the CPU")
+    print(f"ivf: nprobe {IVF_NLIST} equals the flat bf16 v4 search for {IVF_FULL_Q} queries; "
+          f"nprobe {IVF_NPROBE} on the card equals the CPU's ivf_search for {IVF_CPU_Q} "
+          f"({stages['cpu_search_s']:.1f} s on the host)")
+
+    # ---- recall@100 against the flat searches
+    _, gt16 = flat16.search(mq, TOP_K)
+    _, gt32 = flat32.search(mq, TOP_K)
+    recall = {p: recall_at(ivf.ivf_search(idx, mq, k=TOP_K, nprobe=p)[1], gt16)
+              for p in IVF_PROBES}
+    stages["recall_at_100"] = recall
+    stages["int8_two_stage_recall_at_100"] = recall_at(i8, gt32)
+    stages["int8_full_probe_recall_at_100"] = recall_at(i8_all, gt32[:IVF_FULL_Q])
+    check(recall[8] <= recall[32] <= recall[64], f"ivf: recall falls with nprobe: {recall}")
+    check(recall[IVF_NPROBE] >= IVF_RECALL_FLOOR,
+          f"ivf: recall@100 {recall[IVF_NPROBE]} at nprobe {IVF_NPROBE} < {IVF_RECALL_FLOOR}")
+    print(f"ivf: recall@100 against the flat bf16 search over {IVF_RECALL_Q} mixture queries "
+          f"{json.dumps(recall)}; residual int8 nprobe {IVF_NPROBE} + rescore x3 against the "
+          f"flat f32 search {stages['int8_two_stage_recall_at_100']:.4f} (one stage at nprobe "
+          f"{IVF_NLIST}: {stages['int8_full_probe_recall_at_100']:.4f}) [{card}]")
+
+    # ---- search ms, IVF beside the flat v4 search: CUDA events around 10
+    # calls back to back (the host's time to enqueue them included), and
+    # torch.profiler's device ms per call (device_ms cannot time it: a call
+    # queues 136-1,058 device operations at Q 1-64, and the host blocks
+    # once about a thousand wait behind device_ms's spin)
+    ms = {}
+    for Q in IVF_QS:
+        q = mq[:Q]
+        fns = {"ivf": lambda: ivf.ivf_search_device(idx, q, TOP_K, IVF_NPROBE),
+               "flat_bf16": lambda: flat16.search_device(q, TOP_K),
+               "flat_f32": lambda: flat32.search_device(q, TOP_K)}
+        ms[Q] = {}
+        for name, fn in fns.items():
+            _, dev_ms, ops = profiled_ms(fn, 10)
+            ms[Q][name] = {"events": cuda_ms(fn, 10), "device": dev_ms, "device_ops": ops}
+    stages["search_ms"] = ms
+    for Q, m in ms.items():
+        print(f"ivf search Q {Q} at nprobe {IVF_NPROBE}, ms as events (the host's enqueue "
+              "included) / profiler device (device operations a call): " + ", ".join(
+                  f"{name} {v['events']:.3f} / {v['device']:.3f} ({v['device_ops']:.0f})"
+                  for name, v in m.items()) + f" [{card}]")
+    del flat16, flat32
+    torch.cuda.empty_cache()
+
+    # ---- the serving path: single requests in turn through the IVF
+    # retriever and flat f32 and bf16 ones, then IVF_BATCHED concurrent
+    # clients through BatchingRetriever(max_batch=16) over IVF and flat bf16
+    served = {"ivf": r16,
+              "flat_f32": build_retriever(params, cfg, dev, rows, None),
+              "flat_bf16": build_retriever(params, cfg, dev, rows, None, store_dtype="bfloat16")}
+    del rows
+    torch.cuda.empty_cache()
+    reqs = make_requests(seed + 13, IVF_BATCHED + IVF_SINGLE)
+    search_qs = []
+    search = r16.search
+
+    def recording_search(queries, k=None):
+        search_qs.append(int(np.asarray(queries).shape[0]))
+        return search(queries, k)
+
+    r16.search = recording_search
+    for r in served.values():
+        r.retrieve(*reqs[0])
+    zero_counts()
+    stages["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    before = alloc_counts()
+    singles, lat = [], {name: [] for name in served}
+    for req in reqs[IVF_BATCHED:]:
+        for name, r in served.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hits = r.retrieve(*req)
+            lat[name].append((time.perf_counter() - t) * 1e3)
+            if r is r16:
+                singles.append(hits)
+    stages["single_allocator"] = alloc_delta(before)
+    batched = {}
+    for name in ("ivf", "flat_bf16"):
+        got = [None] * IVF_BATCHED
+        before = alloc_counts()
+        with BatchingRetriever(served[name], max_batch=16, max_wait_ms=50.0) as batcher:
+            def client(j):
+                got[j] = batcher.submit(*reqs[j]).result(timeout=600)
+
+            threads = [threading.Thread(target=client, args=(j,)) for j in range(IVF_BATCHED)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            wall = time.perf_counter() - t
+            st = batcher.stats()
+        check(all(not th.is_alive() for th in threads), f"ivf: {name}'s batched clients hung")
+        batched[name] = {"requests_per_s": IVF_BATCHED / wall, "dispatches": st["dispatches"],
+                         "batch_histogram": st["batch_histogram"],
+                         "allocator": alloc_delta(before)}
+        if name == "ivf":
+            answers = got
+    counts = read_counts()
+    r16.search = search
+    check(all(a is not None and len(a) == TOP_K for a in answers + singles),
+          "ivf: a request got no answer or fewer than k hits")
+    print("ivf launch counts:", json.dumps(counts))
+    check_counts(counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
+                          ("topk_v4", "select_t"), ("topk_v4", "select")], "ivf")
+    # each IVF answer is Retriever.search of its request in a batch of a
+    # dispatched bucket (a row's embedding depends on the batch shape)
+    examples = [r16.build_query(*r) for r in reqs]
+    by_bucket = {}
+    for b in sorted(set(search_qs)):
+        q = encode_batches(r16.encoder, batch_iter(examples, b), "conv_qp", "conv_qp_mask")[0]
+        hits = []
+        for c0 in range(0, len(q), b):
+            chunk = q[c0 : c0 + b]
+            pad = np.broadcast_to(chunk[:1], (b - len(chunk), chunk.shape[1]))
+            sc, ids = r16.search(np.concatenate([chunk, pad]))
+            hits += [[(int(x), float(y)) for x, y in zip(ids[j], sc[j])] for j in range(len(chunk))]
+        by_bucket[b] = hits
+    for j, ans in enumerate(answers + singles):  # singles follow the batched in reqs
+        check(any(h[j] == ans for h in by_bucket.values()),
+              f"ivf: request {j} equals no bucket's Retriever.search answer")
+    # tower queries: recall of nprobe 32 against the flat f32 search
+    tq = r16.embed(examples)
+    stages["tower_query_recall_at_100"] = recall_at(
+        r16.search(tq)[1], served["flat_f32"].index.search(tq, TOP_K)[1])
+    stages["single_ms"] = {name: {f"p{p}": float(np.percentile(v, p)) for p in (50, 90, 99)}
+                           for name, v in lat.items()}
+    # per request, IVF less each flat retriever (the same request, in turn)
+    stages["single_paired_median_ms"] = {
+        name: float(np.median(np.subtract(lat["ivf"], lat[name]))) for name in lat if name != "ivf"}
+    stages["batched"] = batched
+    print(f"ivf single requests, {IVF_SINGLE} each in turn (ms p50 / p90 / p99): " + ", ".join(
+        f"{name} {v['p50']:.3f} / {v['p90']:.3f} / {v['p99']:.3f}"
+        for name, v in stages["single_ms"].items()) + "; the median of IVF less flat per request: "
+        + ", ".join(f"{name} {d:+.3f}" for name, d in stages["single_paired_median_ms"].items())
+        + f" [{card}]")
+    print(f"ivf BatchingRetriever(max_batch=16), {IVF_BATCHED} concurrent clients: " + ", ".join(
+        f"{name} {v['requests_per_s']:.1f} requests/s in {v['dispatches']} dispatches "
+        f"{json.dumps(v['batch_histogram'])}, allocator {json.dumps(v['allocator'])}"
+        for name, v in batched.items())
+        + f"; tower-query recall@100 {stages['tower_query_recall_at_100']:.4f} [{card}]")
+    print("ivf e2e:", json.dumps(stages), f"[{card}]")
+    del r16, served, idx
+    torch.cuda.empty_cache()
+    return counts, stages
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2612,10 +2959,11 @@ def main(argv=None) -> int:
     c11, _ = phase_train_f32(args.seed, dev, card)
     c12, _ = phase_http(args.seed, dev, params, cfg, served, p_sum, card)
     del served
+    c13, _ = phase_ivf(args.seed, dev, params, cfg, card)
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def launches(mod, key):
-        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10, c11, c12))
+        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10, c11, c12, c13))
 
     def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]

@@ -3,9 +3,10 @@ haconvdr_tpu/cli/serve.py).
 
 Loads a trained query-encoder checkpoint and an embedding store
 (``Retriever.load``), keeps the index resident on the card (float32,
-bfloat16 or int8, ``serve.store_dtype``) or streams its blocks
-(``serve.resident=false``), and serves the HTTP/JSON API
-(haconvdr_torch/serve_http.py) until SIGINT.
+bfloat16 or int8, ``serve.store_dtype``), streams its blocks
+(``serve.resident=false``) or serves the IVF index (``serve.ivf=true``,
+built from the store or reloaded from ``serve.ivf_dir``), and serves the
+HTTP/JSON API (haconvdr_torch/serve_http.py) until SIGINT.
 
 Usage: python -m haconvdr_torch.cli.serve --config cfg.toml
        [serve.port=8080 serve.store_dtype=int8 search.rescore_oversample=5 ...]
@@ -13,8 +14,6 @@ Usage: python -m haconvdr_torch.cli.serve --config cfg.toml
 
 The tower and the search run on ``--device``: the CUDA card by default
 (refusing to start without one), the plain twins with ``--device cpu``.
-``serve.ivf=true`` fails: IVF serving is not ported (``Retriever``
-raises NotImplementedError).
 """
 
 import logging

@@ -260,8 +260,9 @@ class ServeConfig:
     # onto the card as one flat index (ShardedIndex, searched by the v4
     # kernels); resident=False streams its blocks through BlockSearcher
     # per search (first block v4, later blocks the seeded v3 kernel).
-    # ivf=True (the cluster-pruned index and its ivf_* knobs) is not
-    # ported: Retriever raises NotImplementedError
+    # ivf=True replaces it with the cluster-pruned IVF index
+    # (parallel/sharded_ivf.py, one shard), built from the store with
+    # min(ivf_nlist, rows // 8) clusters or reloaded from ivf_dir
     resident: bool = True
     ivf: bool = False
     ivf_nlist: int = 1024

@@ -12,6 +12,7 @@ batches on one worker thread.  Query construction uses the port's
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -24,12 +25,19 @@ import torch
 from haconvdr_torch.config import DataConfig, ModelConfig, SearchConfig
 from haconvdr_torch.data.sequence import ConcatBuilder, encode_no_trunc
 from haconvdr_torch.device import DeviceLike, resolve_device
+from haconvdr_torch.index.ivf import IVFIndex
 from haconvdr_torch.index.rescore import StoreRescorer
 from haconvdr_torch.index.store import EmbeddingBlockStore
 from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
 from haconvdr_torch.models.hf_import import load_checkpoint
 from haconvdr_torch.ops.topk import BlockSearcher
 from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
+from haconvdr_torch.parallel.sharded_ivf import (
+    build_ivf_from_store,
+    load_ivf_sharded,
+    save_ivf_sharded,
+    sharded_ivf_search,
+)
 from haconvdr_torch.parallel.sharded_search import ShardedIndex
 
 logger = logging.getLogger(__name__)
@@ -44,6 +52,21 @@ class Retriever:
     a ``ShardedIndex`` of ``store_dtype`` (float32, bfloat16 or int8; the
     float disk store stays the exact rescore stage, serve.py:109-113);
     ``resident=False`` streams its blocks per search.
+    ``ivf=True`` replaces the flat index with the cluster-pruned IVF index
+    (parallel/sharded_ivf.py, one shard): built from the store at
+    construction with ``min(ivf_nlist, rows // 8)`` clusters and buckets
+    of ``store_dtype`` ("int8": residual codes), probing ``ivf_nprobe``
+    clusters a query (default 32; a request >= nlist probes all), or
+    reloaded from ``ivf_dir`` when it holds a saved index, which the build
+    otherwise writes there.  Its search is exact over the rows it reads
+    and reads only the probed buckets and the tail.  On the H100 it is a
+    tier of capacity and restart (buckets built once, saved and reloaded
+    in seconds; residual int8 codes), not of speed: a single query's
+    search is no faster than the flat bfloat16 search, and a batch's is
+    slower, since each query scores its own probed buckets
+    (``BatchingRetriever`` warns above ``max_batch`` 16).  The float disk
+    store stays the exact rescore stage
+    (``SearchConfig.rescore_oversample``).
     ``params`` are the JAX package's nested-dict params (numpy leaves).
     ``encoder_int8=True`` quantizes them (``quantize_encoder_params``) and
     serves the int8 tower: with ``model_cfg.dtype="bfloat16"`` it runs the
@@ -70,11 +93,6 @@ class Retriever:
     ):
         # ivf_nlist, ivf_nprobe and ivf_dir are read only with ivf=True, as
         # in the JAX package
-        if ivf:
-            raise NotImplementedError(
-                "IVF serving (index/ivf.py, parallel/sharded_ivf.py) is not ported "
-                "yet: ROADMAP.md queue 1 item 6"
-            )
         if encoder_int8:
             # int8 query tower (haconvdr_tpu/serve.py:92-104); the port's
             # quantize_encoder_params leaves int8 params as they are
@@ -92,8 +110,14 @@ class Retriever:
         self.offset2pid = None if offset2pid is None else np.asarray(offset2pid)
         self._rescorer = None
         self.index: Optional[ShardedIndex] = None
+        self.ivf_index: Optional[IVFIndex] = None
         self.store = None
-        if isinstance(store, torch.Tensor):
+        if ivf:
+            if isinstance(store, torch.Tensor):
+                raise ValueError("ivf=True builds from an EmbeddingBlockStore, not a tensor")
+            self._rescore_store = store
+            self.ivf_index = self._ivf(store, store_dtype, ivf_nlist, ivf_nprobe, ivf_dir)
+        elif isinstance(store, torch.Tensor):
             self._rescore_store = None
             self.index = ShardedIndex.from_tensor(
                 store.to(self.device), dtype=store_dtype
@@ -122,6 +146,46 @@ class Retriever:
                 superblock_dtype=cfg.superblock_dtype,
                 superblock_scale=sb_scale,
             )
+
+    def _ivf(self, store, store_dtype, ivf_nlist, ivf_nprobe, ivf_dir) -> IVFIndex:
+        """The IVF index of ``store`` (haconvdr_tpu/serve.py:115-205 with one
+        shard): reloaded from ``ivf_dir`` when it holds one, else built from
+        the store (and saved to ``ivf_dir``).  A request of ``ivf_nprobe`` >=
+        the requested nlist probes every cluster.  The reload refuses a
+        directory whose bucket dtype is not ``store_dtype`` or whose
+        valid-row count is not the store's (block headers only)."""
+        n_rows = sum(store.block_size(b) for b in range(store.num_blocks()))
+        req_nlist = min(ivf_nlist, max(1, n_rows // 8))
+        if ivf_dir and os.path.exists(os.path.join(ivf_dir, "ivf_sharded_meta.json")):
+            idx, meta = load_ivf_sharded(ivf_dir, with_meta=True, device=self.device)
+            saved_dtype = meta.get("bucket_dtype")
+            if saved_dtype is not None and saved_dtype != store_dtype:
+                raise ValueError(
+                    f"ivf_dir {ivf_dir!r} holds {saved_dtype} buckets "
+                    f"but store_dtype={store_dtype!r} was requested; "
+                    "rebuild (remove the dir) or match store_dtype"
+                )
+            saved_rows = meta.get("corpus_rows")
+            if saved_rows is not None and n_rows != saved_rows:
+                raise ValueError(
+                    f"ivf_dir {ivf_dir!r} was built from {saved_rows} corpus "
+                    f"rows but the store now has {n_rows}; the persisted index "
+                    "is stale — remove the dir to rebuild"
+                )
+            if ivf_nprobe is not None:
+                # the build's probe-everything rule, so identical arguments
+                # serve identical results across a restart
+                nlist = idx.centroids.shape[0]
+                idx = idx._replace(nprobe=int(nlist if ivf_nprobe >= req_nlist else ivf_nprobe))
+            return idx
+        want = 32 if ivf_nprobe is None else ivf_nprobe
+        idx = build_ivf_from_store(
+            store, nlist=req_nlist, nprobe=req_nlist if want >= req_nlist else want,
+            dtype=store_dtype, device=self.device,
+        )
+        if ivf_dir:  # the next load skips the build
+            save_ivf_sharded(idx, ivf_dir)
+        return idx
 
     @classmethod
     def load(
@@ -190,7 +254,9 @@ class Retriever:
         k = k or self.search_cfg.top_k
         oversample = self.search_cfg.rescore_oversample
         k1 = int(np.ceil(k * oversample)) if oversample > 1.0 else k
-        if self.index is not None:
+        if self.ivf_index is not None:
+            scores, ids = sharded_ivf_search(self.ivf_index, query_embs, k=k1)
+        elif self.index is not None:
             scores, ids = self.index.search(query_embs, k1)
         else:
             if k1 != self.searcher.top_k:
@@ -268,6 +334,15 @@ class BatchingRetriever:
     ):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        if retriever.ivf_index is not None and max_batch > 16:
+            # an IVF search scores each query's own probed buckets, so a
+            # larger batch does not share their reads (Retriever docstring)
+            logger.warning(
+                "BatchingRetriever(max_batch=%d) over an IVF retriever: IVF "
+                "search does not share its reads across a batch, so the flat "
+                "index searches a batch faster.  Use ivf=False for batches.",
+                max_batch,
+            )
         self.retriever = retriever
         self.max_batch = int(max_batch)
         self.max_wait_ms = float(max_wait_ms)

@@ -367,5 +367,15 @@ def test_serve_cli_passes_the_serve_section(ckpt, chain, tmp_path, monkeypatch):
     want = seen["retriever"].retrieve(_passage(4), k=3)
     assert [h["pid"] for h in seen["answer"]["hits"]] == [p for p, _ in want]
     assert want[0][0] == 4
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        serve_cli.main(args + ["serve.ivf=true", "--device", "cpu"])
+    # serve.ivf=true: the IVF retriever (probing every cluster) answers as
+    # JAX's Retriever.load with the same serve section
+    from haconvdr_tpu.serve import Retriever as JaxRetriever
+
+    serve_cli.main(args + ["serve.ivf=true", "serve.ivf_nprobe=1000", "--device", "cpu"])
+    (ckpt_arg, emb_arg), kw = seen["load"]
+    assert kw["ivf"] is True and kw["ivf_nprobe"] == 1000 and seen["retriever"].ivf_index is not None
+    jr = JaxRetriever.load(ckpt_arg, emb_arg, **{k: v for k, v in kw.items() if k != "device"})
+    want = jr.retrieve(_passage(4), k=3)
+    got = [(h["pid"], h["score"]) for h in seen["answer"]["hits"]]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    np.testing.assert_allclose([x for _, x in got], [x for _, x in want], rtol=1e-5, atol=1e-5)

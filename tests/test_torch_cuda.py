@@ -1564,3 +1564,83 @@ def test_retriever_load_and_http_server_answer_as_on_the_cpu(dev, tmp_path, monk
         ids, rids = np.array([p for p, _ in got]), np.array([p for p, _ in want[:20]])
         assert np.array_equal(ids[sep], rids[sep])
         assert sep.sum() >= 10  # most ranks are separated
+
+
+def _ivf_mixture(n, d, modes=64, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((modes, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = centers[rng.integers(0, modes, n)] + 0.2 * rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8_global", "int8_residual"])
+def test_ivf_search_on_the_card_answers_as_on_the_cpu(dev, dtype):
+    """ivf_search of one index on the card and on the CPU: scores within 1e-4
+    relative, ids identical wherever neighbouring scores differ by more than
+    1e-5 |s| (two float32 sums in another order), at partial and full probe
+    and through the probe-group merge."""
+    import numpy as np
+
+    from haconvdr_torch.index import ivf
+
+    x = _ivf_mixture(20_000, 96)
+    q = _ivf_mixture(64, 96, seed=1)
+    base = "bfloat16" if dtype == "bfloat16" else "float32"
+    index = ivf.build_ivf(x, nlist=64, nprobe=8, dtype=base, device=dev)
+    if dtype.startswith("int8"):
+        index = ivf.quantize_ivf(index, by_residual=dtype == "int8_residual")
+    cpu = ivf.IVFIndex(*[t.cpu() if isinstance(t, torch.Tensor) else t for t in index])
+    for nprobe in (8, 64):
+        s, i = ivf.ivf_search(index, q, k=50, nprobe=nprobe)
+        rs, ri = ivf.ivf_search(cpu, q, k=50, nprobe=nprobe)
+        assert np.all(np.abs(s - rs) <= 1e-4 * np.abs(rs))
+        gap = np.abs(np.diff(rs, axis=1)) > 1e-5 * np.abs(rs[:, 1:])
+        sep = np.concatenate([np.ones((64, 1), bool), gap], 1) & np.concatenate(
+            [gap, np.ones((64, 1), bool)], 1)
+        assert sep.mean() > 0.9 and np.array_equal(i[sep], ri[sep])
+    old = ivf.PANEL_BYTES
+    try:
+        ivf.PANEL_BYTES = 3 * index.buckets.shape[1] * 96 * 4  # one query, three probes
+        s2, i2 = ivf.ivf_search(index, q, k=50, nprobe=64)
+    finally:
+        ivf.PANEL_BYTES = old
+    assert np.array_equal(i2[sep], i[sep]) and np.all(np.abs(s2 - s) <= 1e-4 * np.abs(s))
+
+
+def test_ivf_store_build_is_deterministic_and_reloads(dev, tmp_path):
+    """Two build_ivf_from_store runs from one seed on the card give identical
+    tensors (the k-means update is a one-hot GEMM, not a float scatter-add),
+    in bfloat16 and residual int8; a save and reload equals the build."""
+    import numpy as np
+
+    from haconvdr_torch.index.ivf import ARRAYS, SIDECARS
+    from haconvdr_torch.index.store import EmbeddingBlockStore
+    from haconvdr_torch.parallel.sharded_ivf import (
+        build_ivf_from_store,
+        load_ivf_sharded,
+        save_ivf_sharded,
+        sharded_ivf_search,
+    )
+
+    x = _ivf_mixture(30_000, 64)
+    store = EmbeddingBlockStore(str(tmp_path / "emb"))
+    store.write_block(0, x[:17_000], np.arange(17_000, dtype=np.int64))
+    store.write_block(1, x[17_000:], np.arange(17_000, 30_000, dtype=np.int64))
+    for dtype in ("bfloat16", "int8"):
+        kw = dict(nlist=128, nprobe=16, dtype=dtype, seed=3, chunk_rows=4096, device=dev)
+        a, b = build_ivf_from_store(store, **kw), build_ivf_from_store(store, **kw)
+        out = str(tmp_path / dtype)
+        save_ivf_sharded(a, out)
+        back = load_ivf_sharded(out, device=dev)
+        for name in ARRAYS + SIDECARS:
+            ta, tb, tc = getattr(a, name), getattr(b, name), getattr(back, name)
+            assert (ta is None) == (tb is None) == (tc is None), name
+            if ta is not None:
+                assert ta.device.type == "cuda" and torch.equal(ta, tb) and torch.equal(ta, tc), name
+        q = x[:32]
+        s, i = sharded_ivf_search(a, q, k=20)
+        s2, i2 = sharded_ivf_search(back, q, k=20)
+        assert np.array_equal(s, s2) and np.array_equal(i, i2)

@@ -17,9 +17,11 @@ from haconvdr_torch.device import resolve_device, to_numpy, to_torch
 from haconvdr_torch.ops import _build, fused_attention, fused_topk, topk_stream
 
 PKG = pathlib.Path(haconvdr_torch.__file__).parent
+IVF_CLIS = ("build_ivf", "ivf_sweep", "ivf_geometry_check")
 CLIS = ("gen_doc_embeddings", "gen_tokenized_doc", "test_retrieval", "test_prj",
-        "train_retrieval", "serve", "bm25_search")
-DEVICE_CLIS = ("gen_doc_embeddings", "test_retrieval", "test_prj", "train_retrieval", "serve")
+        "train_retrieval", "serve", "bm25_search", *IVF_CLIS)
+DEVICE_CLIS = ("gen_doc_embeddings", "test_retrieval", "test_prj", "train_retrieval", "serve",
+               *IVF_CLIS)
 SMOKE = PKG.parent / "chip_smoke.py"
 
 
@@ -53,7 +55,8 @@ def test_every_module_imports_with_jax_blocked():
         "haconvdr_torch.retrieval", "haconvdr_torch.serve_http", "haconvdr_torch.utils.telemetry",
         "haconvdr_torch.models.hf_import", "haconvdr_torch.mine.analysis", "haconvdr_torch.mine.bm25",
         "haconvdr_torch.preprocess.collections", "haconvdr_torch.preprocess.topiocqa",
-        "haconvdr_torch.preprocess.qrecc", *(f"haconvdr_torch.cli.{c}" for c in CLIS),
+        "haconvdr_torch.preprocess.qrecc", "haconvdr_torch.index.ivf",
+        "haconvdr_torch.parallel.sharded_ivf", *(f"haconvdr_torch.cli.{c}" for c in CLIS),
     } <= set(mods)
     smoke = _smoke_imports()
     assert "haconvdr_torch.train.trainer" in smoke

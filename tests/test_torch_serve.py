@@ -224,10 +224,19 @@ def test_batching_backpressure_and_k_bound(setup):
         b.close()
 
 
-def test_unported_modes_raise(setup):
-    for kw in ({"ivf": True}, {"ivf": True, "ivf_nlist": 16, "ivf_nprobe": 4}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            Retriever(setup["tok"], setup["params"], setup["cfg"], setup["store"], **kw)
+def test_ivf_retriever_matches_jax(setup):
+    """Retriever(ivf=True) in both packages over the serving store, nlist 8
+    (a multiple of the JAX mesh's 8 shards) probing every cluster: the same
+    pids and scores, as the flat index answers (tests/test_torch_ivf.py
+    holds partial probes and the reloads)."""
+    jr, tr = _pair(setup, retriever_kw=dict(ivf=True, ivf_nlist=8, ivf_nprobe=8))
+    _, flat = _pair(setup)
+    assert tr.index is None and tr.ivf_index.centroids.shape[0] == 8
+    for question, history in QUERIES:
+        ours = tr.retrieve(question, history)
+        assert len(ours) == 8
+        _assert_same(ours, jr.retrieve(question, history))
+        _assert_same(ours, flat.retrieve(question, history))
 
 
 @pytest.mark.parametrize("resident", [True, False], ids=["resident", "streamed"])
@@ -252,8 +261,12 @@ def test_retriever_load_matches_jax(setup, tmp_path, resident):
         _assert_same(ours, jr.retrieve(question, history))
     with pytest.raises(ValueError, match="unknown model type"):
         Retriever.load(ckpt, setup["store"].dir_path, model_type="T5", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        Retriever.load(ckpt, setup["store"].dir_path, ivf=True, device="cpu")
+    ivf = dict(kw, ivf=True, ivf_nlist=8, ivf_nprobe=8)
+    jr = JaxRetriever.load(ckpt, setup["store"].dir_path, **ivf)
+    tr = Retriever.load(ckpt, setup["store"].dir_path, **ivf, device="cpu")
+    assert tr.ivf_index is not None
+    for question, history in QUERIES:
+        _assert_same(tr.retrieve(question, history), jr.retrieve(question, history))
 
 
 def test_ivf_arguments_without_ivf_answer_as_without_them(setup, tmp_path):
