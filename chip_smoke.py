@@ -13,9 +13,13 @@ order; any failure raises and the script exits non-zero:
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the serving path's shapes (Q = 256, N = 2,500,000 with n_valid =
    N - 1,000, D = 768, k = 100), with the max error and both times:
-   attention; the v3 top-k in f32, bf16 and its int8 mode, unseeded and
-   seeded, at Q 256 and, from its own generator, at Q 1, 64, 256 and 512
-   (ROW2_QS); the v4 window kernel (row 3) at Q 256 and, on the routes
+   attention, and its head-split [B, H, L, d] wrapper (fused_attention)
+   on the same heads; the v3 top-k in f32, bf16 and its int8 mode,
+   unseeded and seeded, at Q 256 and, from its own generator, at Q 1, 64,
+   256 and 512 (ROW2_QS), and unseeded with presample=-1 (the sampled
+   threshold alone) at Q 1, 64 and 256 (PRESAMPLE_QS); each wrapper piece
+   (head-split, presample) must launch its kernel once and no plain twin,
+   counts zeroed just before; the v4 window kernel (row 3) at Q 256 and, on the routes
    window_route names (a, the streaming route, at one query; b or c, the
    tiled routes, at 64), at Q 1 and 64, where it must also equal
    rescore_windows bit for bit on each query's own flagged windows, with a
@@ -175,11 +179,39 @@ order; any failure raises and the script exits non-zero:
    seconds, the buckets' bytes, recall@100 against the flat search at
    nprobe 8, 32 and 64, the search ms at Q 1, 8 and 64 beside the flat v4
    search (CUDA events and torch.profiler's device ms), single-request
-   percentiles and requests/s, IVF against flat.
-Each of phases 4-13 zeroes every launch count just before it (phase 10:
-before the encode, the search and the labeling) and reads them just
-after: each kernel of that path must have launched, and no plain twin may
-have run.
+   percentiles and requests/s, IVF against flat.  Its store and build stay
+   for phase 14;
+14. the multi-device layer (parallel/mesh.py) as four shard slots on the
+   one card, make_mesh(devices=[cuda:0] * 4): (a) phase 4's rows,
+   regenerated from the seed, as a ShardedIndex on the mesh (shards of
+   655,360 rows, JAX's cut) in float32, bfloat16 and int8 at Q 1, 64 and
+   256, k 100 (the v4 search, and kernel="v3") and k 300 (the plain path):
+   float answers equal the one-shard index's, int8 the plain scoring of
+   each shard with its own scale merged; each v4 kernel launched once a
+   search on each non-empty shard and no plain twin; search ms sharded
+   beside one shard at Q 1 and 256 (events and profiler device ms, context
+   only); then ShardedIndex.from_store(mesh, ...) of phase 13's store
+   equal to the tensor build, shard for shard; (b)
+   build_ivf_from_store on the mesh from phase 13's store (nlist 1024,
+   bfloat16): centroids and each shard's clusters equal phase 13's
+   one-shard build, its answers at nprobe 32 that build's, at nprobe =
+   nlist the flat bf16 search's; a 4-shard save reloaded onto one slot and
+   onto four; (c) Retriever(mesh=...) over the f32 rows: 64 concurrent
+   requests through BatchingRetriever(max_batch=64) and single ones, each
+   equal to Retriever.search of its request embedded at the slot shape of
+   a dispatched bucket, and within phase 12's rule of the one-slot
+   Retriever's sequential answer; (d) two processes on the card (this
+   script with --mp-child, a gloo group for barriers only, a timeout
+   each): the per-process save_ivf_sharded / load_ivf_sharded round trip
+   and the stride encode of phase 8's corpus through the int8 bf16 tower
+   into float32 blocks, which rank 0 stitches and holds to a single-pass
+   encode bit for bit.  It prints the IVF build seconds on four slots
+   against one and the two processes' seconds.
+Each of phases 4-14 zeroes every launch count just before it (phase 10:
+before the encode, the search and the labeling; phase 14: before each
+search, serving run and encode of its path, in the children too) and
+reads them just after: each kernel of that path must have launched, and
+no plain twin may have run.
 
 Tolerances (kernel vs plain twin on the same inputs):
   attention float32  max |diff| <= 1e-4 (3xTF32 products, ~2^-21 relative
@@ -224,6 +256,11 @@ Tolerances (kernel vs plain twin on the same inputs):
                      plain-twin tower's (phase 7)
   streaming top-k    as float scores above, and equal to the unseeded v3
                      kernel bit for bit (one fmaf chain, one merge)
+  presample          as top-k ids and scores above against its plain
+                     twin, and equal to the unseeded kernel bit for bit
+                     with no id -1 (the threshold prunes no answer row)
+  head-split         as attention above, and equal to the kernel on the
+                     fused projection bit for bit (the same operands)
   offline eval run   as top-k ids and scores above, against the plain
                      twins' top-100
   IVF (phase 13)     as top-k ids and scores above: full probe against
@@ -231,6 +268,21 @@ Tolerances (kernel vs plain twin on the same inputs):
                      float32 sums of exact products in another order); a
                      reload, and every served answer against
                      Retriever.search at its bucket, bit for bit
+  mesh (phase 14)    through the kernels, bit for bit: float sharded
+                     answers against the one-shard index (one fmaf chain a
+                     row), int8 v4 against the per-shard int8 x int8
+                     scoring; k 300 (the plain path's GEMMs) and int8 v3
+                     against the plain GEMM: as top-k ids and scores above
+                     (whether they were bit for bit too is printed); the
+                     sharded IVF against the one-shard build, the 1-slot
+                     reload against the 4-shard build, full probe against
+                     the flat bf16 search: as top-k ids and scores above
+                     (the probed buckets are scored in batched products of
+                     other shapes); the 4-slot reload, from_store against
+                     the tensor build, the stitched encode and every served
+                     answer against Retriever.search at the slot shape of
+                     its bucket: bit for bit; against the one-slot
+                     Retriever: phase 12's rule
   HTTP answers       bit for bit Retriever.search of the same request
                      embedded in a batch of its dispatch's bucket (a row's
                      embedding depends on the batch shape, not on the
@@ -325,6 +377,7 @@ HBM_BYTES_PER_S = 3.35e12
 # row 2 (the v3 kernel) in phase 3's redesigned lines: a single request,
 # a full dispatch of BatchingRetriever(max_batch=64), Q_KERNEL, and 512
 ROW2_QS = (1, 64, Q_KERNEL, 512)
+PRESAMPLE_QS = (1, 64, Q_KERNEL)  # row 2 with presample=-1 (phase 3)
 # row 3 (the window kernel) beside Q_KERNEL: a single request, and the
 # largest dispatch of BatchingRetriever(max_batch=64)
 WINDOW_QS = (1, 64)
@@ -336,6 +389,14 @@ RESCORE_QS = (1, 8, Q_KERNEL)
 WINDOW_RATE = {("a", "float32"): PEAK["f32"], ("a", "bfloat16"): PEAK["f32"],
                ("a", "int8"): 4 * PEAK["f32"], ("b", "float32"): PEAK["f32"],
                ("b", "bfloat16"): PEAK["f32"], ("c", "int8"): PEAK["int8"]}
+
+
+def model_config():
+    """ANCE RoBERTa-base: 12 x 768, 12 heads, 3072, 50265 (the towers of
+    phases 4-8, 10 and 12-14, and of phase 14's child processes)."""
+    from haconvdr_torch.config import ModelConfig
+
+    return ModelConfig()
 
 
 def check(ok: bool, msg: str) -> None:
@@ -520,13 +581,18 @@ def int8_plain(q_folded, codes, n_valid):
 # phase 3: each kernel against its plain twin
 # ---------------------------------------------------------------------------
 
-def attention_row(qkv, lengths, config: str, rows) -> None:
+def attention_row(qkv, lengths, config: str, rows, head_split: bool = False) -> None:
     """Row 1 on qkv [B, L, 3H] with prefix masks of ``lengths``: the kernel
     against its twin (float32 within 1e-4, bfloat16 within 2**-6 + 2**-8
     |ref|), its time, the twin's, SDPA's and the bound.  The float32 route
     runs each product as three TF32 products (3xTF32), so its operations
-    are three times the products' at the TF32 peak."""
+    are three times the products' at the TF32 peak.  ``head_split``: the
+    [B, H, L, d] wrapper (fused_attention) on the heads of qkv instead,
+    which must launch the kernel once and no plain twin (counts zeroed
+    just before) and equal the kernel on the fused projection bit for
+    bit."""
     from haconvdr_torch.ops.fused_attention import (
+        fused_attention,
         fused_attention_qkv,
         fused_attention_qkv_plain,
     )
@@ -534,8 +600,24 @@ def attention_row(qkv, lengths, config: str, rows) -> None:
     B, L, _ = qkv.shape
     mask = torch.from_numpy(
         (np.arange(L)[None, :] < lengths[:, None]).astype(np.int32)).to(qkv.device)
-    out = fused_attention_qkv(qkv, mask, 12)
-    torch.cuda.synchronize()
+    q, k, v, bias = sdpa_operands(qkv, mask)
+    if head_split:
+        def call():
+            return fused_attention(q, k, v, mask)
+        zero_counts()
+        out = call().transpose(1, 2).reshape(B, L, DIM)
+        torch.cuda.synchronize()
+        c = read_counts()
+        check_counts(c, [("fused_attention", "kernel")], f"attention {config}")
+        check(c["fused_attention"]["kernel"] == 1, f"attention {config}: "
+              f"{c['fused_attention']['kernel']} launches for one call")
+        check(torch.equal(out, fused_attention_qkv(qkv, mask, 12)),
+              f"attention {config}: differs from the kernel on the fused projection")
+    else:
+        def call():
+            return fused_attention_qkv(qkv, mask, 12)
+        out = call()
+        torch.cuda.synchronize()
     ref = fused_attention_qkv_plain(qkv, mask, 12)
     diff = (out.float() - ref.float()).abs()
     if qkv.dtype == torch.float32:
@@ -543,9 +625,8 @@ def attention_row(qkv, lengths, config: str, rows) -> None:
     else:
         check(bool((diff <= 2.0**-6 + 2.0**-8 * ref.float().abs()).all()),
               f"attention {config}: beyond one bf16 ulp ({float(diff.max())})")
-    ms = cuda_ms(lambda: fused_attention_qkv(qkv, mask, 12), reps=ATTN_REPS)
+    ms = cuda_ms(call, reps=ATTN_REPS)
     pms = cuda_ms(lambda: fused_attention_qkv_plain(qkv, mask, 12), reps=10)
-    q, k, v, bias = sdpa_operands(qkv, mask)
     lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
                   reps=ATTN_REPS)
     flops, peak = attention_flops(lengths, L, DIM, 2), PEAK_OF[str(qkv.dtype).split(".")[1]]
@@ -565,6 +646,7 @@ def kernels_v3_attention(dev, g, rng, passages_f32, codes, scale, rows):
     for dt, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
         qkv = torch.randn(ATTN_B, ATTN_L, 3 * DIM, device=dev, generator=g).to(dt)
         attention_row(qkv, lengths, name, rows)
+        attention_row(qkv, lengths, f"head-split {name}", rows, head_split=True)
         del qkv
     # -- v3 top-k: f32, bf16, and the int8 mode (folded float queries)
     q = torch.randn(Q_KERNEL, DIM, device=dev, generator=g)
@@ -631,6 +713,8 @@ def kernels_v3_queries(seed: int, dev, passages_f32, codes, scale, rows) -> None
                 rs, ri = fused_topk_block_plain(q, p, n_valid, TOP_K, init_scores=init)
                 err = compare_topk(s, i, rs, ri, f"top-k {tag}")
                 check(int(i.max()) < n_valid, f"top-k {tag}: a row past n_valid surfaced")
+                if not seeded and Q in PRESAMPLE_QS:
+                    presample_row(name, q, p, n_valid, s, i, rows)
                 rows.append(dict(
                     kernel="fused_topk", config=tag, max_abs_err=err,
                     ms=device_ms(lambda: fused_topk_block(q, p, n_valid, TOP_K,
@@ -643,6 +727,38 @@ def kernels_v3_queries(seed: int, dev, passages_f32, codes, scale, rows) -> None
         del p
     del q_all, seeds
     torch.cuda.empty_cache()
+
+
+def presample_row(name: str, q, p, n_valid: int, s, i, rows) -> None:
+    """Row 2 with ``presample=-1`` (JAX's auto pre-pass: 16 rows of every
+    1,024-row tile scored by torch.matmul, the kernel seeded with the
+    threshold alone on its seeded grid): one kernel launch and no plain
+    twin (counts zeroed just before), the unseeded kernel's answers (s, i)
+    bit for bit with no id -1, and its plain twin's within the top-k rule;
+    device ms (the pre-pass included) and the twin's ms."""
+    from haconvdr_torch.ops.fused_topk import fused_topk_block, fused_topk_block_plain
+
+    Q = q.shape[0]
+    tag = f"{name}, Q {Q}, presample"
+    zero_counts()
+    ps, pi = fused_topk_block(q, p, n_valid, TOP_K, presample=-1)
+    torch.cuda.synchronize()
+    c = read_counts()
+    check_counts(c, [("fused_topk", "kernel")], f"top-k {tag}")
+    check(c["fused_topk"]["kernel"] == 1, f"top-k {tag}: {c['fused_topk']['kernel']} launches")
+    check(torch.equal(ps, s) and torch.equal(pi, i), f"top-k {tag}: differs from the unseeded "
+          "kernel")
+    check(not bool((pi < 0).any()), f"top-k {tag}: an id -1 surfaced")
+    rs, ri = fused_topk_block_plain(q, p, n_valid, TOP_K, presample=-1)
+    err = compare_topk(ps, pi, rs, ri, f"top-k {tag}")
+    rows.append(dict(
+        kernel="fused_topk", config=tag, max_abs_err=err,
+        ms=device_ms(lambda: fused_topk_block(q, p, n_valid, TOP_K, presample=-1),
+                     5 if Q <= 64 else 3),
+        plain_ms=cuda_ms(lambda: fused_topk_block_plain(q, p, n_valid, TOP_K, presample=-1),
+                         1, 0),
+        library_ms=None, shape=[Q, N_ROWS, DIM, TOP_K],
+        **chain_bound(p, Q, n_valid, name, Q * TOP_K * 8)))
 
 
 def kernels_attention_frozen(seed: int, dev, rows):
@@ -1655,6 +1771,18 @@ def phase_int8_tower(seed: int, dev, passages_f32, params, cfg, card: str):
                                  embed_ms=embed_ms)
 
 
+def corpus_tokens(seed: int, vocab: int):
+    """(ids [N_CORPUS, ENC_LEN] int32, lengths [N_CORPUS]) of phase 8's corpus:
+    lengths 32-ENC_LEN, <s> ... </s>, padded with 0, from the seed."""
+    rng = np.random.default_rng(seed + 3)
+    lengths = rng.integers(32, ENC_LEN + 1, N_CORPUS).astype(np.int32)
+    ids = rng.integers(3, vocab, (N_CORPUS, ENC_LEN)).astype(np.int32)
+    ids[:, 0] = 0  # <s>
+    ids[np.arange(N_CORPUS), lengths - 1] = 2  # </s>
+    ids[np.arange(ENC_LEN)[None, :] >= lengths[:, None]] = 0  # the writer's padding
+    return ids, lengths
+
+
 def phase_corpus_encode(seed: int, dev, params, cfg, card: str):
     """Phase 8: encode_corpus through the int8 bf16 tower into int8 blocks."""
     import tempfile
@@ -1669,12 +1797,7 @@ def phase_corpus_encode(seed: int, dev, params, cfg, card: str):
     from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
 
     cfg = dataclasses.replace(cfg, dtype="bfloat16")
-    rng = np.random.default_rng(seed + 3)
-    lengths = rng.integers(32, ENC_LEN + 1, N_CORPUS).astype(np.int32)
-    ids = rng.integers(3, cfg.vocab_size, (N_CORPUS, ENC_LEN)).astype(np.int32)
-    ids[:, 0] = 0  # <s>
-    ids[np.arange(N_CORPUS), lengths - 1] = 2  # </s>
-    ids[np.arange(ENC_LEN)[None, :] >= lengths[:, None]] = 0  # the writer's padding
+    ids, lengths = corpus_tokens(seed, cfg.vocab_size)
     qparams = quantize_encoder_params(params)
     enc = AnceEncoder.from_jax_params(qparams, cfg, dev)
     rows_dev = []
@@ -2660,13 +2783,13 @@ def recall_at(ids, ref_ids) -> float:
                           for a, b in zip(ids, ref_ids)]))
 
 
-def phase_ivf(seed: int, dev, params, cfg, card: str):
+def phase_ivf(seed: int, dev, params, cfg, card: str, tmp: str):
     """Phase 13: cli/build_ivf over a 2.5M x 768 Gaussian-mixture store,
     Retriever(ivf=True) reloading its directory with the f32 tower, an
     in-process residual-int8 build with the two-stage rescore, single
     requests and BatchingRetriever(max_batch=16) beside flat retrievers;
-    answers held to the flat v4 search, the CPU and the build."""
-    import tempfile
+    answers held to the flat v4 search, the CPU and the build.  The store
+    (``{tmp}/emb``) and the build (``{tmp}/ivf``) stay in ``tmp`` for phase 14."""
 
     from haconvdr_torch.cli import build_ivf as build_cli
     from haconvdr_torch.config import DataConfig, SearchConfig
@@ -2682,7 +2805,7 @@ def phase_ivf(seed: int, dev, params, cfg, card: str):
     rows, mq = ivf_corpus(seed, dev)
     flat16 = ShardedIndex.from_tensor(rows, dtype="bfloat16")  # the buckets' scoring model
     flat32 = ShardedIndex.from_tensor(rows)
-    root = room_for(N_ROWS * (DIM * 4 + 8) + 2 * N_ROWS * DIM * 2)  # store + buckets (< 2x)
+    root = pathlib.Path(tmp).parent
 
     def retriever(store, store_dtype, ivf_dir=None, **kw):
         return Retriever(
@@ -2693,50 +2816,49 @@ def phase_ivf(seed: int, dev, params, cfg, card: str):
             ivf_dir=ivf_dir, device=dev,
         )
 
-    with tempfile.TemporaryDirectory(dir=root) as tmp:
-        t = time.perf_counter()
-        EmbeddingBlockStore(f"{tmp}/emb").write_block(
-            0, rows.cpu().numpy(), np.arange(N_ROWS, dtype=np.int64))
-        stages["store_write_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        built, stats = build_cli.main([
-            f"embeddings={tmp}/emb", f"out={tmp}/ivf", f"nlist={IVF_NLIST}",
-            f"nprobe={IVF_NPROBE}", "dtype=bfloat16", f"seed={seed}", "--device", str(dev)])
-        stages["build_cli_s"] = time.perf_counter() - t
-        stages.update(build_s=stats["build_s"], save_s=stats["save_s"],
-                      capacity=stats["capacity"], tail_rows=stats["tail_rows"],
-                      bucket_bytes=(built.buckets.numel() + built.tail.numel()) * 2)
-        check(stats["nlist"] == IVF_NLIST and stats["dtype"] == "bfloat16",
-              f"ivf: build_ivf printed {stats}")
-        t = time.perf_counter()
-        load_ivf_sharded(f"{tmp}/ivf", device=dev)  # the index alone, then the retriever
-        torch.cuda.synchronize()
-        stages["load_s"] = time.perf_counter() - t
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        r16 = retriever(EmbeddingBlockStore(f"{tmp}/emb"), "bfloat16", ivf_dir=f"{tmp}/ivf")
-        torch.cuda.synchronize()
-        stages["reload_s"] = time.perf_counter() - t
-        check(r16.ivf_index is not None and r16.index is None, "ivf: no IVF index reloaded")
-        t = time.perf_counter()
-        r8 = retriever(EmbeddingBlockStore(f"{tmp}/emb"), "int8", rescore_oversample=3.0)
-        torch.cuda.synchronize()
-        stages["int8_build_s"] = time.perf_counter() - t
-        idx, idx8 = r16.ivf_index, r8.ivf_index
-        check(idx8.buckets.dtype == torch.int8 and idx8.means is not None,
-              "ivf: the int8 build is not residual int8")
-        for name in ivf.ARRAYS:
-            check(torch.equal(getattr(idx, name), getattr(built, name)),
-                  f"ivf: the reloaded {name} differs from the build's")
-        q64 = mq[:64]
-        s_b, i_b = ivf.ivf_search(built, q64, k=TOP_K)
-        s_r, i_r = r16.search(q64.cpu().numpy())
-        check(np.array_equal(s_b, s_r) and np.array_equal(i_b, i_r),
-              "ivf: the reloaded retriever's answers differ from the build's")
-        del built
-        # the two-stage int8 answers (the rescore reads the store on disk)
-        s8, i8 = r8.search(mq.cpu().numpy())
-        _, i8_all = ivf.ivf_search(idx8, mq[:IVF_FULL_Q], k=TOP_K, nprobe=IVF_NLIST)
+    t = time.perf_counter()
+    EmbeddingBlockStore(f"{tmp}/emb").write_block(
+        0, rows.cpu().numpy(), np.arange(N_ROWS, dtype=np.int64))
+    stages["store_write_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    built, stats = build_cli.main([
+        f"embeddings={tmp}/emb", f"out={tmp}/ivf", f"nlist={IVF_NLIST}",
+        f"nprobe={IVF_NPROBE}", "dtype=bfloat16", f"seed={seed}", "--device", str(dev)])
+    stages["build_cli_s"] = time.perf_counter() - t
+    stages.update(build_s=stats["build_s"], save_s=stats["save_s"],
+                  capacity=stats["capacity"], tail_rows=stats["tail_rows"],
+                  bucket_bytes=(built.buckets.numel() + built.tail.numel()) * 2)
+    check(stats["nlist"] == IVF_NLIST and stats["dtype"] == "bfloat16",
+          f"ivf: build_ivf printed {stats}")
+    t = time.perf_counter()
+    load_ivf_sharded(f"{tmp}/ivf", device=dev)  # the index alone, then the retriever
+    torch.cuda.synchronize()
+    stages["load_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    r16 = retriever(EmbeddingBlockStore(f"{tmp}/emb"), "bfloat16", ivf_dir=f"{tmp}/ivf")
+    torch.cuda.synchronize()
+    stages["reload_s"] = time.perf_counter() - t
+    check(r16.ivf_index is not None and r16.index is None, "ivf: no IVF index reloaded")
+    t = time.perf_counter()
+    r8 = retriever(EmbeddingBlockStore(f"{tmp}/emb"), "int8", rescore_oversample=3.0)
+    torch.cuda.synchronize()
+    stages["int8_build_s"] = time.perf_counter() - t
+    idx, idx8 = r16.ivf_index, r8.ivf_index
+    check(idx8.buckets.dtype == torch.int8 and idx8.means is not None,
+          "ivf: the int8 build is not residual int8")
+    for name in ivf.ARRAYS:
+        check(torch.equal(getattr(idx, name), getattr(built, name)),
+              f"ivf: the reloaded {name} differs from the build's")
+    q64 = mq[:64]
+    s_b, i_b = ivf.ivf_search(built, q64, k=TOP_K)
+    s_r, i_r = r16.search(q64.cpu().numpy())
+    check(np.array_equal(s_b, s_r) and np.array_equal(i_b, i_r),
+          "ivf: the reloaded retriever's answers differ from the build's")
+    del built
+    # the two-stage int8 answers (the rescore reads the store on disk)
+    s8, i8 = r8.search(mq.cpu().numpy())
+    _, i8_all = ivf.ivf_search(idx8, mq[:IVF_FULL_Q], k=TOP_K, nprobe=IVF_NLIST)
     del r8
     torch.cuda.empty_cache()
     print(f"ivf: {N_ROWS}x{DIM} f32 store written in {stages['store_write_s']:.1f} s under "
@@ -2908,16 +3030,543 @@ def phase_ivf(seed: int, dev, params, cfg, card: str):
     return counts, stages
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the multi-device layer, as shard slots on the one card
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = 4  # shard slots on the one card
+MESH_QS = (1, 64, 256)
+MESH_TIMED_QS = (1, 256)  # sharded beside one-shard search ms (context)
+MESH_CASES = ((TOP_K, "v4"), (TOP_K, "v3"), (300, "v4"))  # k 300: the plain path (k > 128)
+MESH_BATCHED = 64  # concurrent requests through BatchingRetriever(max_batch=64)
+MP_WORLD, MP_TIMEOUT_S = 2, 300  # the two-process phase: ranks, seconds a child may take
+
+
+def add_counts(total, counts):
+    for mod, c in counts.items():
+        for key, n in c.items():
+            total.setdefault(mod, {}).setdefault(key, 0)
+            total[mod][key] += n
+
+
+def merged_int8_plain(index, q, k: int, kernel: str):
+    """Each non-empty shard scored plainly with its own scale, merged in
+    shard order: int8 x int8 (per-query codes of the folded queries) where
+    the v4 search runs (k <= 128), else the bfloat16-rounded folded queries
+    (the v3 kernel's and the plain path's model)."""
+    from haconvdr_torch.index.quantize import quantize_queries_int8
+    from haconvdr_torch.ops.fused_topk import MAX_K, fused_topk_block_plain
+    from haconvdr_torch.ops.topk import merge_lists
+
+    parts = []
+    for sh in index.shards:
+        n = sh.passages.shape[0]
+        if not n:
+            continue
+        qf = q.to(torch.float32) * sh.scale
+        if k <= MAX_K and kernel == "v4":
+            q8, q_scale = quantize_queries_int8(qf)
+            sc, ids = fused_topk_block_plain(q8, sh.passages, n, k)
+            sc = sc * (q_scale[:, None] / 127.0)
+        else:
+            sc, ids = fused_topk_block_plain(qf, sh.passages, n, k)
+        parts.append((sc, torch.where(ids >= 0, ids + sh.base, -1)))
+    return merge_lists(parts, k)
+
+
+def check_mesh_counts(c, nonempty: int, k: int, kernel: str, what: str) -> None:
+    """One sharded search: each v4 kernel once on each non-empty shard (a
+    v3 fallback adds row 2), the v3 kernel once a shard with kernel="v3",
+    no kernel past k 128, and no plain twin."""
+    from haconvdr_torch.ops.fused_topk import MAX_K
+
+    check_counts(c, [], what)
+    v4, v3 = c["topk_v4"], c["fused_topk"]["kernel"]
+    if k > MAX_K:  # the plain path
+        ok = v3 == 0 and v4["window"] == v4["rescore"] == v4["select"] == 0
+    elif kernel == "v4":
+        ok = (v4["window"] == v4["rescore"] == v4["select"] == nonempty
+              and v4["select_t"] >= nonempty and v3 == v4["v3_fallback"])
+    else:
+        ok = v3 == nonempty and v4["window"] == 0
+    check(ok, f"{what}: launches {json.dumps({'topk_v4': v4, 'fused_topk': v3})} for "
+          f"{nonempty} non-empty shards")
+
+
+def mesh_flat(seed, dev, mesh, rows, queries, total, card: str):
+    """(a) The flat index on the mesh in each dtype against the one-shard
+    index (float) or the plain per-shard int8 scoring; search ms beside
+    the one-shard search's (context)."""
+    from haconvdr_torch.parallel.sharded_search import ShardedIndex
+
+    from haconvdr_torch.ops.fused_topk import MAX_K
+
+    out = {"build_s": {}, "ms": {}, "bits_equal_where_not_asserted": {}, "v3_fallbacks": {}}
+    for name in ("float32", "bfloat16", "int8"):
+        t = time.perf_counter()
+        one = ShardedIndex.from_tensor(rows, dtype=None if name == "float32" else name)
+        idx = ShardedIndex(mesh, rows, dtype=name)
+        torch.cuda.synchronize()
+        out["build_s"][name] = time.perf_counter() - t
+        sizes = [sh.passages.shape[0] for sh in idx.shards]
+        check(sum(sizes) == N_ROWS and len(sizes) == MESH_SLOTS, f"mesh {name}: shards {sizes}")
+        nonempty = sum(1 for n in sizes if n)
+        bits = []
+        out["v3_fallbacks"][name] = {}
+        for Q in MESH_QS:
+            q = queries[:Q]
+            for k, kernel in MESH_CASES:
+                idx.kernel = one.kernel = kernel
+                what = f"mesh {name} Q {Q} k {k} {kernel}"
+                zero_counts()
+                got = idx.search_device(q, k)
+                torch.cuda.synchronize()
+                c = read_counts()
+                add_counts(total, c)
+                check_mesh_counts(c, nonempty, k, kernel, what)
+                if kernel == "v4" and k <= MAX_K:  # shards past the budget, of nonempty
+                    out["v3_fallbacks"][name][Q] = c["topk_v4"]["v3_fallback"]
+                if name == "int8":
+                    ref = merged_int8_plain(idx, q, k, kernel)
+                else:
+                    ref = one.search_device(q, k)
+                s, i = (x.cpu() for x in got)
+                rs, ri = (x.cpu() for x in ref)
+                # the kernels' float scores are one fmaf chain a row, as the
+                # one-shard index's; int8 x int8 is exact; the plain path's
+                # GEMMs and the int8 v3 kernel against the plain GEMM sum in
+                # another order
+                if k <= MAX_K and (name != "int8" or kernel == "v4"):
+                    compare_exact(s, i, rs, ri, what)
+                else:
+                    compare_topk(s, i, rs, ri, what)
+                    bits.append(torch.equal(s, rs) and torch.equal(i, ri))
+        out["bits_equal_where_not_asserted"][name] = all(bits)
+        idx.kernel = one.kernel = "v4"
+        out["ms"][name] = {}
+        for Q in MESH_TIMED_QS:
+            out["ms"][name][Q] = {}
+            for label, index in (("sharded", idx), ("one_shard", one)):
+                def fn(index=index, Q=Q):
+                    return index.search_device(queries[:Q], TOP_K)
+                _, dev_ms, ops = profiled_ms(fn, 10)
+                out["ms"][name][Q][label] = {"events": cuda_ms(fn, 10), "device": dev_ms,
+                                             "device_ops": ops}
+        del one, idx
+        torch.cuda.empty_cache()
+    print(f"mesh flat: {MESH_SLOTS} slots of {N_ROWS} x {DIM} rows ({sizes} a shard) in "
+          f"float32, bfloat16 and int8 at Q {list(MESH_QS)}, k {TOP_K} (v4, v3) and 300: float "
+          f"answers equal the one-shard index's and int8 the per-shard plain scoring's, bit for "
+          f"bit through the kernels (int8: the v4 search); k 300 and int8 v3 within the top-k "
+          f"rule, bit for bit too: {json.dumps(out['bits_equal_where_not_asserted'])}; shards "
+          f"that fell back to v3 a v4 search by Q: {json.dumps(out['v3_fallbacks'])} [{card}]")
+    for name, m in out["ms"].items():
+        print(f"mesh search {name} k {TOP_K} v4, ms as events / profiler device (device "
+              "operations a call), sharded against one shard: " + "; ".join(
+                  f"Q {Q} {v['sharded']['events']:.3f} / {v['sharded']['device']:.3f} "
+                  f"({v['sharded']['device_ops']:.0f}) against {v['one_shard']['events']:.3f} / "
+                  f"{v['one_shard']['device']:.3f} ({v['one_shard']['device_ops']:.0f})"
+                  for Q, v in m.items()) + f" [{card}]")
+    return out
+
+
+def mesh_retriever(seed, dev, mesh, params, cfg, rows, total, card: str):
+    """(c) Retriever on the mesh over the flat f32 rows: MESH_BATCHED
+    concurrent requests through BatchingRetriever(max_batch=64) and single
+    ones; each answer equals Retriever.search of its request embedded at the
+    slot shape of a dispatched bucket, and holds phase 12's rule against the
+    one-slot Retriever's sequential answer."""
+    from haconvdr_torch.config import DataConfig, SearchConfig
+    from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
+    from haconvdr_torch.serve import Retriever
+    from haconvdr_torch.utils.testing import HashTokenizer
+
+    r4 = Retriever(HashTokenizer(cfg.vocab_size), params, cfg, rows,
+                   data_cfg=DataConfig(is_train=False, use_PRL=False),
+                   search_cfg=SearchConfig(top_k=TOP_K, per_device_test_batch_size=64),
+                   mesh=mesh)
+    check(len(r4.index.shards) == MESH_SLOTS, "mesh retriever: the index is not sharded")
+    reqs = make_requests(seed, MESH_BATCHED + N_SINGLE)
+    search_qs = []
+    search = r4.search
+
+    def recording_search(queries, k=None):
+        search_qs.append(int(np.asarray(queries).shape[0]))
+        return search(queries, k)
+
+    r4.search = recording_search
+    r4.retrieve(*reqs[-1])  # warm-up
+    search_qs.clear()
+    zero_counts()
+    answers, metrics = serve(r4, reqs[:MESH_BATCHED], reqs[MESH_BATCHED:])
+    c = read_counts()
+    r4.search = search
+    add_counts(total, c)
+    check_counts(c, [("fused_attention", "kernel"), ("topk_v4", "window"),
+                     ("topk_v4", "select_t"), ("topk_v4", "select"), ("topk_v4", "rescore")],
+                 "mesh retriever")
+    examples = [r4.build_query(*r) for r in reqs]
+    by_bucket = {}
+    for b in sorted(set(search_qs)):
+        per_slot = -(-b // MESH_SLOTS)
+        q = encode_batches(r4.encoder, batch_iter(examples, per_slot), "conv_qp",
+                           "conv_qp_mask")[0]
+        hits = []
+        for c0 in range(0, len(q), b):
+            chunk = q[c0 : c0 + b]
+            pad = np.broadcast_to(chunk[:1], (b - len(chunk), chunk.shape[1]))
+            sc, ids = r4.search(np.concatenate([chunk, pad]))
+            hits += [[(int(x), float(y)) for x, y in zip(ids[j], sc[j])] for j in range(len(chunk))]
+        by_bucket[b] = (q, hits)
+    one = build_retriever(params, cfg, dev, rows, None)
+    max_norm = float(rows.norm(dim=1).max())
+    deltas, drifts, seps, used = [], [], [], set()
+    for j, ans in enumerate(answers):
+        match = [b for b, (_, hits) in by_bucket.items() if hits[j] == ans]
+        check(len(ans) == TOP_K and bool(match),
+              f"mesh retriever: request {j} equals no bucket's Retriever.search answer")
+        used.add(match[0])
+        ref = one.retrieve(*reqs[j], k=TOP_K + 1)
+        q1 = one.embed([examples[j]])[0]
+        drift = float(np.linalg.norm(by_bucket[match[0]][0][j] - q1))
+        rel = drift / float(np.linalg.norm(q1))
+        check(rel <= 1e-5, f"mesh retriever: request {j}: the slot embedding is {rel:.3g} of "
+              "its norm from the one-slot batch-1 one (limit 1e-5)")
+        delta = drift * max_norm
+        s, rs = np.array([x for _, x in ans]), np.array([x for _, x in ref])
+        check(bool((np.abs(s - rs[:TOP_K]) <= 1e-4 * np.abs(rs[:TOP_K]) + delta).all()),
+              f"mesh retriever: request {j}: scores beyond 1e-4 rel + {delta:.3g}")
+        gap = np.abs(np.diff(rs)) > 1e-5 * np.abs(rs[1:]) + 2 * delta
+        sep = np.concatenate([[True], gap[:-1]]) & gap
+        check(sep.sum() >= TOP_K // 2 and np.array_equal(
+            np.array([p for p, _ in ans])[sep], np.array([p for p, _ in ref[:TOP_K]])[sep]),
+              f"mesh retriever: request {j}: ids differ from the one-slot answer at separated "
+              "scores")
+        deltas.append(delta)
+        drifts.append(rel)
+        seps.append(int(sep.sum()))
+    metrics.update(buckets=sorted(used), delta_max=max(deltas), drift_max=max(drifts),
+                   separated_min=min(seps))
+    print(f"mesh retriever: {len(answers)} answers ({MESH_BATCHED} concurrent, "
+          f"{N_SINGLE} single) each equal Retriever.search at the slot shape of its bucket "
+          f"(buckets {sorted(used)}), bit for bit; against the one-slot Retriever within "
+          f"delta <= {max(deltas):.3g} (drift <= {max(drifts):.3g}), ids equal at >= "
+          f"{min(seps)} of {TOP_K} ranks")
+    print("mesh retriever e2e:", json.dumps(metrics), f"[{card}]")
+    del r4, one
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def mesh_from_store_and_ivf(seed, dev, mesh, tmp, s13, total, card: str):
+    """(a) from_store(mesh, ...) of phase 13's store against the tensor build;
+    (b) build_ivf_from_store on the mesh against phase 13's one-shard build,
+    full probe against the flat bf16 search, a 4-shard save reloaded onto
+    one slot and onto the mesh."""
+    import shutil
+
+    from haconvdr_torch.index import ivf
+    from haconvdr_torch.index.store import EmbeddingBlockStore
+    from haconvdr_torch.parallel.mesh import make_mesh
+    from haconvdr_torch.parallel.sharded_ivf import (
+        ShardedIVFIndex,
+        build_ivf_from_store,
+        load_ivf_sharded,
+        save_ivf_sharded,
+        sharded_ivf_search_device,
+    )
+    from haconvdr_torch.parallel.sharded_search import ShardedIndex
+
+    out = {}
+    rows, mq = ivf_corpus(seed, dev)  # phase 13's rows, regenerated from the seed
+    store = EmbeddingBlockStore(f"{tmp}/emb")
+    # float32 only: int8 quantizes each shard on the host with numpy, ~4 s a
+    # 655,360-row shard; tests/test_torch_cuda.py holds the card's quantize
+    # (the tensor build's) to the host's
+    t = time.perf_counter()
+    fs = ShardedIndex.from_store(mesh, store)
+    torch.cuda.synchronize()
+    out["from_store_s"] = time.perf_counter() - t
+    tb = ShardedIndex(mesh, rows)
+    for a, b in zip(fs.shards, tb.shards):
+        check(a.base == b.base and torch.equal(a.passages, b.passages),
+              "mesh from_store: a shard differs from the tensor build's")
+    zero_counts()
+    s, i = fs.search_device(mq[:64], TOP_K)
+    c = read_counts()
+    add_counts(total, c)
+    check_mesh_counts(c, MESH_SLOTS, TOP_K, "v4", "mesh from_store")
+    rs, ri = tb.search_device(mq[:64], TOP_K)
+    compare_exact(s, i, rs, ri, "mesh from_store")
+    del fs, tb
+    torch.cuda.empty_cache()
+    print(f"mesh from_store: phase 13's store into {MESH_SLOTS} float32 slots in "
+          f"{out['from_store_s']:.2f} s, streamed into the shards that own its rows; every "
+          f"shard and answer equals the tensor build's bit for bit [{card}]")
+
+    one = load_ivf_sharded(f"{tmp}/ivf", device=dev)  # phase 13's one-shard build
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    idx = build_ivf_from_store(mesh, store, nlist=IVF_NLIST, nprobe=IVF_NPROBE,
+                               dtype="bfloat16", seed=seed)
+    torch.cuda.synchronize()
+    out["ivf_build_s"] = {"slots_4": time.perf_counter() - t, "slots_1": s13["build_s"]}
+    check(isinstance(idx, ShardedIVFIndex) and idx.n_shards == MESH_SLOTS,
+          "mesh ivf: the build is not sharded")
+    check(torch.equal(idx.centroids, one.centroids), "mesh ivf: centroids differ from the "
+          "one-shard build's (the same seed and strided sample)")
+    per = IVF_NLIST // MESH_SLOTS
+    for s_, sh in enumerate(idx.shards):
+        check(torch.equal(sh.buckets, one.buckets[s_ * per : (s_ + 1) * per])
+              and torch.equal(sh.bucket_ids, one.bucket_ids[s_ * per : (s_ + 1) * per]),
+              f"mesh ivf: shard {s_}'s clusters differ from the one-shard build's")
+    tail = torch.cat([sh.tail_ids for sh in idx.shards])
+    check(torch.equal(tail[tail >= 0].sort().values,
+                      one.tail_ids[one.tail_ids >= 0].sort().values),
+          "mesh ivf: the shards' tails hold other rows than the one-shard tail")
+    q = mq[:64]
+    s, i = sharded_ivf_search_device(idx, q, TOP_K, IVF_NPROBE)
+    rs, ri = ivf.ivf_search_device(one, q, TOP_K, IVF_NPROBE)
+    compare_topk(s.cpu(), i.cpu(), rs.cpu(), ri.cpu(), "mesh ivf: against the one-shard build")
+    out["ivf_bits_equal_one_shard"] = bool(torch.equal(s, rs) and torch.equal(i, ri))
+    flat16 = ShardedIndex.from_tensor(rows, dtype="bfloat16")
+    fs_, fi_ = flat16.search_device(mq[:IVF_FULL_Q], TOP_K)
+    s, i = sharded_ivf_search_device(idx, mq[:IVF_FULL_Q], TOP_K, IVF_NLIST)
+    compare_topk(s.cpu(), i.cpu(), fs_.cpu(), fi_.cpu(),
+                 "mesh ivf: nprobe = nlist against the flat bf16 search")
+    del flat16, rows, one
+    shutil.rmtree(f"{tmp}/ivf")  # phase 13's build: room for the 4-shard save
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    save_ivf_sharded(idx, f"{tmp}/ivf4")
+    out["ivf_save_s"] = time.perf_counter() - t
+    with open(f"{tmp}/ivf4/ivf_sharded_meta.json") as f:
+        meta = json.load(f)
+    check(meta["n_shards"] == MESH_SLOTS and meta["corpus_rows"] == N_ROWS,
+          f"mesh ivf: saved meta {meta}")
+    s4, i4 = sharded_ivf_search_device(idx, q, TOP_K, IVF_NPROBE)
+    del idx
+    torch.cuda.empty_cache()
+    for n in (1, MESH_SLOTS):
+        t = time.perf_counter()
+        back = load_ivf_sharded(f"{tmp}/ivf4", mesh=make_mesh(devices=[dev] * n))
+        torch.cuda.synchronize()
+        out[f"ivf_load_{n}_s"] = time.perf_counter() - t
+        if n == 1:
+            s, i = ivf.ivf_search_device(back, q, TOP_K, IVF_NPROBE)
+        else:
+            s, i = sharded_ivf_search_device(back, q, TOP_K, IVF_NPROBE)
+        out[f"ivf_reload_{n}_bits_equal"] = bool(torch.equal(s, s4) and torch.equal(i, i4))
+        if n == MESH_SLOTS:
+            check(out[f"ivf_reload_{n}_bits_equal"], "mesh ivf: the 4-slot reload answers "
+                  "differ from the build's")
+        else:
+            compare_topk(s.cpu(), i.cpu(), s4.cpu(), i4.cpu(), "mesh ivf: the 1-slot reload")
+        del back
+        torch.cuda.empty_cache()
+    print(f"mesh ivf: build_ivf_from_store on {MESH_SLOTS} slots (nlist {IVF_NLIST}, bfloat16) "
+          f"{out['ivf_build_s']['slots_4']:.2f} s against phase 13's one-slot build "
+          f"{out['ivf_build_s']['slots_1']} s; centroids and each shard's clusters equal the "
+          f"one-shard build's, its answers at nprobe {IVF_NPROBE} within the top-k rule (bit for "
+          f"bit: {out['ivf_bits_equal_one_shard']}), at nprobe {IVF_NLIST} the flat bf16 "
+          f"search's; save {out['ivf_save_s']:.2f} s, reload onto 1 slot "
+          f"{out['ivf_load_1_s']:.2f} s (bit for bit: {out['ivf_reload_1_bits_equal']}) and "
+          f"onto {MESH_SLOTS} {out[f'ivf_load_{MESH_SLOTS}_s']:.2f} s (bit for bit) [{card}]")
+    return out
+
+
+def mesh_two_processes(seed, tmp, total, card: str):
+    """(d) Two ranks on the one card, a gloo group for barriers only: the
+    per-process IVF save / load round trip and the stride corpus encode
+    through the int8 bf16 tower (tests/mp_worker.py); rank 0 stitches the
+    strides and holds them to a single-pass encode bit for bit."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--seed", str(seed), "--mp-child",
+         str(rank), str(MP_WORLD), str(port), tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(HERE))
+        for rank in range(MP_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise RuntimeError("mesh two processes: a child timed out:\n" + "\n---\n".join(outs))
+    secs = time.perf_counter() - t
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"mesh child rank={rank}: OK" in text,
+              f"mesh two processes: rank {rank} exited {p.returncode}:\n{text[-4000:]}")
+        line = next(x for x in text.splitlines() if x.startswith("mesh child counts:"))
+        add_counts(total, json.loads(line.split(":", 1)[1]))
+        print("\n".join(x for x in text.splitlines() if x.startswith("mesh child")))
+    print(f"mesh two processes: {MP_WORLD} ranks on the one card (gloo barriers), the IVF "
+          f"save / load round trip and the stride encode of {N_CORPUS} passages, stitched equal "
+          f"to the single pass bit for bit, in {secs:.1f} s (both children's start included) "
+          f"[{card}]")
+    return secs
+
+
+def mp_child(seed: int, rank: int, world: int, port: str, tmp: str) -> int:
+    """One rank of phase 14 (d); prints its launch counts and OK."""
+    import torch.distributed as dist
+
+    from haconvdr_torch.device import resolve_device
+    from haconvdr_torch.index.build import encode_corpus
+    from haconvdr_torch.index.ivf import IVFIndex
+    from haconvdr_torch.index.store import (
+        EmbeddingBlockStore,
+        TokenizedCorpus,
+        TokenizedCorpusWriter,
+    )
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+    from haconvdr_torch.parallel import sharded_ivf
+    from haconvdr_torch.parallel.mesh import make_mesh
+
+    dev = resolve_device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    # the per-process IVF round trip (tests/mp_worker.py:36-99), on the card
+    rs = np.random.RandomState(0)
+    nlist, cap, D, R = 8, 4, 16, 6
+    truth = dict(buckets=rs.randn(nlist, cap, D).astype(np.float32),
+                 bucket_ids=rs.permutation(nlist * cap).astype(np.int32).reshape(nlist, cap),
+                 tail=rs.randn(R, D).astype(np.float32),
+                 tail_ids=(1000 + np.arange(R)).astype(np.int32),
+                 centroids=rs.randn(nlist, D).astype(np.float32))
+    truth["bucket_ids"][0, 2:] = -1
+    whole = IVFIndex(nprobe=4, **{k: torch.from_numpy(v).to(dev) for k, v in truth.items()})
+    mesh = make_mesh(devices=[dev])
+    index = sharded_ivf.shard_ivf(mesh, whole, distributed=True)
+    sharded_ivf.save_ivf_sharded(index, f"{tmp}/ivf_mp")
+    back, meta = sharded_ivf.load_ivf_sharded(f"{tmp}/ivf_mp", with_meta=True, mesh=mesh,
+                                              distributed=True)
+    check(meta["n_shards"] == world and meta["corpus_rows"]
+          == int((truth["bucket_ids"] >= 0).sum()) + R, f"rank {rank}: meta {meta}")
+    per, rows = nlist // world, R // world
+    (sh,) = back.shards
+    for name, lo, hi in (("buckets", rank * per, (rank + 1) * per),
+                         ("bucket_ids", rank * per, (rank + 1) * per),
+                         ("tail", rank * rows, (rank + 1) * rows),
+                         ("tail_ids", rank * rows, (rank + 1) * rows)):
+        check(np.array_equal(getattr(sh, name).cpu().numpy(), truth[name][lo:hi]),
+              f"rank {rank}: {name} did not round-trip")
+    print(f"mesh child rank={rank}: the IVF shard round-trips through {world} processes")
+
+    # the stride corpus encode through the int8 bf16 tower (tests/mp_worker.py:102-186)
+    cfg = model_config()
+    params = quantize_encoder_params(init_params_numpy(cfg, seed))
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    enc = AnceEncoder.from_jax_params(params, cfg, dev)
+    if rank == 0:
+        ids, lengths = corpus_tokens(seed, cfg.vocab_size)
+        w = TokenizedCorpusWriter(f"{tmp}/corpus", max_seq_length=ENC_LEN)
+        w.add_batch(np.arange(N_CORPUS, dtype=np.int64) * 5 + 3, ids, lengths)
+        w.finalize()
+    dist.barrier()
+    corpus = TokenizedCorpus(f"{tmp}/corpus")
+    kw = dict(batch_size=ENC_BATCH, per_block_passage_num=ENC_BLOCK)
+    per_rank_blocks = -(-(-(-N_CORPUS // world)) // ENC_BLOCK)
+    zero_counts()
+    n_fwd = [0]
+
+    def counted(ids_t, mask_t):
+        n_fwd[0] += 1
+        return enc(ids_t, mask_t)
+
+    t = time.perf_counter()
+    encode_corpus(corpus, counted, f"{tmp}/shared", stride=world, offset=rank,
+                  start_block_id=rank * per_rank_blocks, device=dev, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = read_counts()
+    check_counts(counts, [("fused_attention", "kernel"), ("fused_ln", "ln_quant"),
+                          ("fused_mlp", "kernel")], f"rank {rank} encode")
+    check_tower_counts(counts, n_fwd[0], cfg.num_hidden_layers, f"rank {rank} encode")
+    print("mesh child counts:", json.dumps(counts))
+    print(f"mesh child rank={rank}: encoded its stride in {secs:.3f} s ({n_fwd[0]} forwards)")
+    dist.barrier()
+    if rank == 0:
+        encode_corpus(corpus, enc, f"{tmp}/single", device=dev, **kw)
+
+        def id_map(path):
+            store, got = EmbeddingBlockStore(path), {}
+            for b in range(store.num_blocks()):
+                emb, offs = store.read_block(b)
+                for row, off in zip(np.asarray(emb), np.asarray(offs)):
+                    check(int(off) not in got, f"offset {off} written twice")
+                    got[int(off)] = row
+            return got
+
+        single, stitched = id_map(f"{tmp}/single"), id_map(f"{tmp}/shared")
+        check(set(single) == set(stitched) and len(single) == N_CORPUS,
+              "the strides do not cover the corpus once")
+        check(all(np.array_equal(single[o], stitched[o]) for o in single),
+              "a stitched row differs from the single-pass encode")
+        print(f"mesh child rank=0: {len(single)} stitched rows equal the single pass bit for bit")
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"mesh child rank={rank}: OK", flush=True)
+    return 0
+
+
+def phase_mesh(seed: int, dev, params, cfg, p_sum: float, tmp: str, s13: dict, card: str):
+    """Phase 14: the multi-device layer as MESH_SLOTS shard slots on the one
+    card: (a) the flat index, (b) the IVF index, (c) the Retriever and
+    BatchingRetriever on the mesh, (d) two processes."""
+    import tempfile
+
+    from haconvdr_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[dev] * MESH_SLOTS)
+    total = {}
+    stages = {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn(N_ROWS, DIM, device=dev, generator=g)  # phase 4's rows
+    check(float(rows.sum(dtype=torch.float64)) == p_sum,
+          "mesh: the regenerated rows differ from phase 4's")
+    queries = torch.randn(max(MESH_QS), DIM, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed + 14))
+    stages["flat"] = mesh_flat(seed, dev, mesh, rows, queries, total, card)
+    stages["retriever"] = mesh_retriever(seed, dev, mesh, params, cfg, rows, total, card)
+    del rows, queries
+    torch.cuda.empty_cache()
+    stages["store_ivf"] = mesh_from_store_and_ivf(seed, dev, mesh, tmp, s13, total, card)
+    with tempfile.TemporaryDirectory(dir=tmp) as mp_tmp:
+        stages["two_process_s"] = mesh_two_processes(seed, mp_tmp, total, card)
+    stages["seconds"] = time.perf_counter() - t_phase
+    print("mesh launch counts:", json.dumps(total))
+    check_counts(total, [("fused_attention", "kernel"), ("fused_topk", "kernel"),
+                         ("topk_v4", "window"), ("topk_v4", "select_t"), ("topk_v4", "rescore"),
+                         ("topk_v4", "select"), ("fused_ln", "ln_quant"), ("fused_mlp", "kernel")],
+                 "mesh")
+    print("mesh e2e:", json.dumps(stages), f"[{card}]")
+    return total, stages
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mp-child", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
+                    help="run one rank of phase 14's two processes (the script starts them)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
         return 2
+    if args.mp_child:
+        rank, world, port, tmp = args.mp_child
+        return mp_child(args.seed, int(rank), int(world), port, tmp)
 
-    from haconvdr_torch.config import ModelConfig
     from haconvdr_torch.device import resolve_device
     from haconvdr_torch.index.quantize import quantize_int8_torch
     from haconvdr_torch.models.convert import init_params_numpy
@@ -2943,7 +3592,7 @@ def main(argv=None) -> int:
         print("kernel vs plain:", json.dumps(r), f"[{card}]")
     print_redesigned(rows, card)
 
-    cfg = ModelConfig()  # ANCE RoBERTa-base: 12 x 768, 12 heads, 3072, 50265
+    cfg = model_config()
     params = init_params_numpy(cfg, args.seed)
     p_sum = float(passages.sum(dtype=torch.float64))  # phase 12 regenerates these rows
     c4, e2e, queries, served = phase_main_path(args.seed, dev, passages, params, cfg, card)
@@ -2959,11 +3608,19 @@ def main(argv=None) -> int:
     c11, _ = phase_train_f32(args.seed, dev, card)
     c12, _ = phase_http(args.seed, dev, params, cfg, served, p_sum, card)
     del served
-    c13, _ = phase_ivf(args.seed, dev, params, cfg, card)
+    import tempfile
+
+    # phase 13's store and build stay for phase 14: store + buckets (< 2x)
+    root = room_for(N_ROWS * (DIM * 4 + 8) + 2 * N_ROWS * DIM * 2)
+    with tempfile.TemporaryDirectory(dir=root) as work:
+        c13, s13 = phase_ivf(args.seed, dev, params, cfg, card, work)
+        t14 = time.perf_counter()
+        c14, _ = phase_mesh(args.seed, dev, params, cfg, p_sum, work, s13, card)
+        print(f"phase 14 (the mesh) took {time.perf_counter() - t14:.1f} s [{card}]")
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def launches(mod, key):
-        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10, c11, c12, c13))
+        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10, c11, c12, c13, c14))
 
     def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]

@@ -1,4 +1,4 @@
-"""HAConvDR in PyTorch + CUDA on one NVIDIA Hopper card.
+"""HAConvDR in PyTorch + CUDA on NVIDIA Hopper cards (one, or a mesh).
 
 A second implementation beside the JAX package ``haconvdr_tpu`` (the
 reference it is held against in tests/test_torch_*.py).  This package
@@ -30,8 +30,13 @@ Layers, entry point first:
   config                    ModelConfig / DataConfig / TrainConfig / ...
   data/sequence, loader     query construction, fixed-shape batches
   data/topiocqa, qrecc, cast, prj  dataset and probe example builders
-  parallel/sharded_encode   encoder runs over data.loader batches
-  parallel/sharded_search   device-resident flat index (ShardedIndex)
+  parallel/mesh             device-slot meshes (make_mesh; a device may
+                            fill several slots), torch.distributed ranks
+  parallel/sharded_encode   encoder runs over data.loader batches, on one
+                            device or cut over a mesh's dp slots
+  parallel/sharded_search   device-resident flat index (ShardedIndex),
+                            one shard or passage-sharded over a mesh
+  parallel/sharded_ivf      IVF build / search / files, cluster-sharded
   index/build, store        corpus encode, tokenized corpus, block store
   index/quantize, rescore   int8 codes and scales, exact second stage
   models/encoder            ANCE RoBERTa tower (inference and train mode)

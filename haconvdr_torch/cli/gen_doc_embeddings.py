@@ -1,6 +1,6 @@
 """CLI: encode the tokenized collection into embedding blocks (counterpart
 of haconvdr_tpu/cli/gen_doc_embeddings.py, the reference's
-gen_doc_embeddings.py), on one device.
+gen_doc_embeddings.py), data-parallel over the mesh of ``--device``.
 
 Usage: python -m haconvdr_torch.cli.gen_doc_embeddings --config cfg.toml
        [key=value ...] [shard_stride=N shard_offset=i start_block_id=B]
@@ -11,16 +11,16 @@ Usage: python -m haconvdr_torch.cli.gen_doc_embeddings --config cfg.toml
 resumed runs.  ``index.compute_int8`` encodes with the int8 tower.  The
 checkpoint's config gives the tower float32 (``config_from_hf``), so an
 int8 tower here has a float32 carry and runs the unfused int8 dense, as the
-JAX CLI's does.  It encodes on the CUDA card (``--device``, default
-``cuda``) and refuses to start without one; ``--device cpu`` runs the
-plain twins on the CPU.
+JAX CLI's does.  It encodes on every visible CUDA card (``--device``,
+default ``cuda``: each batch cut over the cards, one replica of the tower
+a card) and refuses to start without one; ``--device cuda:N`` uses one
+card, ``--device cpu`` runs the plain twins on the CPU.
 """
 
 import logging
 
-from haconvdr_torch.cli._args import pop_device
+from haconvdr_torch.cli._args import device_mesh, pop_device
 from haconvdr_torch.config import config_from_argv
-from haconvdr_torch.device import resolve_device
 from haconvdr_torch.index.build import encode_corpus
 from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
 from haconvdr_torch.index.store import TokenizedCorpus
@@ -41,7 +41,8 @@ def main(argv=None):
             extra[k] = v
         else:
             rest.append(a)
-    dev = resolve_device(device)  # raises before any work without the card
+    mesh = device_mesh(device)  # raises before any work without the card
+    dev = mesh.first
     cfg = config_from_argv(rest)
     corpus = TokenizedCorpus(cfg.index.tokenized_dir or cfg.index.data_output_path)
     params, model_cfg = load_hf_checkpoint(
@@ -51,19 +52,20 @@ def main(argv=None):
         params = quantize_encoder_params(params)
     encoder = AnceEncoder.from_jax_params(params, model_cfg, dev)
     logger.info(
-        "encoding %d passages on %s (%s tower)", len(corpus), dev,
+        "encoding %d passages on %s (%s tower)", len(corpus), mesh,
         "int8" if encoder.int8 else model_cfg.dtype,
     )
     store = encode_corpus(
         corpus,
         encoder,
         cfg.index.data_output_path,
-        batch_size=cfg.index.per_device_eval_batch_size,
+        batch_size=cfg.index.per_device_eval_batch_size * mesh.size,
         per_block_passage_num=cfg.index.per_block_passage_num,
         store_dtype=cfg.index.store_dtype,
         stride=int(extra["shard_stride"]),
         offset=int(extra["shard_offset"]),
         start_block_id=int(extra["start_block_id"]),
+        mesh=mesh,
     )
     logger.info("embedding blocks written: %d", store.num_blocks())
     return store

@@ -12,15 +12,16 @@ Usage: python -m haconvdr_torch.cli.serve --config cfg.toml
        [serve.port=8080 serve.store_dtype=int8 search.rescore_oversample=5 ...]
        [--device cuda|cpu]
 
-The tower and the search run on ``--device``: the CUDA card by default
-(refusing to start without one), the plain twins with ``--device cpu``.
+The tower and the index run on the mesh of ``--device``: every visible
+CUDA card by default (the index sharded over them, refusing to start
+without one), one card with ``cuda:N``, the plain twins with ``--device
+cpu``.
 """
 
 import logging
 
-from haconvdr_torch.cli._args import pop_device
+from haconvdr_torch.cli._args import device_mesh, pop_device
 from haconvdr_torch.config import config_from_argv
-from haconvdr_torch.device import resolve_device
 from haconvdr_torch.serve import Retriever
 from haconvdr_torch.serve_http import RetrievalServer
 from haconvdr_torch.utils.io import pload, setup_logging
@@ -31,7 +32,7 @@ logger = logging.getLogger(__name__)
 def main(argv=None):
     setup_logging()
     device, argv = pop_device(argv)
-    device = resolve_device(device)  # raises without the card before any read
+    mesh = device_mesh(device)  # raises without the card before any read
     cfg = config_from_argv(argv)
     cfg.data.is_train = False  # serving builds eval-style concats
     cfg.data.use_PRL = False
@@ -53,7 +54,7 @@ def main(argv=None):
         ivf_nprobe=None if s.ivf_nprobe < 0 else s.ivf_nprobe,
         ivf_dir=s.ivf_dir or None,
         encoder_int8=s.encoder_int8,
-        device=device,
+        mesh=mesh,
     )
     server = RetrievalServer(
         retriever,
@@ -66,7 +67,7 @@ def main(argv=None):
     )
     logger.info(
         "serving %s/%s on %s at http://%s:%d (max_batch=%d, wait=%.1fms)",
-        "resident" if s.resident else "streamed", s.store_dtype, device,
+        "resident" if s.resident else "streamed", s.store_dtype, mesh,
         server.host, server.port, s.max_batch, s.max_wait_ms,
     )
     server.run()

@@ -182,6 +182,7 @@ def encode_corpus(
     offset: int = 0,
     start_block_id: int = 0,
     device: DeviceLike = None,
+    mesh=None,
 ) -> EmbeddingBlockStore:
     """Stream-encode the corpus into embedding blocks.
 
@@ -196,14 +197,25 @@ def encode_corpus(
     batches); ``store_dtype`` float32, bfloat16 or int8 (float rows
     quantized per block at flush with the shared ``quantize_int8``);
     ``stride``/``offset`` shard the corpus rank-mod and blocks are numbered
-    from ``start_block_id``.
+    from ``start_block_id`` (the multi-process recipe: each process encodes
+    its own stride into its own block range of one shared store).  With a
+    ``mesh`` (parallel/mesh.py) of more than one slot each batch is cut over
+    its ``dp`` slots (parallel/sharded_encode.dp_encode_fn: a module is
+    replicated to each of its devices) and the rows come back on the first
+    slot's device.
 
     On CUDA, up to ``PIPELINE_DEPTH`` batches are in flight: ids and mask
     go up from pinned memory and embeddings come down into pinned memory
     without blocking, each batch's copy marked by an event, and the host
     waits only for the oldest batch when the pipeline is full.
     """
-    if device is None and isinstance(encode_fn, torch.nn.Module):
+    dp_fn = None
+    if mesh is not None and mesh.size > 1:
+        from haconvdr_torch.parallel.sharded_encode import dp_encode_fn
+
+        dp_fn = dp_encode_fn(mesh, encode_fn)
+        device = mesh.first
+    elif device is None and isinstance(encode_fn, torch.nn.Module):
         device = next(encode_fn.parameters()).device
     dev = resolve_device(device)
     store = EmbeddingBlockStore(out_dir, fmt=fmt)
@@ -285,14 +297,19 @@ def encode_corpus(
             ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int32))
             mask_t = torch.from_numpy(np.ascontiguousarray(mask, np.int32))
             done: Optional[torch.cuda.Event] = None
+            if dp_fn is not None:
+                valid = np.arange(batch_size) < n
+                run = lambda x, m: dp_fn(x, m, valid)  # noqa: E731
+            else:
+                run = encode_fn
             if cuda:
                 ids_t = ids_t.pin_memory().to(dev, non_blocking=True)
                 mask_t = mask_t.pin_memory().to(dev, non_blocking=True)
-                host = encode_fn(ids_t, mask_t).to("cpu", non_blocking=True)  # pinned
+                host = run(ids_t, mask_t).to("cpu", non_blocking=True)  # pinned
                 done = torch.cuda.Event()
                 done.record()
             else:
-                host = encode_fn(ids_t.to(dev), mask_t.to(dev))
+                host = run(ids_t.to(dev), mask_t.to(dev))
             inflight.append((host, done, np.asarray(offsets, np.int64), n))
             drain(PIPELINE_DEPTH)
         drain(0)

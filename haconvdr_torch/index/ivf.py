@@ -391,36 +391,47 @@ def _top(keys, ids, k):
     return torch.gather(keys, 1, pos), torch.gather(ids, 1, pos)
 
 
-def ivf_search_device(
-    index: IVFIndex, queries: torch.Tensor, k: int, nprobe: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(scores [Q, k] float32, ids [Q, k] int32) on the index's device,
-    exact over each query's ``nprobe`` probed buckets and the tail
-    (haconvdr_tpu/index/ivf.py:368-452).
+def probe_clusters(centroids: torch.Tensor, qf: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """[Q, nprobe] global cluster ids of each query's top ``nprobe``
+    centroids (cosine), best first, ties to the lower cluster."""
+    nlist = centroids.shape[0]
+    ckeys = order_keys(_unit(qf) @ centroids.T, torch.arange(nlist, device=qf.device)[None, :])
+    return torch.topk(ckeys, nprobe, dim=1).indices
 
-    Every score is float32: bfloat16 buckets and the bfloat16-cast query
-    are widened before the product (exact), int8 codes meet the query
-    folded by its scale and rounded to bfloat16, residual codes get the
-    exact ``q . mean`` back per probed cluster (``q . mu`` on the tail).
-    Candidates are ordered (score desc, position asc) over probe rank,
-    then the tail, as ``lax.top_k`` breaks ties; empty slots are (-inf, -1).
-    Queries go in batches, and a batch's probes in groups, so no more than
-    ``PANEL_BYTES`` of float32 bucket rows are scored at once; the groups'
-    top k are merged."""
-    cent, buckets = index.centroids, index.buckets
-    nlist, cap, D = buckets.shape
+
+def ivf_candidates(
+    index: IVFIndex, qf: torch.Tensor, probe: torch.Tensor, k: int, lo: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keys [Q, <= k], ids [Q, <= k]) of the best candidates among the
+    probed buckets ``index`` holds and its tail, keys ordered (score desc,
+    position asc) over probe rank, then the tail.
+
+    ``index`` is a whole index, or one shard of a sharded one: its buckets
+    are the clusters ``[lo, lo + len(buckets))`` and its tail a slice of
+    the spill, while ``probe`` ([Q, nprobe]) and the sidecars (per-cluster
+    scales, cluster means) stay global.  A shard scores only the probes
+    it owns and reports the others as empty slots, as each shard of the
+    JAX package's sharded search does
+    (haconvdr_tpu/parallel/sharded_ivf.py:107-168).  Queries go in
+    batches, and a batch's probes in groups, so no more than
+    ``PANEL_BYTES`` of float32 bucket rows are scored at once."""
+    buckets = index.buckets
+    per, cap, D = buckets.shape
     dev = buckets.device
+    Q, nprobe = probe.shape
     n_tail = index.tail.shape[0]
     pool = nprobe * cap + n_tail
-    if k > pool:
-        raise ValueError(
-            f"k={k} exceeds the {pool} candidates of {nprobe} probed buckets of "
-            f"{cap} rows and the {n_tail}-row tail"
-        )
-    qf = queries.to(device=dev, dtype=torch.float32)
-    Q = qf.shape[0]
-    ckeys = order_keys(_unit(qf) @ cent.T, torch.arange(nlist, device=dev)[None, :])
-    probe = torch.topk(ckeys, nprobe, dim=1).indices  # [Q, nprobe], best first
+    if index.centroids.shape[0] == per:  # every cluster is here
+        rank = own = None
+        local = gprobe = probe
+        m = nprobe
+    else:  # this shard's probes first, in probe order, then the others masked
+        owned = (probe >= lo) & (probe < lo + per)
+        m = int(owned.sum(dim=1).max()) if Q else 0
+        rank = torch.argsort((~owned).to(torch.uint8), dim=1, stable=True)[:, :m]
+        own = torch.gather(owned, 1, rank)
+        gprobe = torch.gather(probe, 1, rank)
+        local = torch.where(own, gprobe - lo, 0)
     scale, means = index.scale, index.means
     if scale is None:
         qb = qf.to(buckets.dtype).to(torch.float32)
@@ -437,38 +448,74 @@ def ivf_search_device(
     tail_keys = order_keys(tail_s, torch.arange(nprobe * cap, pool, device=dev)[None, :])
 
     row_bytes = cap * D * 4
-    qstep = max(1, PANEL_BYTES // (nprobe * row_bytes))
+    qstep = max(1, PANEL_BYTES // (max(m, 1) * row_bytes))
     out_keys, out_ids = [], []
     for q0 in range(0, Q, qstep):
         b = min(qstep, Q - q0)
-        pstep = min(nprobe, max(1, PANEL_BYTES // (b * row_bytes)))
         best = None
-        for p0 in range(0, nprobe, pstep):
-            p = probe[q0 : q0 + b, p0 : p0 + pstep]  # [b, g]
+        pstep = max(1, min(m, PANEL_BYTES // (b * row_bytes)))
+        for p0 in range(0, m, pstep):
+            p = local[q0 : q0 + b, p0 : p0 + pstep]  # [b, g]
+            gp = gprobe[q0 : q0 + b, p0 : p0 + pstep]
             g = p.shape[1]
             panel = buckets.index_select(0, p.reshape(-1)).to(torch.float32)
             if qb is not None:
                 qp = qb[q0 : q0 + b, None, :].expand(b, g, D)
             else:
-                qp = _fold(qf[q0 : q0 + b, None, :], scale[p])
+                qp = _fold(qf[q0 : q0 + b, None, :], scale[gp])
             s = torch.bmm(panel, qp.reshape(b * g, D, 1)).view(b, g, cap)
             del panel
             if cm is not None:
-                s = s + torch.gather(cm[q0 : q0 + b], 1, p)[:, :, None]
-            ids = index.bucket_ids[p].view(b, g * cap)
+                s = s + torch.gather(cm[q0 : q0 + b], 1, gp)[:, :, None]
+            ids = index.bucket_ids[p]  # [b, g, cap]
+            if own is None:
+                pos = torch.arange(p0 * cap, (p0 + g) * cap, device=dev)[None, :]
+            else:
+                ids = torch.where(own[q0 : q0 + b, p0 : p0 + g, None], ids, -1)
+                pos = (rank[q0 : q0 + b, p0 : p0 + g, None] * cap
+                       + torch.arange(cap, device=dev)).view(b, g * cap)
+            ids = ids.view(b, g * cap)
             s = torch.where(ids >= 0, s.view(b, g * cap), float("-inf"))
-            keys = order_keys(s, torch.arange(p0 * cap, (p0 + g) * cap, device=dev)[None, :])
-            cand = _top(keys, ids, k)
+            cand = _top(order_keys(s, pos), ids, k)
             if best is not None:
                 cand = _top(torch.cat([best[0], cand[0]], 1), torch.cat([best[1], cand[1]], 1), k)
             best = cand
         tk = tail_keys[q0 : q0 + b]
-        best = _top(torch.cat([best[0], tk], 1),
-                    torch.cat([best[1], index.tail_ids[None, :].expand(b, -1)], 1), k)
+        tail_ids = index.tail_ids[None, :].expand(b, -1)
+        if best is None:
+            best = _top(tk, tail_ids, k)
+        else:
+            best = _top(torch.cat([best[0], tk], 1), torch.cat([best[1], tail_ids], 1), k)
         out_keys.append(best[0])
         out_ids.append(best[1])
-    scores, _ = decode_keys(torch.cat(out_keys))
-    return scores, torch.cat(out_ids).to(torch.int32)
+    return torch.cat(out_keys), torch.cat(out_ids)
+
+
+def ivf_search_device(
+    index: IVFIndex, queries: torch.Tensor, k: int, nprobe: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores [Q, k] float32, ids [Q, k] int32) on the index's device,
+    exact over each query's ``nprobe`` probed buckets and the tail
+    (haconvdr_tpu/index/ivf.py:368-452).
+
+    Every score is float32: bfloat16 buckets and the bfloat16-cast query
+    are widened before the product (exact), int8 codes meet the query
+    folded by its scale and rounded to bfloat16, residual codes get the
+    exact ``q . mean`` back per probed cluster (``q . mu`` on the tail).
+    Candidates are ordered (score desc, position asc) over probe rank,
+    then the tail, as ``lax.top_k`` breaks ties; empty slots are (-inf, -1)
+    (:func:`ivf_candidates`)."""
+    _, cap, _ = index.buckets.shape
+    pool = nprobe * cap + index.tail.shape[0]
+    if k > pool:
+        raise ValueError(
+            f"k={k} exceeds the {pool} candidates of {nprobe} probed buckets of "
+            f"{cap} rows and the {index.tail.shape[0]}-row tail"
+        )
+    qf = queries.to(device=index.buckets.device, dtype=torch.float32)
+    keys, ids = ivf_candidates(index, qf, probe_clusters(index.centroids, qf, nprobe), k)
+    scores, _ = decode_keys(keys)
+    return scores, ids.to(torch.int32)
 
 
 def ivf_search(

@@ -71,7 +71,9 @@ def quantize_int8_torch(emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     for r0 in range(0, emb.shape[0], _ROWS):
         chunk = emb[r0 : r0 + _ROWS].to(torch.float32).abs().amax(dim=0)
         amax = torch.maximum(amax, chunk)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # a tensor divisor: torch's CUDA division by a Python scalar is a product
+    # by its float32 reciprocal, an ulp off numpy's division at some values
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
     codes = torch.empty(emb.shape, dtype=torch.int8, device=emb.device)
     for r0 in range(0, emb.shape[0], _ROWS):
         x = emb[r0 : r0 + _ROWS].to(torch.float32) / scale

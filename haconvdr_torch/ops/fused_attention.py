@@ -6,6 +6,8 @@
 ``fused_attention_qkv_plain`` for CPU tensors; there is no other route.
 Both take qkv ``[B, L, 3H]`` (the fused projection, head-interleaved as
 ``[q heads | k heads | v heads]``) and return the context ``[B, L, H]``.
+``fused_attention`` is the head-split ``[B, H, L, d]`` wrapper over the
+same kernel (haconvdr_tpu/ops/fused_attention.py:81-99).
 """
 
 from __future__ import annotations
@@ -96,3 +98,22 @@ def fused_attention_qkv(
     _build.check(err, "hc_fused_attention")
     COUNTS["kernel"] += 1
     return out
+
+
+def fused_attention(
+    q: torch.Tensor,  # [B, H, L, d]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    attention_mask: torch.Tensor,  # [B, L] 1 = real, 0 = pad
+) -> torch.Tensor:
+    """Head-split layout over :func:`fused_attention_qkv`: the heads merged
+    into one fused [B, L, 3 H d] projection, the context split back to
+    [B, H, L, d]."""
+    B, H, L, d = q.shape
+
+    def merge(t):  # [B, H, L, d] -> [B, L, H * d]
+        return t.transpose(1, 2).reshape(B, L, H * d)
+
+    qkv = torch.cat([merge(q), merge(k), merge(v)], dim=-1)
+    ctx = fused_attention_qkv(qkv, attention_mask, H)
+    return ctx.reshape(B, L, H, d).transpose(1, 2)

@@ -16,7 +16,10 @@ tensors; there is no other route.  Contract of both:
   largest value per query (its row minimum when ks == k) is a strict
   threshold, and seed values that stay in the top k come back with id -1;
 * empty slots are (-inf, -1);
-* results are ordered (score desc, id asc): ties go to the lower id.
+* results are ordered (score desc, id asc): ties go to the lower id;
+* ``presample`` (unseeded only, off by default) seeds the kernel with a
+  threshold from a sample of the rows (pallas_topk.py:235-279, see
+  :func:`presample_threshold`); the answers are the unseeded ones.
 
 The order is carried by one int64 key per entry (order-preserving score
 bits in the high word, ``0x7fffffff - id`` in the low word), so selection
@@ -95,6 +98,47 @@ def seed_threshold(init_scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(s, k, dim=1).values[:, -1].contiguous()
 
 
+PRESAMPLE_TILE = 1024  # rows of a sampling tile (the TPU kernel's p_tile)
+PRESAMPLE_AUTO = 16  # sample rows a tile under presample < 0
+PRESAMPLE_MIN_ROWS = 1 << 18  # below this many rows the auto presample is off
+PRESAMPLE_MARGIN = 1e-5
+
+
+def presample_threshold(
+    queries: torch.Tensor, passages: torch.Tensor, n_valid: int, k: int, presample: int
+) -> Optional[torch.Tensor]:
+    """[Q] seed threshold of the presample pre-pass, or None when it is off
+    (haconvdr_tpu/ops/pallas_topk.py:235-279): the first ``presample`` rows
+    of every ``PRESAMPLE_TILE``-row tile (16 under ``presample < 0``,
+    which is off below 2**18 rows), scored in one ``torch.matmul`` in the
+    kernel's scoring model, rows at or past ``n_valid`` left out; each
+    query's k-th sample score less ``(|vk| + 1) * 1e-5``, -inf where there
+    is none.  Off too when the sample holds fewer than k rows.  The sample
+    rows are rows of the block, so at least k rows score at or above vk,
+    above the threshold: it prunes nothing of the answer."""
+    if presample == 0:
+        return None
+    N = passages.shape[0]
+    nt = -(-N // PRESAMPLE_TILE)
+    spp = min(PRESAMPLE_AUTO if presample < 0 else presample, PRESAMPLE_TILE)
+    if (presample < 0 and nt * PRESAMPLE_TILE < PRESAMPLE_MIN_ROWS) or nt * spp < k:
+        return None
+    dev = passages.device
+    limit = min(int(n_valid), N)
+    if (limit // PRESAMPLE_TILE) * spp + min(spp, limit % PRESAMPLE_TILE) < k:
+        return torch.full((queries.shape[0],), float("-inf"), device=dev)
+    # rows past the limit are scored and masked, not filtered out: a
+    # boolean index would wait on the host for the card
+    rows = (torch.arange(nt, device=dev)[:, None] * PRESAMPLE_TILE
+            + torch.arange(spp, device=dev)[None, :]).reshape(-1)
+    qf = queries.to(query_dtype(passages.dtype)).to(torch.float32)
+    s = qf @ passages[rows.clamp_max(N - 1)].to(torch.float32).T  # [Q, S]
+    s = torch.where(rows[None, :] < limit, s, float("-inf"))
+    vk = torch.topk(s, k, dim=1).values[:, k - 1]
+    t = vk - (vk.abs() + 1.0) * PRESAMPLE_MARGIN
+    return torch.where(torch.isfinite(vk), t, float("-inf")).contiguous()
+
+
 def scan_topk_keys(
     queries: torch.Tensor,
     passages: torch.Tensor,
@@ -137,11 +181,15 @@ def fused_topk_block_plain(
     n_valid: int,
     k: int,
     init_scores: Optional[torch.Tensor] = None,
+    presample: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's contract in plain PyTorch (see the module docstring):
     float32 scores [Q, k], int32 ids [Q, k]."""
     COUNTS["plain"] += 1
-    thr = None if init_scores is None else seed_threshold(init_scores, k)
+    if init_scores is not None:
+        thr = seed_threshold(init_scores, k)
+    else:
+        thr = presample_threshold(queries, passages, n_valid, k, presample)
     keys = scan_topk_keys(queries, passages, n_valid, k, _PLAIN_CHUNK, thr)
     if init_scores is not None:
         seed = order_keys(
@@ -229,11 +277,14 @@ def fused_topk_block(
     n_valid: int,
     k: int,
     init_scores: Optional[torch.Tensor] = None,  # [Q, ks] running best
+    presample: int = 0,  # sample rows a tile; < 0 auto; 0 off
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact (scores [Q, k] float32, ids [Q, k] int32) top-k of one block,
-    ordered (score desc, id asc); see the module docstring."""
+    ordered (score desc, id asc); see the module docstring.  A presample
+    threshold seeds the kernel as a threshold only, never as buffer
+    entries, so it surfaces no seed entry."""
     if passages.device.type == "cpu":
-        return fused_topk_block_plain(queries, passages, n_valid, k, init_scores)
+        return fused_topk_block_plain(queries, passages, n_valid, k, init_scores, presample)
     if passages.device.type != "cuda":
         raise ValueError(f"unsupported device {passages.device}")
     _check(queries, passages, k, init_scores)
@@ -251,6 +302,8 @@ def fused_topk_block(
     if init_scores is not None:
         seed = init_scores.to(device=dev, dtype=torch.float32).contiguous()
         thr = seed_threshold(seed, k)
+    elif presample:
+        thr = presample_threshold(q, passages, rows, k, presample)
     qb = lib.hc_topk_split_qb(Q, k, _DTYPE_CODE[passages.dtype])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     waves = MAX_WAVES_UNSEEDED if thr is None else MAX_WAVES_SEEDED

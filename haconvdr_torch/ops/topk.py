@@ -25,7 +25,7 @@ from haconvdr_torch.ops.fused_topk import (
     order_keys,
     scan_topk_keys,
 )
-from haconvdr_torch.ops.topk_v4 import topk_block_v4
+from haconvdr_torch.ops.topk_v4 import topk_block_v4, topk_block_v4_finish, topk_block_v4_launch
 
 NEG_INF = float("-inf")
 
@@ -56,6 +56,24 @@ def merge_topk(
     i = torch.cat([idx_a, idx_b], dim=1)
     keys = order_keys(s, torch.arange(s.shape[1], device=s.device)[None, :])
     pos = torch.topk(keys, k, dim=1).indices
+    return torch.gather(s, 1, pos), torch.gather(i, 1, pos)
+
+
+def merge_lists(
+    parts: Iterable[Tuple[torch.Tensor, torch.Tensor]], k: int, device=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard lists ([Q, k_s] scores, [Q, k_s] ids) into one top-k
+    on ``device`` (the first list's by default), ordered (score desc,
+    position asc) over their concatenation in the given order, as JAX's
+    all-gather + ``lax.top_k`` merges its shards
+    (haconvdr_tpu/parallel/sharded_search.py:80-88).  Lists ordered (score
+    desc, id asc) over ascending id ranges merge into that order again."""
+    parts = list(parts)
+    dev = parts[0][0].device if device is None else device
+    s = torch.cat([p[0].to(dev, torch.float32) for p in parts], dim=1)
+    i = torch.cat([p[1].to(dev) for p in parts], dim=1)
+    keys = order_keys(s, torch.arange(s.shape[1], device=dev)[None, :])
+    pos = torch.topk(keys, min(k, s.shape[1]), dim=1).indices
     return torch.gather(s, 1, pos), torch.gather(i, 1, pos)
 
 
@@ -95,6 +113,27 @@ def block_topk(
     if v4 and init_scores is None:
         return topk_block_v4(queries, passages, n_valid, k)
     return fused_topk_block(queries, passages, n_valid, k, init_scores=init_scores)
+
+
+def block_topk_launch(
+    queries: torch.Tensor,
+    passages: torch.Tensor,
+    n_valid: int,
+    k: int,
+    chunk: int = 65536,
+    v4: bool = False,
+):
+    """:func:`block_topk` (unseeded) with its device work queued: the v4
+    route stops before its host sync, the others run whole.  Hand the
+    result to :func:`block_topk_finish`."""
+    if v4 and k <= MAX_K:
+        return topk_block_v4_launch(queries, passages, n_valid, k)
+    return block_topk(queries, passages, n_valid, k, chunk, v4=v4)
+
+
+def block_topk_finish(state) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (scores, ids) of a :func:`block_topk_launch`."""
+    return state if len(state) == 2 else topk_block_v4_finish(state)
 
 
 def ids_to_int32(ids, device: torch.device) -> torch.Tensor:

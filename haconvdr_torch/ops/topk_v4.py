@@ -479,6 +479,42 @@ def v4_search(
     return top_s, top_i, n_flag
 
 
+def topk_block_v4_launch(
+    queries: torch.Tensor,  # [Q, D] float
+    passages: torch.Tensor,  # [N, D] float32 / bfloat16 / int8
+    n_valid: int,
+    k: int,
+    seg_width: int = 0,
+    budget: int = 0,
+) -> tuple:
+    """The v4 search's device work, queued without a host sync: the state
+    :func:`topk_block_v4_finish` reads.  A caller searching several shards
+    launches every shard's search before it finishes any, so no shard
+    waits on another's ``n_flag``."""
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"v4 search takes 0 < k <= {MAX_K}, got {k}")
+    sw, B = resolve_select_geometry(passages.shape[0], passages.dtype, seg_width, budget)
+    q_scale = None
+    if passages.dtype == torch.int8:
+        queries, q_scale = quantize_queries_int8(queries)
+    else:
+        queries = queries.to(passages.dtype)
+    s, i, n_flag = v4_search(queries, passages, n_valid, k, sw, B)
+    return s, i, n_flag, B, queries, passages, n_valid, k, q_scale
+
+
+def topk_block_v4_finish(state: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The answer of a :func:`topk_block_v4_launch`: its one host sync reads
+    ``n_flag`` and falls back to the v3 kernel past the budget."""
+    s, i, n_flag, B, queries, passages, n_valid, k, q_scale = state
+    if int(n_flag) > B:  # the one host sync of the search
+        COUNTS["v3_fallback"] += 1
+        s, i = fused_topk_block(queries, passages, n_valid, k)
+    if q_scale is not None:
+        s = s * (q_scale[:, None] / 127.0)
+    return s, i
+
+
 def topk_block_v4(
     queries: torch.Tensor,  # [Q, D] float
     passages: torch.Tensor,  # [N, D] float32 / bfloat16 / int8
@@ -491,18 +527,6 @@ def topk_block_v4(
     desc, id asc): the v4 search, or the v3 kernel when a query flagged
     more windows than the budget (counterpart of ``pallas_topk_block_v4``;
     see the module docstring)."""
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"v4 search takes 0 < k <= {MAX_K}, got {k}")
-    sw, B = resolve_select_geometry(passages.shape[0], passages.dtype, seg_width, budget)
-    q_scale = None
-    if passages.dtype == torch.int8:
-        queries, q_scale = quantize_queries_int8(queries)
-    else:
-        queries = queries.to(passages.dtype)
-    s, i, n_flag = v4_search(queries, passages, n_valid, k, sw, B)
-    if int(n_flag) > B:  # the one host sync of the search
-        COUNTS["v3_fallback"] += 1
-        s, i = fused_topk_block(queries, passages, n_valid, k)
-    if q_scale is not None:
-        s = s * (q_scale[:, None] / 127.0)
-    return s, i
+    return topk_block_v4_finish(
+        topk_block_v4_launch(queries, passages, n_valid, k, seg_width, budget)
+    )

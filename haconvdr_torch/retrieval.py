@@ -9,8 +9,10 @@ PRJ labeling runs the same machinery over probe queries and applies the
 MRR-diff judge.
 
 Where the JAX flow takes (params, mesh), this one takes the encoder
-module and runs on its device; the search runs on ``device`` (the card
-unless the caller passes ``"cpu"``).
+module and runs on its device, or data-parallel over a ``mesh``
+(parallel/mesh.py); the search runs on ``device`` (the card unless the
+caller passes ``"cpu"``), as JAX's streamed ``BlockSearcher`` runs on one
+device.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from haconvdr_torch.eval.trec import (
 from haconvdr_torch.index.store import EmbeddingBlockStore
 from haconvdr_torch.mine.prj import improve_judge, judge_stats, rel_label_records
 from haconvdr_torch.ops.topk import BlockSearcher
+from haconvdr_torch.parallel.mesh import Mesh
 from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
 from haconvdr_torch.utils.io import pload, write_jsonl
 
@@ -73,15 +76,18 @@ _QUERY_KEY = {
 def get_test_query_embeddings(
     cfg: ExperimentConfig, encoder: torch.nn.Module,
     examples: Optional[List[dict]] = None, tokenizer=None, query_key: Optional[str] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[np.ndarray, List[str]]:
     """Encode test queries on the encoder's device, in batches of
-    ``per_device_test_batch_size`` (reference get_test_query_embedding,
-    src/test_HAConvDR_topiocqa.py:165-219)."""
+    ``per_device_test_batch_size``, or on a ``mesh`` in batches of that
+    many rows a slot (reference get_test_query_embedding,
+    src/test_HAConvDR_topiocqa.py:165-219; haconvdr_tpu/retrieval.py:69-86)."""
     if examples is None:
         examples = build_test_examples(cfg, tokenizer)
     key = query_key or _QUERY_KEY[cfg.search.test_type]
-    batches = batch_iter(examples, cfg.search.per_device_test_batch_size, shuffle=False)
-    return encode_batches(encoder, batches, key, f"{key}_mask")
+    n_dev = 1 if mesh is None else mesh.size
+    batches = batch_iter(examples, cfg.search.per_device_test_batch_size * n_dev, shuffle=False)
+    return encode_batches(encoder, batches, key, f"{key}_mask", mesh if n_dev > 1 else None)
 
 
 def search_embedding_store(
@@ -168,13 +174,15 @@ def run_prj_labeling(
     query_embs: Optional[np.ndarray] = None,
     query_ids: Optional[Sequence[str]] = None,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, List[int]]:
     """Probe retrieval -> per-probe MRR -> rel labels (the reference's
     test_PRJ_* main flow, src/test_PRJ_topiocqa.py:495-527 + improve_judge).
     Pass precomputed (query_embs, query_ids), and no encoder, for the
     5-fold cross-validate flow (":501-523"), which concatenates per-fold-
-    model embeddings.  The search runs on ``device``, by default the
-    encoder's device (the card when there is no encoder)."""
+    model embeddings.  The encode runs on ``mesh`` when given
+    (haconvdr_tpu/retrieval.py:165-190); the search runs on ``device``, by
+    default the encoder's device (the card when there is no encoder)."""
     from haconvdr_torch.data.prj import build_prj_probe_examples
 
     if device is None and encoder is not None:
@@ -187,7 +195,7 @@ def run_prj_labeling(
                     f.write(json.dumps(rec) + "\n")
             examples = build_prj_probe_examples(cfg.data, tokenizer, probe_file)
         embs, ids = get_test_query_embeddings(
-            cfg, encoder, examples=examples, query_key="pair_query"
+            cfg, encoder, examples=examples, query_key="pair_query", mesh=mesh
         )
     else:
         embs, ids = query_embs, list(query_ids)

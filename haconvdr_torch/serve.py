@@ -2,7 +2,10 @@
 haconvdr_tpu/serve.py).
 
 ``Retriever`` holds the query tower and a device-resident flat index (or
-streams an EmbeddingBlockStore through ``BlockSearcher``) on one device.
+streams an EmbeddingBlockStore through ``BlockSearcher``) on a mesh of
+device slots: one device by default, or ``mesh=`` (parallel/mesh.py),
+where the index is sharded over the slots and each batch of queries is
+encoded data-parallel over them.
 ``BatchingRetriever`` coalesces concurrent requests into power-of-two
 batches on one worker thread.  Query construction uses the port's
 ``data.sequence`` helpers and the two-stage rescore its
@@ -25,12 +28,12 @@ import torch
 from haconvdr_torch.config import DataConfig, ModelConfig, SearchConfig
 from haconvdr_torch.data.sequence import ConcatBuilder, encode_no_trunc
 from haconvdr_torch.device import DeviceLike, resolve_device
-from haconvdr_torch.index.ivf import IVFIndex
 from haconvdr_torch.index.rescore import StoreRescorer
 from haconvdr_torch.index.store import EmbeddingBlockStore
 from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
 from haconvdr_torch.models.hf_import import load_checkpoint
 from haconvdr_torch.ops.topk import BlockSearcher
+from haconvdr_torch.parallel.mesh import Mesh, make_mesh, replicate
 from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
 from haconvdr_torch.parallel.sharded_ivf import (
     build_ivf_from_store,
@@ -44,7 +47,18 @@ logger = logging.getLogger(__name__)
 
 
 class Retriever:
-    """Query encoder + index on one device.
+    """Query encoder + index on a mesh of device slots.
+
+    ``mesh=None`` is the one-slot mesh of ``device`` (the card by default).
+    With a mesh of more than one slot (haconvdr_tpu/serve.py:91,
+    :185-195, :207-210, :278-287): the tower runs one replica a distinct
+    device and ``embed`` cuts a batch of ``max(n_dev,
+    per_device_test_batch_size * n_dev)`` over the slots; the flat index is
+    a ``ShardedIndex.from_store(mesh, ...)``; the IVF index is built with
+    ``max(n_shards, (req_nlist // n_shards) * n_shards)`` clusters, where
+    ``req_nlist = min(ivf_nlist, rows // 8)``, and a request of
+    ``ivf_nprobe`` >= ``req_nlist`` probes them all; a saved IVF directory
+    reloads onto the mesh.
 
     ``store`` is an EmbeddingBlockStore, or a [N, D] tensor of embeddings
     already on the device (no disk copy: the rescore stage is then
@@ -90,6 +104,7 @@ class Retriever:
         ivf_dir: Optional[str] = None,
         encoder_int8: bool = False,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
     ):
         # ivf_nlist, ivf_nprobe and ivf_dir are read only with ivf=True, as
         # in the JAX package
@@ -97,7 +112,8 @@ class Retriever:
             # int8 query tower (haconvdr_tpu/serve.py:92-104); the port's
             # quantize_encoder_params leaves int8 params as they are
             params = quantize_encoder_params(params)
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(devices=[resolve_device(device)])
+        self.device = self.mesh.first
         self.tokenizer = tokenizer
         # a Rust-backed HF tokenizer sets its truncation on every encode and
         # raises "Already borrowed" when two threads encode at once (the
@@ -107,10 +123,12 @@ class Retriever:
         self.data_cfg = data_cfg or DataConfig(is_train=False, use_PRL=False)
         self.search_cfg = search_cfg or SearchConfig()
         self.encoder = AnceEncoder.from_jax_params(params, model_cfg, self.device)
+        # the replicas a batch's slices run on (the tower itself on one slot)
+        self._encoders = replicate(self.mesh, self.encoder)
         self.offset2pid = None if offset2pid is None else np.asarray(offset2pid)
         self._rescorer = None
         self.index: Optional[ShardedIndex] = None
-        self.ivf_index: Optional[IVFIndex] = None
+        self.ivf_index = None  # an IVFIndex, or a ShardedIVFIndex on a mesh
         self.store = None
         if ivf:
             if isinstance(store, torch.Tensor):
@@ -120,13 +138,11 @@ class Retriever:
         elif isinstance(store, torch.Tensor):
             self._rescore_store = None
             self.index = ShardedIndex.from_tensor(
-                store.to(self.device), dtype=store_dtype
+                store.to(self.device), dtype=store_dtype, mesh=self.mesh
             )
         elif resident:
             self._rescore_store = store
-            self.index = ShardedIndex.from_store(
-                store, dtype=store_dtype, device=self.device
-            )
+            self.index = ShardedIndex.from_store(self.mesh, store, dtype=store_dtype)
         else:
             self._rescore_store = store
             self.store = store
@@ -147,17 +163,18 @@ class Retriever:
                 superblock_scale=sb_scale,
             )
 
-    def _ivf(self, store, store_dtype, ivf_nlist, ivf_nprobe, ivf_dir) -> IVFIndex:
-        """The IVF index of ``store`` (haconvdr_tpu/serve.py:115-205 with one
-        shard): reloaded from ``ivf_dir`` when it holds one, else built from
-        the store (and saved to ``ivf_dir``).  A request of ``ivf_nprobe`` >=
-        the requested nlist probes every cluster.  The reload refuses a
-        directory whose bucket dtype is not ``store_dtype`` or whose
-        valid-row count is not the store's (block headers only)."""
+    def _ivf(self, store, store_dtype, ivf_nlist, ivf_nprobe, ivf_dir):
+        """The IVF index of ``store`` on the mesh (haconvdr_tpu/serve.py:115-205):
+        reloaded from ``ivf_dir`` when it holds one, else built from the
+        store (and saved to ``ivf_dir``) with nlist rounded to the shard
+        count.  A request of ``ivf_nprobe`` >= the requested nlist probes
+        every cluster.  The reload refuses a directory whose bucket dtype is
+        not ``store_dtype`` or whose valid-row count is not the store's
+        (block headers only)."""
         n_rows = sum(store.block_size(b) for b in range(store.num_blocks()))
         req_nlist = min(ivf_nlist, max(1, n_rows // 8))
         if ivf_dir and os.path.exists(os.path.join(ivf_dir, "ivf_sharded_meta.json")):
-            idx, meta = load_ivf_sharded(ivf_dir, with_meta=True, device=self.device)
+            idx, meta = load_ivf_sharded(ivf_dir, with_meta=True, mesh=self.mesh)
             saved_dtype = meta.get("bucket_dtype")
             if saved_dtype is not None and saved_dtype != store_dtype:
                 raise ValueError(
@@ -178,10 +195,12 @@ class Retriever:
                 nlist = idx.centroids.shape[0]
                 idx = idx._replace(nprobe=int(nlist if ivf_nprobe >= req_nlist else ivf_nprobe))
             return idx
+        n_shards = self.mesh.size
+        nlist = max(n_shards, (req_nlist // n_shards) * n_shards)
         want = 32 if ivf_nprobe is None else ivf_nprobe
         idx = build_ivf_from_store(
-            store, nlist=req_nlist, nprobe=req_nlist if want >= req_nlist else want,
-            dtype=store_dtype, device=self.device,
+            self.mesh, store, nlist=nlist, nprobe=nlist if want >= req_nlist else want,
+            dtype=store_dtype,
         )
         if ivf_dir:  # the next load skips the build
             save_ivf_sharded(idx, ivf_dir)
@@ -199,7 +218,8 @@ class Retriever:
         saved beside them) and an embeddings directory
         (haconvdr_tpu/serve.py:229-240).  ``kw`` goes to ``Retriever``,
         ``device`` included."""
-        resolve_device(kw.get("device"))  # raises without the card before any read
+        if kw.get("mesh") is None:
+            resolve_device(kw.get("device"))  # raises without the card before any read
         tokenizer, params, model_cfg = load_checkpoint(model_type, checkpoint_path)
         store = EmbeddingBlockStore.open_auto(embeddings_dir)
         return cls(tokenizer, params, model_cfg, store, **kw)
@@ -241,12 +261,20 @@ class Retriever:
         return {"sample_id": "q", "conv_qp": ids, "conv_qp_mask": mask}
 
     # -- retrieval -----------------------------------------------------------
+    def encode(self, batches) -> np.ndarray:
+        """Embeddings of the valid rows of collated batches, on the mesh."""
+        if self.mesh.size == 1:
+            return encode_batches(self.encoder, batches, "conv_qp", "conv_qp_mask")[0]
+        return encode_batches(self._encoders, batches, "conv_qp", "conv_qp_mask", self.mesh)[0]
+
     def embed(self, examples: List[Dict]) -> np.ndarray:
-        bs = min(max(1, self.search_cfg.per_device_test_batch_size), len(examples))
-        embs, _ = encode_batches(
-            self.encoder, batch_iter(examples, bs), "conv_qp", "conv_qp_mask"
-        )
-        return embs
+        n_dev = self.mesh.size
+        per = self.search_cfg.per_device_test_batch_size
+        if n_dev == 1:
+            bs = min(max(1, per), len(examples))
+        else:  # JAX's rule: whole slots, at least one row a slot
+            bs = min(max(n_dev, per * n_dev), max(len(examples), n_dev))
+        return self.encode(batch_iter(examples, bs))
 
     def search(
         self, query_embs: np.ndarray, k: Optional[int] = None
@@ -255,7 +283,7 @@ class Retriever:
         oversample = self.search_cfg.rescore_oversample
         k1 = int(np.ceil(k * oversample)) if oversample > 1.0 else k
         if self.ivf_index is not None:
-            scores, ids = sharded_ivf_search(self.ivf_index, query_embs, k=k1)
+            scores, ids = sharded_ivf_search(self.mesh, self.ivf_index, query_embs, k=k1)
         elif self.index is not None:
             scores, ids = self.index.search(query_embs, k1)
         else:
@@ -484,11 +512,7 @@ class BatchingRetriever:
             self._batch_hist[n] = self._batch_hist.get(n, 0) + 1
         try:
             r = self.retriever
-            embs, _ = encode_batches(
-                r.encoder,
-                batch_iter([req.example for req in batch], bucket),
-                "conv_qp", "conv_qp_mask",
-            )
+            embs = r.encode(batch_iter([req.example for req in batch], bucket))
             if n < bucket:  # fixed search shape: pad queries to the bucket
                 pad = np.broadcast_to(embs[:1], (bucket - n, embs.shape[1]))
                 embs = np.concatenate([embs, pad], axis=0)

@@ -359,7 +359,7 @@ def test_serve_cli_passes_the_serve_section(ckpt, chain, tmp_path, monkeypatch):
     assert (ckpt_arg, emb_arg) == (ckpt, str(chain / "torch" / "embeds"))
     assert kw["store_dtype"] == "bfloat16" and kw["resident"] is False
     assert kw["ivf"] is False and kw["ivf_nlist"] == 16 and kw["ivf_nprobe"] is None
-    assert kw["device"] == torch.device("cpu") and kw["encoder_int8"] is False
+    assert kw["mesh"].slots == [torch.device("cpu")] and kw["encoder_int8"] is False
     assert kw["data_cfg"].is_train is False and kw["search_cfg"].top_k == 5
     assert list(kw["offset2pid"]) == list(range(1, N_PASSAGES + 1))
     assert server.batcher.max_batch == 4 and server.batcher.max_wait_ms == 3.5
@@ -374,7 +374,7 @@ def test_serve_cli_passes_the_serve_section(ckpt, chain, tmp_path, monkeypatch):
     serve_cli.main(args + ["serve.ivf=true", "serve.ivf_nprobe=1000", "--device", "cpu"])
     (ckpt_arg, emb_arg), kw = seen["load"]
     assert kw["ivf"] is True and kw["ivf_nprobe"] == 1000 and seen["retriever"].ivf_index is not None
-    jr = JaxRetriever.load(ckpt_arg, emb_arg, **{k: v for k, v in kw.items() if k != "device"})
+    jr = JaxRetriever.load(ckpt_arg, emb_arg, **{k: v for k, v in kw.items() if k != "mesh"})
     want = jr.retrieve(_passage(4), k=3)
     got = [(h["pid"], h["score"]) for h in seen["answer"]["hits"]]
     assert [p for p, _ in got] == [p for p, _ in want]

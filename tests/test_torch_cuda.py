@@ -1618,6 +1618,7 @@ def test_ivf_store_build_is_deterministic_and_reloads(dev, tmp_path):
 
     from haconvdr_torch.index.ivf import ARRAYS, SIDECARS
     from haconvdr_torch.index.store import EmbeddingBlockStore
+    from haconvdr_torch.parallel.mesh import make_mesh
     from haconvdr_torch.parallel.sharded_ivf import (
         build_ivf_from_store,
         load_ivf_sharded,
@@ -1625,13 +1626,14 @@ def test_ivf_store_build_is_deterministic_and_reloads(dev, tmp_path):
         sharded_ivf_search,
     )
 
+    one = make_mesh(devices=[dev])
     x = _ivf_mixture(30_000, 64)
     store = EmbeddingBlockStore(str(tmp_path / "emb"))
     store.write_block(0, x[:17_000], np.arange(17_000, dtype=np.int64))
     store.write_block(1, x[17_000:], np.arange(17_000, 30_000, dtype=np.int64))
     for dtype in ("bfloat16", "int8"):
-        kw = dict(nlist=128, nprobe=16, dtype=dtype, seed=3, chunk_rows=4096, device=dev)
-        a, b = build_ivf_from_store(store, **kw), build_ivf_from_store(store, **kw)
+        kw = dict(nlist=128, nprobe=16, dtype=dtype, seed=3, chunk_rows=4096)
+        a, b = build_ivf_from_store(one, store, **kw), build_ivf_from_store(one, store, **kw)
         out = str(tmp_path / dtype)
         save_ivf_sharded(a, out)
         back = load_ivf_sharded(out, device=dev)
@@ -1641,6 +1643,149 @@ def test_ivf_store_build_is_deterministic_and_reloads(dev, tmp_path):
             if ta is not None:
                 assert ta.device.type == "cuda" and torch.equal(ta, tb) and torch.equal(ta, tc), name
         q = x[:32]
-        s, i = sharded_ivf_search(a, q, k=20)
-        s2, i2 = sharded_ivf_search(back, q, k=20)
+        s, i = sharded_ivf_search(one, a, q, k=20)
+        s2, i2 = sharded_ivf_search(one, back, q, k=20)
         assert np.array_equal(s, s2) and np.array_equal(i, i2)
+
+
+def test_head_split_attention_wrapper_on_the_card(dev, gen):
+    """fused_attention over [B, H, L, d] on the card: one kernel launch,
+    equal bit for bit to fused_attention_qkv of the merged projection."""
+    from haconvdr_torch.ops import fused_attention as fa
+
+    q, k, v = (torch.randn(2, 12, 128, 64, device=dev, generator=gen).bfloat16()
+               for _ in range(3))
+    mask = torch.ones(2, 128, dtype=torch.int32, device=dev)
+    mask[1, 70:] = 0
+    before = fa.COUNTS["kernel"]
+    out = fa.fused_attention(q, k, v, mask)
+    assert fa.COUNTS["kernel"] == before + 1 and out.shape == q.shape
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(2, 128, 768)
+
+    ref = fa.fused_attention_qkv(torch.cat([merge(q), merge(k), merge(v)], -1), mask, 12)
+    assert torch.equal(out, ref.reshape(2, 128, 12, 64).transpose(1, 2))
+
+
+@pytest.mark.parametrize("Q", [1, 64, 256])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
+def test_presample_seeded_kernel_equals_the_unseeded_one(dev, gen, mode, Q):
+    """Row 2 with the presample threshold (auto: 16 rows a 1,024-row tile
+    over 300,000 rows) against itself unseeded: scores and ids bit for
+    bit, no id -1."""
+    from haconvdr_torch.ops import fused_topk as ft
+
+    p = torch.randn(300_000, 768, device=dev, generator=gen)
+    q = torch.randn(Q, 768, device=dev, generator=gen)
+    if mode == "int8":
+        from haconvdr_torch.index.quantize import quantize_int8_torch
+
+        p, scale = quantize_int8_torch(p)
+        q = q * scale
+    else:
+        p = p.to(getattr(torch, mode))
+    s0, i0 = ft.fused_topk_block(q, p, 299_000, 100)
+    before = ft.COUNTS["kernel"]
+    s, i = ft.fused_topk_block(q, p, 299_000, 100, presample=-1)
+    assert ft.COUNTS["kernel"] == before + 1
+    assert torch.equal(s, s0) and torch.equal(i, i0) and bool((i >= 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_sharded_index_on_four_card_slots(dev, gen, dtype):
+    """ShardedIndex on four slots of one card: each non-empty shard runs
+    its own v4 search (k 100) and v3 kernel (kernel="v3"), the plain path at
+    k 300; through the kernels the float answers equal the one-shard index's
+    bit for bit and int8 v4 the per-shard int8 x int8 model's; the plain
+    path and int8 v3 (bf16-rounded folded queries) within 1e-5 of the
+    per-shard GEMM, ids equal where separated."""
+    from haconvdr_torch.index.quantize import quantize_queries_int8
+    from haconvdr_torch.ops import topk_v4
+    from haconvdr_torch.ops.topk import merge_lists
+    from haconvdr_torch.parallel.mesh import make_mesh
+    from haconvdr_torch.parallel.sharded_search import ShardedIndex
+
+    rows = torch.randn(300_000, 256, device=dev, generator=gen)
+    q = torch.randn(64, 256, device=dev, generator=gen)
+    mesh = make_mesh(devices=[dev] * 4)
+    for kernel in ("v4", "v3"):
+        idx = ShardedIndex(mesh, rows, dtype=dtype, kernel=kernel)
+        assert [sh.passages.shape[0] for sh in idx.shards] == [131_072, 131_072, 37_856, 0]
+        before = dict(topk_v4.COUNTS)
+        for k in (100, 300):
+            s, i = idx.search_device(q, k)
+            if dtype == "int8":
+                parts = []
+                for sh in idx.shards[:3]:
+                    q8, qs = quantize_queries_int8(q * sh.scale)
+                    full = (q8.double() @ sh.passages.double().T).float() * (qs[:, None] / 127.0)
+                    if k > 128 or kernel == "v3":  # bf16-rounded folded queries
+                        full = (q * sh.scale).bfloat16().float() @ sh.passages.float().T
+                    parts.append((full, sh.base + torch.arange(full.shape[1], device=dev)
+                                  .expand_as(full).int()))
+                rs, ri = merge_lists(parts, k)
+            else:
+                one = ShardedIndex.from_tensor(rows, dtype=dtype, kernel=kernel)
+                rs, ri = one.search_device(q, k)
+            if k <= 128 and (dtype != "int8" or kernel == "v4"):
+                # the kernels: one fmaf chain a row, or exact integers
+                assert torch.equal(s, rs) and torch.equal(i, ri)
+            else:  # the plain path's GEMMs (or the v3 kernel against one) sum in another order
+                rs64 = rs.double()
+                gap = (rs64[:, 1:] - rs64[:, :-1]).abs() > 1e-5 * rs64[:, 1:].abs()
+                one_col = torch.ones_like(gap[:, :1])
+                sep = torch.cat([one_col, gap], 1) & torch.cat([gap, one_col], 1)
+                assert torch.equal(i[sep], ri[sep])
+                assert bool(((s.double() - rs64).abs() <= 1e-5 * rs64.abs()).all())
+        if kernel == "v4":
+            assert topk_v4.COUNTS["window"] - before["window"] >= 3
+            assert topk_v4.COUNTS["plain"] == before["plain"]
+
+
+def test_sharded_ivf_on_four_card_slots(dev, tmp_path):
+    """build_ivf_from_store on four slots of one card equals the same build
+    on four CPU slots (ids bit for bit, the same answers), and a 4-shard save
+    reloads onto one slot and onto four with the same answers."""
+    import numpy as np
+
+    from haconvdr_torch.index.store import EmbeddingBlockStore
+    from haconvdr_torch.parallel.mesh import make_mesh
+    from haconvdr_torch.parallel.sharded_ivf import (
+        build_ivf_from_store,
+        load_ivf_sharded,
+        save_ivf_sharded,
+        sharded_ivf_search,
+    )
+
+    x = _ivf_mixture(30_000, 64)
+    store = EmbeddingBlockStore(str(tmp_path / "emb"))
+    store.write_block(0, x, np.arange(30_000, dtype=np.int64))
+    kw = dict(nlist=128, nprobe=16, dtype="bfloat16", seed=3, chunk_rows=4096)
+    card = build_ivf_from_store(make_mesh(devices=[dev] * 4), store, **kw)
+    cpu = build_ivf_from_store(make_mesh(devices=["cpu"] * 4), store, **kw)
+    q = x[:32]
+    s, i = sharded_ivf_search(card.mesh, card, q, k=20)
+    rs, ri = sharded_ivf_search(cpu.mesh, cpu, q, k=20)
+    assert np.array_equal(i, ri) and np.all(np.abs(s - rs) <= 1e-4 * np.abs(rs))
+    save_ivf_sharded(card, str(tmp_path / "ivf"))
+    for n in (1, 4):
+        mesh = make_mesh(devices=[dev] * n)
+        back = load_ivf_sharded(str(tmp_path / "ivf"), mesh=mesh)
+        s2, i2 = sharded_ivf_search(mesh, back, q, k=20)
+        assert np.array_equal(s, s2) and np.array_equal(i, i2)
+
+
+def test_quantize_int8_torch_equals_numpy_on_the_card(dev, gen):
+    """quantize_int8_torch on the card gives quantize_int8's scales and codes
+    bit for bit: the scale divides by a tensor of 127s, since torch's CUDA
+    division by a Python scalar multiplies by its float32 reciprocal, an ulp
+    off numpy's division at some values."""
+    from haconvdr_torch.index.quantize import quantize_int8, quantize_int8_torch
+
+    x = torch.randn(300_000, 768, device=dev, generator=gen) * torch.rand(
+        768, device=dev, generator=gen)
+    codes, scale = quantize_int8_torch(x)
+    ref_codes, ref_scale = quantize_int8(x.cpu().numpy())
+    assert torch.equal(scale.cpu(), torch.from_numpy(ref_scale))
+    assert torch.equal(codes.cpu(), torch.from_numpy(ref_codes))

@@ -179,3 +179,32 @@ def test_3xtf32_products_keep_the_f32_route_within_1e4(spread):
         err1 = max(err1, float(np.abs(_attention_head(q, k, v, _mm_tf32) - ref).max()))
     assert err3 <= 1e-4, err3
     assert err1 > 1e-4, err1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["padded", "holes"])
+def test_head_split_wrapper_matches_jax(rng, dtype, case):
+    """fused_attention(q, k, v, mask) over [B, H, L, d] against the JAX
+    package's wrapper (fused_attention.py:81-99) in interpret mode, and
+    equal bit for bit to fused_attention_qkv of the merged projection."""
+    from haconvdr_tpu.ops.fused_attention import fused_attention as jax_fused
+    from haconvdr_torch.ops.fused_attention import fused_attention
+
+    lengths, L = CASES[case]
+    heads, d = 2, 64
+    qkv, mask = _inputs(rng, 2, L, heads, d, lengths)
+    q, k, v = (qkv[..., i * heads * d : (i + 1) * heads * d]
+               .reshape(2, L, heads, d).transpose(0, 2, 1, 3) for i in range(3))
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(t)).to(tdt) for t in (q, k, v))
+    got = fused_attention(tq, tk, tv, torch.from_numpy(mask))
+    assert got.shape == (2, heads, L, d) and got.dtype == tdt
+    merged = fused_attention_qkv(torch.from_numpy(qkv).to(tdt), torch.from_numpy(mask), heads)
+    assert torch.equal(got, merged.reshape(2, L, heads, d).transpose(1, 2))
+    ref = np.asarray(jax_fused(*(jnp.asarray(t, jnp.dtype(dtype)) for t in (q, k, v)),
+                               jnp.asarray(mask), interpret=True).astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        diff = np.abs(got.float().numpy() - ref)
+        assert (diff <= BF16_ATOL + BF16_RTOL * np.abs(ref)).all()

@@ -285,3 +285,59 @@ def test_split_geometry_seeded_grids_take_whole_waves(Q, qb, want, waves):
     blocks = -(-Q // qb) * splits
     assert (splits, -(-blocks // 132)) == (want, waves)
     assert splits * per >= 2_500_000 > (splits - 1) * per
+
+
+def _jax_presample(q, p, n_valid, k, presample, p_dtype=None):
+    pj = jnp.asarray(p, p_dtype) if p_dtype is not None else jnp.asarray(p)
+    s, i = pallas_topk_block(jnp.asarray(q), pj, jnp.int32(n_valid), k, q_tile=64,
+                             p_tile=1024, presample=presample, interpret=True)
+    return np.asarray(s), np.asarray(i)
+
+
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("presample", [16, 4])
+def test_presample_matches_jax_and_the_unseeded_answer(rng, presample, p_dtype):
+    """presample (pallas_topk.py:235-279): a per-tile-prefix sample scored
+    in one product seeds the kernel with a threshold only.  The answers
+    equal the unseeded ones bit for bit, never surface id -1, and agree
+    with JAX's presampled kernel in interpret mode (1,024-row tiles)."""
+    from haconvdr_torch.ops.fused_topk import presample_threshold
+
+    q, p = _data(rng, 40, 4096, 32)
+    n_valid, k = 4000, 12
+    tdt = getattr(torch, p_dtype)
+    pt, qt = torch.from_numpy(p).to(tdt), torch.from_numpy(q)
+    thr = presample_threshold(qt, pt, n_valid, k, presample)
+    assert thr is not None and torch.isfinite(thr).all()
+    s0, i0 = fused_topk_block(qt, pt, n_valid, k)
+    s, i = fused_topk_block(qt, pt, n_valid, k, presample=presample)
+    assert torch.equal(s, s0) and torch.equal(i, i0) and (i >= 0).all()
+    assert (s[:, -1] > thr).all()  # the threshold sits below every query's k-th score
+    js, ji = _jax_presample(q, p, n_valid, k, presample, jnp.dtype(p_dtype))
+    np.testing.assert_array_equal(i.numpy(), ji)
+    np.testing.assert_allclose(s.numpy(), js, rtol=1e-5)
+
+
+def test_presample_threshold_rule(rng):
+    """The threshold is each query's k-th sample score less
+    (|vk| + 1) * 1e-5 over rows t * 1024 + j, j < presample, below n_valid;
+    auto (presample < 0) takes 16 rows a tile and is off below 2**18 rows;
+    a sample smaller than k is off."""
+    from haconvdr_torch.ops.fused_topk import presample_threshold
+
+    q = torch.from_numpy(rng.randn(5, 4).astype(np.float32))
+    p = torch.from_numpy(rng.randn(5000, 4).astype(np.float32))
+    thr = presample_threshold(q, p, 4500, 3, 8)
+    rows = np.array([t * 1024 + j for t in range(5) for j in range(8) if t * 1024 + j < 4500])
+    s = q.numpy() @ p.numpy()[rows].T
+    vk = -np.sort(-s, axis=1)[:, 2]
+    np.testing.assert_allclose(thr.numpy(), vk - (np.abs(vk) + 1) * 1e-5, rtol=1e-6)
+    assert presample_threshold(q, p, 4500, 3, 0) is None
+    assert presample_threshold(q, p, 4500, 3, -1) is None  # auto: under 2**18 rows
+    assert presample_threshold(q, p, 4500, 41, 8) is None  # 5 tiles x 8 < k
+    big = torch.zeros((1 << 18, 4))
+    big[::7] = 1.0
+    assert presample_threshold(q, big, 1 << 18, 3, -1) is not None
+    s, i = fused_topk_block(q, big, 1 << 18, 3, presample=-1)
+    s0, i0 = fused_topk_block(q, big, 1 << 18, 3)
+    assert torch.equal(s, s0) and torch.equal(i, i0)

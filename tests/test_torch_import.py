@@ -56,7 +56,9 @@ def test_every_module_imports_with_jax_blocked():
         "haconvdr_torch.models.hf_import", "haconvdr_torch.mine.analysis", "haconvdr_torch.mine.bm25",
         "haconvdr_torch.preprocess.collections", "haconvdr_torch.preprocess.topiocqa",
         "haconvdr_torch.preprocess.qrecc", "haconvdr_torch.index.ivf",
-        "haconvdr_torch.parallel.sharded_ivf", *(f"haconvdr_torch.cli.{c}" for c in CLIS),
+        "haconvdr_torch.parallel.sharded_ivf", "haconvdr_torch.parallel.mesh",
+        "haconvdr_torch.parallel.sharded_search", "haconvdr_torch.parallel.sharded_encode",
+        "haconvdr_torch.cli._args", *(f"haconvdr_torch.cli.{c}" for c in CLIS),
     } <= set(mods)
     smoke = _smoke_imports()
     assert "haconvdr_torch.train.trainer" in smoke
@@ -217,3 +219,64 @@ def test_numpy_roundtrip_bfloat16():
     t = to_torch(a.astype(ml_dtypes.bfloat16), "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(to_numpy(t), to_numpy(torch.from_numpy(a).bfloat16()))
+
+
+def test_the_multi_device_layer_needs_the_card_unless_told_cpu(monkeypatch, tmp_path):
+    """parallel/mesh.py and the modules on it: the default mesh is every
+    card and refuses without one; the one-device forms resolve None to
+    CUDA and refuse before they read anything; a CPU mesh routes every
+    kernel of a search and an encode to its plain twin."""
+    from haconvdr_torch import parallel
+    from haconvdr_torch.config import ModelConfig
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.models.encoder import AnceEncoder
+    from haconvdr_torch.ops import topk_v4
+    from haconvdr_torch.parallel import sharded_ivf
+    from haconvdr_torch.parallel.sharded_search import ShardedIndex
+
+    assert {"Mesh", "make_mesh", "replicate", "shard_batch", "ShardedIndex", "sharded_topk",
+            "encode_batches", "pad_to_multiple"} <= set(dir(parallel))
+    missing = str(tmp_path / "missing")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        for refuse in (
+            lambda: parallel.make_mesh(),
+            lambda: parallel.make_mesh(devices=["cuda"] * 2),
+            lambda: sharded_ivf.load_ivf_sharded(missing),
+            lambda: sharded_ivf.build_ivf_from_store(parallel.make_mesh(), None),
+            lambda: ShardedIndex.from_store(parallel.make_mesh(), None),
+        ):
+            with pytest.raises(RuntimeError, match="is_available"):
+                refuse()
+    mesh = parallel.make_mesh(devices=["cpu"] * 4)
+    for mod in (fused_attention, fused_topk, topk_v4):
+        for key in mod.COUNTS:
+            mod.COUNTS[key] = 0
+    rng = np.random.RandomState(0)
+    idx = ShardedIndex(mesh, rng.randn(500, 8).astype(np.float32), chunk=64)
+    idx.search(rng.randn(3, 8).astype(np.float32), 5)
+    cfg = ModelConfig.tiny()
+    enc = AnceEncoder.from_jax_params(init_params_numpy(cfg, seed=0), cfg, "cpu")
+    with torch.inference_mode():
+        parallel.sharded_encode.dp_encode_fn(mesh, enc)(
+            torch.full((4, 6), 5, dtype=torch.int32), torch.ones(4, 6, dtype=torch.int32))
+    assert topk_v4.COUNTS["plain"] > 0 and fused_attention.COUNTS["plain"] > 0
+    assert all(v == 0 for k, v in topk_v4.COUNTS.items() if k != "plain")
+    assert fused_attention.COUNTS["kernel"] == 0 and fused_topk.COUNTS["kernel"] == 0
+
+
+def test_wrapper_pieces_take_the_plain_twins_on_cpu():
+    """The head-split attention wrapper and the presample on CPU tensors:
+    one plain-twin call each, no kernel."""
+    rng = np.random.RandomState(1)
+    for mod in (fused_attention, fused_topk):
+        for key in mod.COUNTS:
+            mod.COUNTS[key] = 0
+    q, k, v = (torch.from_numpy(rng.randn(2, 2, 8, 8).astype(np.float32)) for _ in range(3))
+    out = fused_attention.fused_attention(q, k, v, torch.ones(2, 8, dtype=torch.int32))
+    assert out.shape == (2, 2, 8, 8)
+    p = torch.from_numpy(rng.randn(2048, 8).astype(np.float32))
+    fused_topk.fused_topk_block(torch.from_numpy(rng.randn(3, 8).astype(np.float32)), p, 2000,
+                                5, presample=16)
+    assert fused_attention.COUNTS == {"kernel": 0, "plain": 1}
+    assert fused_topk.COUNTS == {"kernel": 0, "plain": 1}

@@ -33,8 +33,10 @@ from haconvdr_tpu.parallel import sharded_ivf as jsharded
 from haconvdr_tpu.parallel.mesh import make_mesh
 from haconvdr_torch.index import ivf as tivf
 from haconvdr_torch.parallel import sharded_ivf as tsharded
+from haconvdr_torch.parallel.mesh import make_mesh as torch_make_mesh
 
 K = 10
+CPU1 = torch_make_mesh(devices=["cpu"])  # the one-slot mesh of the CPU
 
 
 def _mixture(rng, n, d, n_modes=16, spread=0.15):
@@ -125,7 +127,7 @@ def test_search_on_one_index_matches_jax(jax_indexes, dtype, nprobe):
     s, i = tivf.ivf_search(tidx, q, k=K, nprobe=nprobe)
     assert s.dtype == np.float32 and i.dtype == np.int32
     assert_search_equal(s, i, rs, ri, dtype)
-    s2, i2 = tsharded.sharded_ivf_search(tidx, q, k=K, nprobe=nprobe)
+    s2, i2 = tsharded.sharded_ivf_search(CPU1, tidx, q, k=K, nprobe=nprobe)
     np.testing.assert_array_equal(s2, s)
     np.testing.assert_array_equal(i2, i)
     if nprobe == 32 and dtype in ("float32", "bfloat16"):
@@ -246,13 +248,13 @@ def test_builds_match_jax_with_shared_init(rng, tmp_path, shared_init, build):
         store = _write_store(tmp_path / "store", x)
         ref = jsharded.build_ivf_from_store(make_mesh(), store, nlist=32, nprobe=6, slack=1.3,
                                             seed=5, dtype=dtype, chunk_rows=512)
-        ours = tsharded.build_ivf_from_store(store, nlist=32, nprobe=6, slack=1.3, seed=5,
-                                             dtype=dtype, chunk_rows=512, device="cpu")
+        ours = tsharded.build_ivf_from_store(CPU1, store, nlist=32, nprobe=6, slack=1.3, seed=5,
+                                             dtype=dtype, chunk_rows=512)
         assert ours.buckets.dtype == getattr(torch, dtype)
     _same_layout(ours, ref, build)
     rs, ri = jivf.ivf_search(ref, q, k=K) if build in ("host", "device") else \
         jsharded.sharded_ivf_search(make_mesh(), ref, q, k=K)
-    s, i = tsharded.sharded_ivf_search(ours, q, k=K)
+    s, i = tsharded.sharded_ivf_search(CPU1, ours, q, k=K)
     assert_search_equal(s, i, rs, ri, build)
 
 
@@ -303,7 +305,7 @@ def test_store_build_int8_matches_jax(rng, tmp_path, shared_init):
     for by_residual in (True, False):
         kw = dict(nlist=16, nprobe=16, dtype="int8", chunk_rows=512, by_residual=by_residual)
         ref = jsharded.build_ivf_from_store(make_mesh(), store, **kw)
-        ours = tsharded.build_ivf_from_store(store, device="cpu", **kw)
+        ours = tsharded.build_ivf_from_store(CPU1, store, **kw)
         what = f"residual={by_residual}"
         np.testing.assert_array_equal(ours.bucket_ids.numpy(), np.asarray(ref.bucket_ids), what)
         # JAX deals the spill round-robin to its 8 shards' tails: match by id
@@ -323,7 +325,7 @@ def test_store_build_int8_matches_jax(rng, tmp_path, shared_init):
             np.testing.assert_array_equal(_by_id(ours.tail.numpy(), ot),
                                           _by_id(np.asarray(ref.tail), rt))
         rs, ri = jsharded.sharded_ivf_search(make_mesh(), ref, q, k=K)
-        s, i = tsharded.sharded_ivf_search(ours, q, k=K)
+        s, i = tsharded.sharded_ivf_search(CPU1, ours, q, k=K)
         assert_search_equal(s, i, rs, ri, what)
 
 
@@ -389,7 +391,7 @@ def test_jax_sharded_dir_loads_in_the_port(persist_store, tmp_path, dtype):
     assert meta["n_shards"] == 8 and meta["bucket_dtype"] == dtype
     assert tivf.DTYPE_NAMES[ours.buckets.dtype] == dtype and ours.nprobe == 6
     assert ours.tail.shape[0] == np.asarray(built.tail).shape[0]
-    s, i = tsharded.sharded_ivf_search(ours, q, k=K)
+    s, i = tsharded.sharded_ivf_search(CPU1, ours, q, k=K)
     assert_search_equal(s, i, rs, ri, dtype)
 
 
@@ -399,8 +401,8 @@ def test_port_sharded_dir_loads_in_jax(persist_store, tmp_path, dtype, n_dev):
     """The port's save_ivf_sharded -> JAX's load_ivf_sharded on a 1-, 2- and
     8-device mesh: JAX answers as the port does."""
     store, _, q = persist_store
-    ours = tsharded.build_ivf_from_store(store, nlist=32, nprobe=6, slack=1.3, seed=5,
-                                         dtype=dtype, chunk_rows=512, device="cpu")
+    ours = tsharded.build_ivf_from_store(CPU1, store, nlist=32, nprobe=6, slack=1.3, seed=5,
+                                         dtype=dtype, chunk_rows=512)
     out = str(tmp_path / "ivf")
     tsharded.save_ivf_sharded(ours, out)
     with open(f"{out}/ivf_sharded_meta.json") as f:
@@ -410,7 +412,7 @@ def test_port_sharded_dir_loads_in_jax(persist_store, tmp_path, dtype, n_dev):
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:n_dev]), ("dp",))
     back = jsharded.load_ivf_sharded(mesh, out)
     rs, ri = jsharded.sharded_ivf_search(mesh, back, q, k=K)
-    s, i = tsharded.sharded_ivf_search(ours, q, k=K)
+    s, i = tsharded.sharded_ivf_search(CPU1, ours, q, k=K)
     assert_search_equal(s, i, rs, ri, f"{dtype} on {n_dev}")
     again = tsharded.load_ivf_sharded(out, device="cpu")
     for name in tivf.ARRAYS + tivf.SIDECARS:
@@ -650,7 +652,7 @@ def test_build_ivf_cli_matches_jax(rng, tmp_path, capsys):
         assert got[key] == ref[key], key
     assert got["dtype"] == "bfloat16" and got["n_shards"] == 1
     idx = tsharded.load_ivf_sharded(str(tmp_path / "port"), device="cpu")
-    s, i = tsharded.sharded_ivf_search(idx, q, k=5)
+    s, i = tsharded.sharded_ivf_search(CPU1, idx, q, k=5)
     xr = torch.from_numpy(x).bfloat16().float().numpy()
     qr = torch.from_numpy(q).bfloat16().float().numpy()
     assert_search_equal(s, i, *_exact(qr, xr, 5), "full probe")

@@ -243,7 +243,7 @@ def test_sharded_index_kernels_agree(rng):
     np.testing.assert_array_equal(i4, i3)
     np.testing.assert_allclose(s4, s3, rtol=1e-6)
     with pytest.raises(ValueError, match="kernel"):
-        ShardedIndex(emb, kernel="v2")
+        ShardedIndex.from_tensor(emb, kernel="v2")
 
 
 def test_sharded_index_int8_matches_jax_above_128(rng):
