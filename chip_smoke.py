@@ -206,12 +206,43 @@ order; any failure raises and the script exits non-zero:
    and the stride encode of phase 8's corpus through the int8 bf16 tower
    into float32 blocks, which rank 0 stitches and holds to a single-pass
    encode bit for bit.  It prints the IVF build seconds on four slots
-   against one and the two processes' seconds.
-Each of phases 4-14 zeroes every launch count just before it (phase 10:
+   against one and the two processes' seconds;
+15. training on a mesh and the tensor-parallel encode, on MESH_SLOTS
+   slots of the one card (every visible card when there are several):
+   (a) phase 9's geometry (B 64 as dp slots of 16, query 512, passages
+   384, bf16, remat "mlp", dropout 0.1, four int8 frozen towers,
+   accumulation 2) through make_train_step on the mesh and on one slot,
+   from one state, two batches and one dropout generator: each micro
+   step's loss, the first micro step's gradients and the update itself
+   (params after less params before) against the one slot's, the
+   replicas bit-equal (one replica a distinct card: on one card there
+   is a single replica and the check holds trivially); then, on
+   each in turn, TRAIN_MICRO timed micro steps (examples/s, one slot
+   beside the mesh in one call, and phase 9's) and one profiled
+   accumulation window (the device idle share); each micro step
+   launches rows 11-12 once a layer a slot and the frozen towers' rows
+   1, 9 and 10 a slot, no plain twin; (b) rows
+   11-12 on rows OFFSET_ROWS of phase 9's B 64 (bf16) and phase 11's
+   (f32) shapes with row_offset = the first row: output, row stats and
+   dqkv bit for bit against those rows of the whole-batch launch, the
+   plain twins with the same offset at rows 11-12's tolerances, device
+   ms beside offset 0's; (c) phase 8's int8 bf16 tower (and the f32
+   tower) split by shard_params(tp=True) over dp 1 x tp 4 and dp 2 x tp
+   2 through dp_encode_fn at ENC_BATCH x ENC_LEN: the int8 rows equal
+   the un-split tower's on the same dp slices bit for bit, the f32 rows
+   within TP_F32_REL; exact launch counts (row 1 a layer a rank, row 9
+   once a layer and once more a dp row, row 10's split mode: up and down
+   a layer a rank, finish a layer a dp row, no un-split block); then row
+   10's split mode at 98,304 rows, tp 2 and 4: bit for bit the un-split
+   kernel's, within row 10's bounds of its plain twin, device ms beside
+   the un-split block's, plain ms and the bound.  It prints its seconds.
+Each of phases 4-15 zeroes every launch count just before it (phase 10:
 before the encode, the search and the labeling; phase 14: before each
-search, serving run and encode of its path, in the children too) and
-reads them just after: each kernel of that path must have launched, and
-no plain twin may have run.
+search, serving run and encode of its path, in the children too; phase
+15: before each training run and each split encode) and reads them just
+after: each kernel of that path must have launched, and no plain twin
+may have run.  The kernel line counts row 10's split mode (one launch a
+split block, at its finish) with row 10.
 
 Tolerances (kernel vs plain twin on the same inputs):
   attention float32  max |diff| <= 1e-4 (3xTF32 products, ~2^-21 relative
@@ -301,6 +332,28 @@ Tolerances (kernel vs plain twin on the same inputs):
                      attention output or dqkv differs, which the bf16
                      GEMMs of 12 layers spread; a step with other dropout
                      draws must sit beyond TRAIN_GRAD_REL
+  mesh micro step    the mesh step against the one-slot step (phase
+                     15a): each loss within TRAIN_LOSS_RTOL, the first
+                     micro step's gradients and the update (params
+                     after less params before: against the whole
+                     params one step moves too little to show a fault)
+                     within TRAIN_GRAD_REL of the one slot's norm (the
+                     same masks: each slot draws its rows' of the whole
+                     batch; bf16 GEMMs of other heights round
+                     otherwise); the replicas bit-equal, which holds
+                     trivially on one card (one replica a distinct
+                     device: a single replica there)
+  row offset         rows 11-12 on a slice with row_offset = its first
+                     row: bit for bit the whole-batch launch's rows (each
+                     (b, h) tile is computed alone); against the twins
+                     as flash attention above
+  tp encode          int8 bf16 tower split over tp: bit for bit the
+                     un-split tower's on the same dp slices (every code
+                     and int32 sum is the un-split tower's); f32 tower:
+                     max |diff| <= TP_F32_REL = 1e-4 of max |ref| (JAX's
+                     tests/test_parallel.py bound); row 10's split mode
+                     bit for bit the un-split kernel's, against its twin
+                     as the int8 MLP block above
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last line is {"ok": true, "device": {...}}.
@@ -1891,13 +1944,15 @@ def train_batch(seed: int, B: int, vocab: int):
     return b
 
 
-def train_setup(seed: int, dev, cfg, tcfg, plain: bool = False, rng_seed=None):
-    """The train step, a fresh train state (dropout generator from
-    ``rng_seed``, default ``seed``) and the frozen tower (``tcfg``'s
-    frozen dtype); ``plain`` runs the trained tower's plain twins (the
-    frozen tower always runs the kernels)."""
+def train_setup(seed: int, dev, cfg, tcfg, plain: bool = False, rng_seed=None, devices=None):
+    """The train step on a mesh of ``devices`` (default one slot of
+    ``dev``; ``dev`` must be the first), a fresh train state (dropout
+    generator from ``rng_seed``, default ``seed``) and the frozen tower
+    (``tcfg``'s frozen dtype); ``plain`` runs the trained tower's plain
+    twins (the frozen tower always runs the kernels)."""
     from haconvdr_torch.models.convert import init_params_numpy
     from haconvdr_torch.models.encoder import AnceEncoder
+    from haconvdr_torch.parallel.mesh import make_mesh
     from haconvdr_torch.train.trainer import (
         build_frozen_encoder,
         init_train_state,
@@ -1906,7 +1961,7 @@ def train_setup(seed: int, dev, cfg, tcfg, plain: bool = False, rng_seed=None):
     )
 
     opt = make_optimizer(tcfg, total_steps=100)
-    step = make_train_step(dev, cfg, tcfg, opt)
+    step = make_train_step(make_mesh(devices=devices or [dev]), cfg, tcfg, opt)
     model = AnceEncoder.from_jax_params(init_params_numpy(cfg, seed), cfg, dev, plain=plain)
     frozen = build_frozen_encoder(init_params_numpy(cfg, seed + 1), cfg, tcfg, dev)
     return step, init_train_state(model, opt, seed=seed if rng_seed is None else rng_seed), frozen
@@ -1914,11 +1969,12 @@ def train_setup(seed: int, dev, cfg, tcfg, plain: bool = False, rng_seed=None):
 
 def eval_loss(state, frozen, batch, tcfg, dev) -> float:
     """The batch's loss with dropout off, the query tower in eval mode."""
-    from haconvdr_torch.train.trainer import batch_loss, batch_to_device
+    from haconvdr_torch.train.trainer import batch_to_device, embed_batch, embeddings_loss
 
+    b = batch_to_device(batch, dev)
     with torch.no_grad():
-        return float(batch_loss(state.model, frozen, batch_to_device(batch, dev), tcfg,
-                                trainable=False))
+        return float(embeddings_loss(embed_batch(state.model, frozen, b, tcfg, trainable=False),
+                                     b, tcfg))
 
 
 def check_train_counts(counts, layers: int, n_frozen: int, n_micro: int, int8: bool = True,
@@ -3553,6 +3609,328 @@ def phase_mesh(seed: int, dev, params, cfg, p_sum: float, tmp: str, s13: dict, c
     return total, stages
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training on a mesh and the tensor-parallel encode
+# ---------------------------------------------------------------------------
+
+OFFSET_ROWS = (16, 32)  # phase 15b: the second of four B 16 slots of phase 9's B 64
+TP_F32_REL = 1e-4  # the f32 tp encode against the un-split tower (JAX's tests/test_parallel.py)
+
+
+def mesh_devices(dev):
+    """MESH_SLOTS slots of the one card, or every visible card."""
+    n = torch.cuda.device_count()
+    return [dev] * MESH_SLOTS if n == 1 else [torch.device("cuda", i) for i in range(n)]
+
+
+def flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1).double() for t in tensors])
+
+
+def mesh_train(seed: int, dev, devices, phase9: dict, card: str):
+    """(a) phase 9's geometry on the mesh against one slot: the same state,
+    batches and dropout generator; two micro steps (accumulation 2: one
+    update); then, on each in turn, TRAIN_MICRO timed micro steps and one
+    profiled accumulation window (its idle share)."""
+    from haconvdr_torch.config import TrainConfig
+
+    # phase 9's tower: dropout 0.1 (the defaults)
+    cfg = dataclasses.replace(model_config(), dtype="bfloat16", remat="mlp")
+    n = len(devices)
+    tcfg = TrainConfig(per_device_train_batch_size=TRAIN_B // n, accumulation_steps=TRAIN_ACC,
+                       learning_rate=TRAIN_LR, num_warmup_portion=0.0, weight_decay=0.01,
+                       max_grad_norm=1.0, is_pseudo_prepos=True, is_prepos_neg=True,
+                       frozen_dtype="int8")
+    L, n_frozen = cfg.num_hidden_layers, 4
+    batches = [train_batch(seed + 150 + i, TRAIN_B, cfg.vocab_size) for i in range(2)]
+    got, counts = {}, {}
+    for run, devs in (("one slot", [dev]), ("mesh", devices)):
+        step, state, frozen = train_setup(seed + 150, dev, cfg, tcfg, rng_seed=seed + 152,
+                                          devices=devs)
+        init = flat(state.model.parameters())
+        zero_counts()
+        _, l1 = step(state, frozen, batches[0])
+        g1 = flat(state.accum_grads.values())
+        _, l2 = step(state, frozen, batches[1])
+        c = read_counts()
+        check(state.global_step == 1, f"mesh training ({run}): no update after two micro steps")
+        check_train_counts(c, L, n_frozen, 2 * len(devs), what=f"mesh training ({run})")
+        params = flat(state.model.parameters())
+        same = all(torch.equal(p, q.to(p.device)) for r in state.replicas[1:]
+                   for p, q in zip(state.model.parameters(), r.parameters()))
+        check(same, f"mesh training ({run}): the replicas differ after the update")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        zero_counts()
+        for _ in range(TRAIN_MICRO):
+            t = time.perf_counter()
+            _, loss = step(state, frozen, batches[0])
+            float(loss)  # a host sync: the step has finished
+            secs.append(time.perf_counter() - t)
+        timed_counts = read_counts()
+        check_train_counts(timed_counts, L, n_frozen, TRAIN_MICRO * len(devs),
+                           what=f"mesh training ({run})")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        wall_ms, dev_ms, _ = profile_window(lambda: step(state, frozen, batches[0]), TRAIN_ACC)
+        add_counts(counts, c)
+        add_counts(counts, timed_counts)
+        timed = secs[TRAIN_WARM:]
+        got[run] = dict(loss=[float(l1), float(l2)], grads=g1, update=params - init,
+                        params=params, replicas=len(state.replicas), replicas_equal=same,
+                        examples_per_s=TRAIN_B * len(timed) / sum(timed),
+                        examples_per_s_median_step=TRAIN_B / float(np.median(timed)),
+                        micro_step_ms=[x * 1e3 for x in secs], peak_memory_gib=peak_gib,
+                        profiled_wall_ms=wall_ms, device_ms=dev_ms,
+                        idle_share=1.0 - dev_ms / wall_ms)
+        del step, state, frozen
+        torch.cuda.empty_cache()
+    one, mesh = got["one slot"], got["mesh"]
+    loss_ok = all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b) for a, b in zip(mesh["loss"], one["loss"]))
+    grad_rel = float((mesh["grads"] - one["grads"]).norm() / one["grads"].norm())
+    param_rel = float((mesh["params"] - one["params"]).norm() / one["params"].norm())
+    update_rel = float((mesh["update"] - one["update"]).norm() / one["update"].norm())
+    check(loss_ok and grad_rel <= TRAIN_GRAD_REL and update_rel <= TRAIN_GRAD_REL,
+          f"mesh training: mesh vs one slot: losses {mesh['loss']} vs {one['loss']}, "
+          f"gradients {grad_rel} apart, the update {update_rel} apart")
+    keys = ("examples_per_s", "examples_per_s_median_step", "micro_step_ms", "peak_memory_gib",
+            "profiled_wall_ms", "device_ms", "idle_share")
+    metrics = dict(slots=n, cards=len({str(d) for d in devices}), losses_mesh=mesh["loss"],
+                   losses_one_slot=one["loss"], grad_rel=grad_rel, param_rel=param_rel,
+                   update_rel=update_rel, replicas=mesh["replicas"],
+                   replicas_equal=mesh["replicas_equal"],
+                   mesh={k: mesh[k] for k in keys}, one_slot={k: one[k] for k in keys},
+                   phase9_examples_per_s=phase9.get("examples_per_s"))
+    print(f"mesh training (a): B {TRAIN_B} on {n} dp slots of {TRAIN_B // n} against one slot "
+          f"(phase 9's geometry, dropout 0.1, the same generator): losses "
+          f"{', '.join(f'{x:.6f}' for x in mesh['loss'])} vs "
+          f"{', '.join(f'{x:.6f}' for x in one['loss'])}; gradients {grad_rel:.3e} apart, "
+          f"the update {update_rel:.3e} apart (params after it {param_rel:.3e}); "
+          f"{mesh['replicas']} replica(s), bit-equal: {mesh['replicas_equal']}; examples/s "
+          f"mesh {mesh['examples_per_s']:.2f} (median step {mesh['examples_per_s_median_step']:.2f}, "
+          f"idle {mesh['idle_share']:.1%}) against one slot {one['examples_per_s']:.2f} (median "
+          f"step {one['examples_per_s_median_step']:.2f}, idle {one['idle_share']:.1%}) in this "
+          f"phase, phase 9's {phase9.get('examples_per_s', float('nan')):.2f} [{card}]")
+    return counts, metrics
+
+
+def mesh_row_offset(seed: int, dev, card: str):
+    """(b) rows 11-12 on rows OFFSET_ROWS of phase 9's B 64 batch (bf16) and
+    phase 11's (f32), row_offset = the slice's first row: bit for bit
+    against those rows of the whole-batch launch (output, row stats,
+    dqkv), and against the plain twins with the same offset at rows
+    11-12's tolerances."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(seed + 160)
+    rng = np.random.default_rng(seed + 160)
+    lengths = rng.integers(TRAIN_QLEN // 8, TRAIN_QLEN + 1, TRAIN_B)
+    mask = torch.from_numpy(
+        (np.arange(TRAIN_QLEN)[None, :] < lengths[:, None]).astype(np.int32)).to(dev)
+    seed_words = fa.draw_seed(torch.Generator().manual_seed(seed + 161))
+    a, b = OFFSET_ROWS
+    out = {}
+    for dt, config in ((torch.bfloat16, FLASH_MAIN), (torch.float32, FLASH_F32)):
+        qkv = (torch.randn(TRAIN_B, TRAIN_QLEN, 3 * DIM, device=dev, generator=g) * 0.5).to(dt)
+        go = torch.randn(TRAIN_B, TRAIN_QLEN, DIM, device=dev, generator=g).to(dt)
+        with torch.no_grad():
+            whole, stats = fa._fwd_kernel(qkv, mask, 12, seed_words, 0.1)
+            dq = fa._bwd_kernel(qkv, mask, stats, go, 12, seed_words, 0.1)
+            sq, sm, sg = qkv[a:b].contiguous(), mask[a:b].contiguous(), go[a:b].contiguous()
+            o, st = fa._fwd_kernel(sq, sm, 12, seed_words, 0.1, a)
+            d = fa._bwd_kernel(sq, sm, st, sg, 12, seed_words, 0.1, a)
+            torch.cuda.synchronize()
+            check(torch.equal(o, whole[a:b]) and torch.equal(st, stats[a:b])
+                  and torch.equal(d, dq[a:b]),
+                  f"flash row offset {config}: rows {a}:{b} differ from the whole batch's")
+            o0, _ = fa._fwd_kernel(sq, sm, 12, seed_words, 0.1)
+            check(not torch.equal(o0, whole[a:b]),
+                  f"flash row offset {config}: offset 0 drew the same masks")
+            ref = fa.flash_attention_fwd_plain(sq, sm, 12, seed_words, 0.1, a)
+            rdq = fa.flash_attention_bwd_plain(sq, sm, sg, 12, seed_words, 0.1, a)
+            errs = []
+            for got_, want, what in ((o, ref, "forward"), (d, rdq, "dqkv")):
+                err = float((got_.float() - want.float()).abs().max())
+                tol = 1e-5 if dt == torch.float32 else bf16_ulp_of_max(want)
+                check(err <= tol, f"flash row offset {what} {config}: {err} > {tol}")
+                errs.append(err)
+            if dt == torch.bfloat16:
+                check_dqkv_parts(d, rdq, f"flash row offset dqkv {config}")
+            fwd_ms = cuda_ms(lambda: fa._fwd_kernel(sq, sm, 12, seed_words, 0.1, a), ATTN_REPS)
+            bwd_ms = cuda_ms(lambda: fa._bwd_kernel(sq, sm, st, sg, 12, seed_words, 0.1, a), 10)
+            fwd0 = cuda_ms(lambda: fa._fwd_kernel(sq, sm, 12, seed_words, 0.1), ATTN_REPS)
+            bwd0 = cuda_ms(lambda: fa._bwd_kernel(sq, sm, st, sg, 12, seed_words, 0.1), 10)
+            pf = cuda_ms(lambda: fa.flash_attention_fwd_plain(sq, sm, 12, seed_words, 0.1, a), 3)
+            pb = cuda_ms(
+                lambda: fa.flash_attention_bwd_plain(sq, sm, sg, 12, seed_words, 0.1, a), 3)
+        name = "float32" if dt == torch.float32 else "bfloat16"
+        isz, peak = qkv.element_size(), PEAK_OF[name]
+        ops = 3 if peak == "f32" else 1
+        peak = "tf32" if peak == "f32" else peak
+        sl = lengths[a:b]
+        fb = bound(ops * attention_flops(sl, TRAIN_QLEN, DIM, 2),
+                   (b - a) * TRAIN_QLEN * (4 * DIM * isz + 4), peak)
+        bb = bound(ops * attention_flops(sl, TRAIN_QLEN, DIM, 5),
+                   (b - a) * TRAIN_QLEN * (7 * DIM * isz + 4), peak)
+        out[name] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_ms_offset0=fwd0, bwd_ms_offset0=bwd0,
+                         plain_fwd_ms=pf, plain_bwd_ms=pb, fwd_bound_ms=fb[0],
+                         bwd_bound_ms=bb[0], max_abs_err=errs)
+        print(f"mesh row offset (b) [{config}, rows {a}:{b}, row_offset {a}]: bit for bit "
+              f"against the whole batch's rows; forward {fwd_ms:.4f} ms (offset 0 "
+              f"{fwd0:.4f}), plain {pf:.4f} ms, bound {fb[0]:.5f} ms ({fb[1]}); backward "
+              f"{bwd_ms:.4f} ms (offset 0 {bwd0:.4f}), plain {pb:.4f} ms, bound {bb[0]:.5f} ms "
+              f"({bb[1]}); max |err| vs the twins {errs[0]:.3g}, {errs[1]:.3g} [{card}]")
+        del qkv, go, whole, stats, dq, sq, sm, sg, o, st, d, o0, ref, rdq
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_split_mlp(dev, card: str):
+    """Row 10's split mode at the corpus-encode rows (98,304), tp 2 and 4:
+    bit for bit against the un-split kernel, against its plain twin at
+    row 10's bounds; device ms beside the un-split kernel's, plain ms,
+    bound (the block's: the split moves no other input or output)."""
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.ops import fused_ln as fl
+    from haconvdr_torch.models.encoder import mlp_block_split
+    from haconvdr_torch.ops import fused_mlp as fm
+
+    g = torch.Generator(device=dev).manual_seed(170)
+    R = ENC_BATCH * ENC_LEN
+    xb = (torch.randn(R, DIM, device=dev, generator=g) * 3.0).to(torch.bfloat16)
+    lns = torch.randn(DIM, device=dev, generator=g) * 0.5 + 1.0
+    lnb = torch.randn(DIM, device=dev, generator=g) * 0.1
+    x = fl.fused_residual_ln_plain(xb, None, lns, lnb, 1e-5)
+    xq, xs = quantize_rows(x)
+    w1, s1 = int8_weight(g, dev, INTER, DIM)
+    w2, s2 = int8_weight(g, dev, DIM, INTER)
+    b1 = torch.randn(INTER, device=dev, generator=g) * 0.02
+    b2 = torch.randn(DIM, device=dev, generator=g) * 0.02
+    whole_args = (x, xq, xs, w1, s1, b1, w2, s2, b2, lns, lnb)
+    whole = fm.fused_mlp_block(*whole_args, eps=1e-5)
+    whole_ms = device_ms(lambda: fm.fused_mlp_block(*whole_args, eps=1e-5), 5)
+    fb = bound(4.0 * R * DIM * INTER, R * DIM * 6 + R * 8 + 2 * DIM * INTER, "int8")
+    out = {}
+    for tp in (2, MESH_SLOTS):
+        n = INTER // tp
+        sp = (x, xq, xs, [w1[r * n:(r + 1) * n] for r in range(tp)],
+              [s1[r * n:(r + 1) * n] for r in range(tp)],
+              [b1[r * n:(r + 1) * n] for r in range(tp)],
+              [w2[:, r * n:(r + 1) * n].contiguous() for r in range(tp)], s2, b2, lns, lnb)
+        run = lambda: mlp_block_split(*sp, eps=1e-5)  # noqa: E731
+        plain = lambda: mlp_block_split(*sp, eps=1e-5, plain=True)  # noqa: E731
+        zero_counts()  # a check of the kernel, apart from the path's counts
+        got = run()
+        torch.cuda.synchronize()
+        c = read_counts()
+        check(c["fused_mlp"]["split_finish"] == 1 and c["fused_mlp"]["split_up"] == tp
+              and c["fused_mlp"]["split_down"] == tp,
+              f"fused_mlp split tp {tp}: launch counts {c['fused_mlp']}")
+        check_counts(c, [], f"fused_mlp split tp {tp}")
+        check(all(torch.equal(a, b) for a, b in zip(got, whole)),
+              f"fused_mlp split tp {tp}: differs from the un-split kernel")
+        ry, rq, _ = plain()
+        d = (got[0].float() - ry.float()).abs()
+        flips = float((d > 2.0**-6 * (1 + ry.float().abs())).float().mean())
+        check(bool((d <= 2.0**-6 * ry.float().abs() + 0.07).all()) and flips < 2e-3,
+              f"fused_mlp split tp {tp}: beyond the JAX test's bounds against its twin")
+        ms = device_ms(run, 5)
+        pms = cuda_ms(plain, 2)
+        out[tp] = dict(ms=ms, plain_ms=pms, bound_ms=fb[0], bound_by=fb[1], unsplit_ms=whole_ms,
+                       max_abs_err=float(d.max()), flip_share=flips)
+        print(f"tp split fused_mlp [bf16, {R} rows, tp {tp} on one card]: {ms:.4f} ms device "
+              f"(the un-split block {whole_ms:.4f} ms), plain {pms:.4f} ms, bound {fb[0]:.5f} "
+              f"ms ({fb[1]}), ms / bound {ms / fb[0]:.2f}; bit for bit the un-split kernel's "
+              f"[{card}]")
+        del got, ry, rq, d
+    del x, xq, xs, xb, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_encode(seed: int, dev, devices, params, card: str):
+    """(c) phase 8's int8 bf16 tower (and the f32 float tower) split over
+    the mesh's tp axis, dp 1 x tp n and dp n/2 x tp 2 (shard_params(tp=True)
+    through dp_encode_fn), at ENC_BATCH x ENC_LEN: int8 bit for bit the
+    un-split tower's on the same dp slices, f32 within TP_F32_REL; launch
+    counts of the split path."""
+    from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+    from haconvdr_torch.parallel import dp_encode_fn, make_mesh, shard_params
+
+    n = len(devices)
+    cfg = dataclasses.replace(model_config(), dtype="bfloat16")
+    f32 = model_config()
+    qparams = quantize_encoder_params(params)
+    ids, _ = corpus_tokens(seed, cfg.vocab_size)
+    ids = torch.from_numpy(ids[:ENC_BATCH]).to(dev)
+    mask = (ids != 0).to(torch.int32)
+    mask[:, 0] = 1
+    L = cfg.num_hidden_layers
+    counts, out = {}, {}
+    one = AnceEncoder.from_jax_params(qparams, cfg, dev)
+    one32 = AnceEncoder.from_jax_params(params, f32, dev)
+    for dp, tp in ((1, n), (n // 2, 2)):
+        mesh = make_mesh(dp=dp, tp=tp, devices=devices)
+        with torch.inference_mode():
+            ref = dp_encode_fn(make_mesh(devices=devices[:dp]), one)(ids, mask)
+            ref32 = dp_encode_fn(make_mesh(devices=devices[:dp]), one32)(ids, mask)
+            fn = dp_encode_fn(mesh, shard_params(mesh, qparams, tp=True, cfg=cfg))
+            fn(ids, mask)  # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            t = time.perf_counter()
+            got = fn(ids, mask)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            c = read_counts()
+            fn32 = dp_encode_fn(mesh, shard_params(mesh, params, tp=True, cfg=f32))
+            got32 = fn32(ids, mask)
+            one_ms = cuda_ms(lambda: one(ids, mask), 2)
+            whole = torch.equal(got, one(ids, mask))
+        check(torch.equal(got, ref), f"tp encode dp {dp} x tp {tp}: int8 rows differ from the "
+              "un-split tower's")
+        rel32 = float((got32 - ref32).abs().max() / ref32.abs().max())
+        check(rel32 <= TP_F32_REL, f"tp encode dp {dp} x tp {tp}: f32 {rel32} > {TP_F32_REL}")
+        want = {("fused_attention", "kernel"): L * tp * dp, ("fused_ln", "ln_quant"): (1 + L) * dp,
+                ("fused_mlp", "split_up"): L * tp * dp, ("fused_mlp", "split_down"): L * tp * dp,
+                ("fused_mlp", "split_finish"): L * dp, ("fused_mlp", "kernel"): 0}
+        for (mod, key), k in want.items():
+            check(c[mod][key] == k, f"tp encode dp {dp} x tp {tp}: {mod} {key} launched "
+                  f"{c[mod][key]} times, not {k}")
+        check_counts(c, [k for k, v in want.items() if v], f"tp encode dp {dp} x tp {tp}")
+        add_counts(counts, c)
+        out[f"dp{dp}_tp{tp}"] = dict(seconds=secs, one_slot_ms=one_ms, f32_rel=rel32,
+                                     equal_to_whole_batch=whole)
+        print(f"tp encode (c) dp {dp} x tp {tp} on {len({str(d) for d in devices})} card(s): "
+              f"{ENC_BATCH} x {ENC_LEN} through the int8 bf16 tower in {secs * 1e3:.1f} ms "
+              f"(one slot, un-split: {one_ms:.1f} ms), bit for bit the un-split tower's on the "
+              f"same dp slices (and the whole batch's: {whole}); f32 tower max |diff| / max "
+              f"|ref| {rel32:.3e} [{card}]")
+        del got, ref, got32, ref32, fn, fn32
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_mesh_train_tp(seed: int, dev, params, phase9: dict, card: str):
+    """Phase 15: (a) training on a mesh, (b) rows 11-12 with a row offset,
+    (c) the tensor-parallel encode with row 10's split mode."""
+    t_phase = time.perf_counter()
+    devices = mesh_devices(dev)
+    c_a, train = mesh_train(seed, dev, devices, phase9, card)
+    offset = mesh_row_offset(seed, dev, card)
+    c_c, enc = tp_encode(seed, dev, devices, params, card)
+    split = tp_split_mlp(dev, card)
+    secs = time.perf_counter() - t_phase
+    counts = {}
+    add_counts(counts, c_a)
+    add_counts(counts, c_c)
+    print("mesh train / tp launch counts:", json.dumps(counts))
+    print("mesh train e2e:", json.dumps(dict(train=train, row_offset=offset, tp_encode=enc,
+                                             split_mlp=split, seconds=secs)), f"[{card}]")
+    print(f"phase 15 (training on a mesh, the tp encode) took {secs:.1f} s [{card}]")
+    return counts, dict(split=split, offset=offset)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3603,7 +3981,7 @@ def main(argv=None) -> int:
     del passages
     torch.cuda.empty_cache()
     c8, _ = phase_corpus_encode(args.seed, dev, params, cfg, card)
-    c9, _ = phase_training(args.seed, dev, card)
+    c9, m9 = phase_training(args.seed, dev, card)
     c10, _ = phase_offline_eval(args.seed, dev, params, cfg, card)
     c11, _ = phase_train_f32(args.seed, dev, card)
     c12, _ = phase_http(args.seed, dev, params, cfg, served, p_sum, card)
@@ -3617,16 +3995,19 @@ def main(argv=None) -> int:
         t14 = time.perf_counter()
         c14, _ = phase_mesh(args.seed, dev, params, cfg, p_sum, work, s13, card)
         print(f"phase 14 (the mesh) took {time.perf_counter() - t14:.1f} s [{card}]")
+    c15, _ = phase_mesh_train_tp(args.seed, dev, params, m9, card)
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
-    def launches(mod, key):
-        return sum(c[mod][key] for c in (c4, c5, c6, c7, c8, c9, c10, c11, c12, c13, c14))
+    def launches(mod, *keys):
+        return sum(c[mod].get(key, 0) for c in (c4, c5, c6, c7, c8, c9, c10, c11, c12, c13, c14,
+                                                c15) if mod in c for key in keys)
 
     def entry(name, source, replaces, mod, key, main_config="float32"):
         mine = [r for r in rows if r["kernel"] == name]
         main_row = next(r for r in mine if r["config"] == main_config)
+        keys = (key, "split_finish") if name == "fused_mlp" else (key,)  # a split block: one
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches(mod, key),
+                "launches": launches(mod, *keys),
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

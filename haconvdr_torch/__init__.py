@@ -24,7 +24,8 @@ Layers, entry point first:
   mine/prj                  PRJ probes and the MRR-difference judge
   mine/bm25, analysis       BM25 index + native scorer, Lucene analyzer
   preprocess/*              L0 dataset preprocessing (TopiOCQA, QReCC)
-  train/trainer             Trainer.fit, make_train_step, AdamW + clip
+  train/trainer             Trainer.fit, make_train_step on a mesh (dp
+                            slots, JAX's loss over the whole batch), AdamW
   train/loss                contrastive ranking losses
   train/checkpoint          train-state save / restore (torch.save)
   config                    ModelConfig / DataConfig / TrainConfig / ...
@@ -33,14 +34,17 @@ Layers, entry point first:
   parallel/mesh             device-slot meshes (make_mesh; a device may
                             fill several slots), torch.distributed ranks
   parallel/sharded_encode   encoder runs over data.loader batches, on one
-                            device or cut over a mesh's dp slots
+                            device or over a mesh: cut over its dp slots,
+                            the tower replicated or Megatron-split over tp
   parallel/sharded_search   device-resident flat index (ShardedIndex),
                             one shard or passage-sharded over a mesh
   parallel/sharded_ivf      IVF build / search / files, cluster-sharded
   index/build, store        corpus encode, tokenized corpus, block store
   index/quantize, rescore   int8 codes and scales, exact second stage
-  models/encoder            ANCE RoBERTa tower (inference and train mode)
-  models/convert            JAX-layout numpy params <-> module state dict
+  models/encoder            ANCE RoBERTa tower (inference and train mode;
+                            a tp group's split tower, encode_split)
+  models/convert            JAX-layout numpy params <-> module state dict;
+                            a tp rank's slices (tp_slice)
   models/hf_import          HF checkpoints <-> params; load_model
   utils/telemetry           JSONL event sink (Trainer metrics)
   ops/topk                  block_topk routing, merges, BlockSearcher
@@ -49,7 +53,8 @@ Layers, entry point first:
   ops/topk_stream           CUDA kernel: v3's split pass unseeded, k <= 1,024 (on no path)
   ops/fused_attention       CUDA kernel: inference attention, fused QKV
   ops/flash_attention       CUDA kernels: trainable attention fwd + bwd
-  ops/fused_ln, fused_mlp   CUDA kernels: the int8 tower's LN and MLP
+  ops/fused_ln, fused_mlp   CUDA kernels: the int8 tower's LN and MLP (and
+                            the MLP's tp split mode)
   ops/_build                nvcc build + ctypes load of csrc/*.cu
   device                    device resolution, dtype map, numpy<->torch
 """

@@ -4,7 +4,7 @@
 ``--device=cpu``; the other arguments (a ``--config`` file and
 ``section.key=value`` overrides, CLI-specific ``key=value`` extras) pass
 through in order.  The CLIs that run on a mesh (``build_ivf``,
-``gen_doc_embeddings``, ``test_retrieval``, ``serve``) take
+``gen_doc_embeddings``, ``test_retrieval``, ``serve``, ``train_retrieval``) take
 :func:`device_mesh` of it: ``cuda`` is every visible card, as the JAX
 CLIs' ``make_mesh()`` takes every device; ``cuda:N`` or ``cpu`` one slot.
 """

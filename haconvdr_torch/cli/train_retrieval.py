@@ -15,17 +15,18 @@ checkpoint.  The best-loss checkpoint is an HF directory
 (``save_hf_checkpoint`` of the trained tower, and the tokenizer) under
 ``train.model_output_path``.  JAX's CLI stacks the layers for its
 scanned train step and unstacks them to save; the port's tower keeps
-one module per layer, so neither step is needed.  Training runs on
-``--device``: the CUDA card by default, the plain twins with ``--device
-cpu``.
+one module per layer, so neither step is needed.  Training runs on the
+mesh of ``--device`` (``cli._args.device_mesh``): every visible card by
+default, as JAX's CLI builds ``make_mesh()``, with a global batch of
+``per_device_train_batch_size`` x the card count; one slot of the plain
+twins with ``--device cpu``.
 """
 
 import logging
 import os
 
-from haconvdr_torch.cli._args import pop_device
+from haconvdr_torch.cli._args import device_mesh, pop_device
 from haconvdr_torch.config import config_from_argv
-from haconvdr_torch.device import resolve_device
 from haconvdr_torch.models.convert import params_to_jax
 from haconvdr_torch.models.hf_import import load_checkpoint, save_hf_checkpoint
 from haconvdr_torch.train.trainer import Trainer
@@ -87,7 +88,7 @@ def build_train_examples(cfg, tokenizer):
 def main(argv=None):
     setup_logging()
     device, argv = pop_device(argv)
-    device = resolve_device(device)  # raises without the card before any read
+    mesh = device_mesh(device)  # raises without the card before any read
     cfg = config_from_argv(argv)
     set_seed(cfg.train.seed)
     cfg.data.is_train = True
@@ -110,7 +111,7 @@ def main(argv=None):
         logger.info("step %d: checkpoint saved at %s", step, out_dir)
 
     trainer = Trainer(
-        device, cfg.model, cfg.train,
+        mesh, cfg.model, cfg.train,
         loss_variant=loss_variant,
         query_key=_QUERY_KEY[cfg.data.mode],
         save_fn=save,

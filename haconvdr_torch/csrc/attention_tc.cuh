@@ -118,7 +118,7 @@ struct Drop {
 
   __device__ Drop(int on_, int seed0, int seed1, unsigned thresh_, float inv_, int bh)
       : on(on_), thresh(thresh_), inv(inv_) {
-    const uint32_t idx = (uint32_t)bh;  // b * num_heads + h
+    const uint32_t idx = (uint32_t)bh;  // (row0 + b) * num_heads + h: b's row in the whole batch
     s0 = (uint32_t)seed0 + idx * 0x9E3779B9u;
     s1 = (uint32_t)seed1 ^ ((idx + 1u) * 0x85EBCA6Bu);
   }
@@ -349,7 +349,7 @@ template <bool kFlash>
 __global__ void __launch_bounds__(TC_NT, 4) tc_attention_fwd(
     const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ mask,
     __nv_bfloat16* __restrict__ out, float2* __restrict__ stats, int L, int H, int nh,
-    float scale, int drop_on, int seed0, int seed1, unsigned thresh, float inv) {
+    float scale, int drop_on, int seed0, int seed1, unsigned thresh, float inv, int row0) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [64][TC_LD]
   __nv_bfloat16* Ks = Qs + TC_BM * TC_LD;                        // [2][64][TC_LD]
@@ -366,7 +366,7 @@ __global__ void __launch_bounds__(TC_NT, 4) tc_attention_fwd(
   const int b = blockIdx.z;
   const size_t rs = 3 * (size_t)H;
   const __nv_bfloat16* base = qkv + (size_t)b * L * rs;
-  const Drop dr(kFlash ? drop_on : 0, seed0, seed1, thresh, inv, b * nh + h);
+  const Drop dr(kFlash ? drop_on : 0, seed0, seed1, thresh, inv, (row0 + b) * nh + h);
 
   copy_rows<TC_NT>(Qs, base, rs, q0, TC_BM, h * HD, L, tid);
   cp_async_commit();
@@ -475,7 +475,7 @@ __global__ void __launch_bounds__(TC_NT, 4) tc_attention_fwd(
 template <bool kFlash>
 cudaError_t launch_tc_fwd(const void* qkv, const void* mask, void* out, void* stats, int B,
                           int L, int H, int nh, int drop_on, int seed0, int seed1,
-                          unsigned thresh, float inv, cudaStream_t stream) {
+                          unsigned thresh, float inv, int row0, cudaStream_t stream) {
   if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0) return cudaErrorInvalidValue;
   const size_t smem = tc_fwd_smem(L);
   cudaError_t err = cudaFuncSetAttribute(tc_attention_fwd<kFlash>,
@@ -485,7 +485,7 @@ cudaError_t launch_tc_fwd(const void* qkv, const void* mask, void* out, void* st
   tc_attention_fwd<kFlash><<<grid, TC_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<float2*>(stats), L, H, nh,
-      1.0f / sqrtf((float)HD), drop_on, seed0, seed1, thresh, inv);
+      1.0f / sqrtf((float)HD), drop_on, seed0, seed1, thresh, inv, row0);
   return cudaGetLastError();
 }
 

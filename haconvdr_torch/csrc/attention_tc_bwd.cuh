@@ -99,7 +99,7 @@ __global__ void __launch_bounds__(TC_NT, 3) tc_bwd_dq(
     const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ mask,
     const __nv_bfloat16* __restrict__ dout, const float2* __restrict__ stats,
     float* __restrict__ dvec, __nv_bfloat16* __restrict__ dqkv, int L, int H, int nh,
-    float scale, int drop_on, int seed0, int seed1, unsigned thresh, float inv) {
+    float scale, int drop_on, int seed0, int seed1, unsigned thresh, float inv, int row0) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [64][TC_LD]
   __nv_bfloat16* Os = Qs + TC_BM * TC_LD;                        // [64][TC_LD] dO
@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(TC_NT, 3) tc_bwd_dq(
   const int bh = b * nh + h;
   const size_t rs = 3 * (size_t)H;
   const __nv_bfloat16* base = qkv + (size_t)b * L * rs;
-  const Drop dr(drop_on, seed0, seed1, thresh, inv, bh);
+  const Drop dr(drop_on, seed0, seed1, thresh, inv, (row0 + b) * nh + h);
 
   copy_rows<TC_NT>(Qs, base, rs, q0, TC_BM, h * HD, L, tid);
   copy_rows<TC_NT>(Os, dout + (size_t)b * L * H, H, q0, TC_BM, h * HD, L, tid);
@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(TC_NT, 2) tc_bwd_dkdv(
     const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ mask,
     const __nv_bfloat16* __restrict__ dout, const float2* __restrict__ stats,
     const float* __restrict__ dvec, __nv_bfloat16* __restrict__ dqkv, int L, int H, int nh,
-    float scale, int drop_on, int seed0, int seed1, unsigned thresh, float inv) {
+    float scale, int drop_on, int seed0, int seed1, unsigned thresh, float inv, int row0) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [64][TC_LD] block keys
   __nv_bfloat16* Vs = Ks + TC_BN * TC_LD;                        // [64][TC_LD]
@@ -237,7 +237,7 @@ __global__ void __launch_bounds__(TC_NT, 2) tc_bwd_dkdv(
   const size_t rs = 3 * (size_t)H;
   const __nv_bfloat16* base = qkv + (size_t)b * L * rs;
   const __nv_bfloat16* obase = dout + (size_t)b * L * H;
-  const Drop dr(drop_on, seed0, seed1, thresh, inv, bh);
+  const Drop dr(drop_on, seed0, seed1, thresh, inv, (row0 + b) * nh + h);
 
   key_tiles<TC_NT>(mask, b, L, bias, tiles, tid);
   __syncthreads();
@@ -350,7 +350,8 @@ __global__ void __launch_bounds__(TC_NT, 2) tc_bwd_dkdv(
 // L <= 512): tc_bwd_dq (dQ, D into dvec [B, nh, L]), then tc_bwd_dkdv
 cudaError_t launch_tc_bwd(const void* qkv, const void* mask, const void* dout, const void* stats,
                           void* dvec, void* dqkv, int B, int L, int H, int nh, int drop_on,
-                          int seed0, int seed1, unsigned thresh, float inv, cudaStream_t stream) {
+                          int seed0, int seed1, unsigned thresh, float inv, int row0,
+                          cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout) |
        reinterpret_cast<uintptr_t>(dqkv)) % 16)
     return cudaErrorInvalidValue;  // copy_rows and the zero rows move 16-byte chunks
@@ -367,14 +368,14 @@ cudaError_t launch_tc_bwd(const void* qkv, const void* mask, const void* dout, c
       cudaFuncSetAttribute(tc_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   tc_bwd_dq<<<grid, TC_NT, smem, stream>>>(q, m, g, st, dv, dx, L, H, nh, scale, drop_on, seed0,
-                                           seed1, thresh, inv);
+                                           seed1, thresh, inv, row0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   smem = tc_bwd_dkdv_smem(L);
   err = cudaFuncSetAttribute(tc_bwd_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   tc_bwd_dkdv<<<grid, TC_NT, smem, stream>>>(q, m, g, st, dv, dx, L, H, nh, scale, drop_on, seed0,
-                                             seed1, thresh, inv);
+                                             seed1, thresh, inv, row0);
   return cudaGetLastError();
 }
 

@@ -173,7 +173,7 @@ template <bool kFlash>
 __global__ void __launch_bounds__(TC_NT, 2) tf32_attention_fwd(
     const float* __restrict__ qkv, const int* __restrict__ mask, float* __restrict__ out,
     float2* __restrict__ stats, int L, int H, int nh, float scale, int drop_on, int seed0,
-    int seed1, unsigned thresh, float inv) {
+    int seed1, unsigned thresh, float inv, int row0) {
   extern __shared__ __align__(16) unsigned char f32_smem_raw[];
   float* Qs = reinterpret_cast<float*>(f32_smem_raw);  // [64][F_LDK]
   float* Ks = Qs + TC_BM * F_LDK;                     // [2][64][F_LDK]
@@ -189,7 +189,7 @@ __global__ void __launch_bounds__(TC_NT, 2) tf32_attention_fwd(
   const int b = blockIdx.z;
   const size_t rs = 3 * (size_t)H;
   const float* base = qkv + (size_t)b * L * rs;
-  const Drop dr(kFlash ? drop_on : 0, seed0, seed1, thresh, inv, b * nh + h);
+  const Drop dr(kFlash ? drop_on : 0, seed0, seed1, thresh, inv, (row0 + b) * nh + h);
 
   copy_rows<TC_NT, F_LDK>(Qs, base, rs, q0, TC_BM, h * HD, L, tid);
   cp_async_commit();
@@ -297,7 +297,7 @@ __global__ void __launch_bounds__(TC_NT, 2) tf32_attention_fwd(
 template <bool kFlash>
 cudaError_t launch_tf32_fwd(const void* qkv, const void* mask, void* out, void* stats, int B,
                             int L, int H, int nh, int drop_on, int seed0, int seed1,
-                            unsigned thresh, float inv, cudaStream_t stream) {
+                            unsigned thresh, float inv, int row0, cudaStream_t stream) {
   if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0) return cudaErrorInvalidValue;
   const size_t smem = tf32_fwd_smem(L);
   cudaError_t err = cudaFuncSetAttribute(tf32_attention_fwd<kFlash>,
@@ -307,7 +307,7 @@ cudaError_t launch_tf32_fwd(const void* qkv, const void* mask, void* out, void* 
   tf32_attention_fwd<kFlash><<<grid, TC_NT, smem, stream>>>(
       static_cast<const float*>(qkv), static_cast<const int*>(mask), static_cast<float*>(out),
       static_cast<float2*>(stats), L, H, nh, 1.0f / sqrtf((float)HD), drop_on, seed0, seed1,
-      thresh, inv);
+      thresh, inv, row0);
   return cudaGetLastError();
 }
 

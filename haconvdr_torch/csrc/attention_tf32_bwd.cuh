@@ -163,7 +163,8 @@ __device__ __forceinline__ void tile_kq(double (&acc)[4][4], const float* A, con
 __global__ void __launch_bounds__(TC_NT, 2) tf32_bwd_dq(
     const float* __restrict__ qkv, const int* __restrict__ mask, const float* __restrict__ dout,
     const float2* __restrict__ stats, float* __restrict__ dvec, float* __restrict__ dqkv, int L,
-    int H, int nh, float scale, int drop_on, int seed0, int seed1, unsigned thresh, float inv) {
+    int H, int nh, float scale, int drop_on, int seed0, int seed1, unsigned thresh, float inv,
+    int row0) {
   extern __shared__ __align__(16) unsigned char f32_smem_raw[];
   float* Qs = reinterpret_cast<float*>(f32_smem_raw);  // [64][F_LDK]
   float* Os = Qs + TC_BM * F_LDK;                     // [64][F_LDK] dO
@@ -181,7 +182,7 @@ __global__ void __launch_bounds__(TC_NT, 2) tf32_bwd_dq(
   const int bh = b * nh + h;
   const size_t rs = 3 * (size_t)H;
   const float* base = qkv + (size_t)b * L * rs;
-  const Drop dr(drop_on, seed0, seed1, thresh, inv, bh);
+  const Drop dr(drop_on, seed0, seed1, thresh, inv, (row0 + b) * nh + h);
 
   copy_rows<TC_NT, F_LDK>(Qs, base, rs, q0, TC_BM, h * HD, L, tid);
   copy_rows<TC_NT, F_LDK>(Os, dout + (size_t)b * L * H, H, q0, TC_BM, h * HD, L, tid);
@@ -280,7 +281,7 @@ __global__ void __launch_bounds__(F_NT, 2) tf32_bwd_dkdv(
     const float* __restrict__ qkv, const int* __restrict__ mask, const float* __restrict__ dout,
     const float2* __restrict__ stats, const float* __restrict__ dvec, float* __restrict__ dqkv,
     int L, int H, int nh, float scale, int drop_on, int seed0, int seed1, unsigned thresh,
-    float inv) {
+    float inv, int row0) {
   extern __shared__ __align__(16) unsigned char f32_smem_raw[];
   float* Ks = reinterpret_cast<float*>(f32_smem_raw);  // [64][F_LDK] block keys
   float* Vs = Ks + TC_BN * F_LDK;                     // [64][F_LDK]
@@ -301,7 +302,7 @@ __global__ void __launch_bounds__(F_NT, 2) tf32_bwd_dkdv(
   const size_t rs = 3 * (size_t)H;
   const float* base = qkv + (size_t)b * L * rs;
   const float* obase = dout + (size_t)b * L * H;
-  const Drop dr(drop_on, seed0, seed1, thresh, inv, bh);
+  const Drop dr(drop_on, seed0, seed1, thresh, inv, (row0 + b) * nh + h);
 
   key_tiles<F_NT>(mask, b, L, bias, tiles, tid);
   __syncthreads();
@@ -406,7 +407,7 @@ __global__ void __launch_bounds__(F_NT, 2) tf32_bwd_dkdv(
 cudaError_t launch_tf32_bwd(const void* qkv, const void* mask, const void* dout,
                             const void* stats, void* dvec, void* dqkv, int B, int L, int H,
                             int nh, int drop_on, int seed0, int seed1, unsigned thresh, float inv,
-                            cudaStream_t stream) {
+                            int row0, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout) |
        reinterpret_cast<uintptr_t>(dqkv)) % 16)
     return cudaErrorInvalidValue;  // copy_rows and the zero rows move 16-byte chunks
@@ -423,7 +424,7 @@ cudaError_t launch_tf32_bwd(const void* qkv, const void* mask, const void* dout,
       cudaFuncSetAttribute(tf32_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   tf32_bwd_dq<<<grid, TC_NT, smem, stream>>>(q, m, g, st, dv, dx, L, H, nh, scale, drop_on,
-                                             seed0, seed1, thresh, inv);
+                                             seed0, seed1, thresh, inv, row0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   smem = tf32_bwd_dkdv_smem(L);
@@ -431,7 +432,7 @@ cudaError_t launch_tf32_bwd(const void* qkv, const void* mask, const void* dout,
                              (int)smem);
   if (err != cudaSuccess) return err;
   tf32_bwd_dkdv<<<grid, F_NT, smem, stream>>>(q, m, g, st, dv, dx, L, H, nh, scale, drop_on,
-                                               seed0, seed1, thresh, inv);
+                                               seed0, seed1, thresh, inv, row0);
   return cudaGetLastError();
 }
 

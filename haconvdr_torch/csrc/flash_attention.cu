@@ -13,7 +13,11 @@
 // keep mask is the JAX package's counter-based hash (murmur3 fmix32 twice
 // over the element counter r * L + c of the (b, h) tile, seeded per
 // (b, h)), so the same seed words give JAX's mask bit for bit and the
-// backward regenerates it: no mask is stored.
+// backward regenerates it: no mask is stored.  A launch over rows a:b of a
+// batch cut over data-parallel slots passes row0 = a, so each tile is
+// seeded by its row's index in the whole batch (the seed words hash the
+// tile index non-linearly: s1 = seed1 ^ ((idx + 1) * 0x85EBCA6B), so no
+// change of the words could stand in for the offset).
 //
 // Residuals: JAX keeps only the primal inputs.  The forward here also
 // saves each query row's softmax max and sum (float2 [B, nh, L]), so the
@@ -68,35 +72,38 @@ bool bad_shape(int B, int L, int H, int nh) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  mask is int32 [B, L]; stats float2
-// [B, nh, L] (row max, row sum).  drop_on 0 ignores seed0, seed1, thresh
-// and inv.  Returns the cudaError_t of the launch.
+// [B, nh, L] (row max, row sum).  drop_on 0 ignores seed0, seed1, thresh,
+// inv and row0.  row0 is the first row's index in the whole batch: row b
+// draws the mask of tile (row0 + b) * nh + h, so a slice of rows a:b
+// launched with row0 = a draws rows a:b of the whole batch's masks.
+// Returns the cudaError_t of the launch.
 extern "C" int hc_flash_fwd(const void* qkv, const void* mask, void* out, void* stats, int B,
                             int L, int H, int nh, int dtype, int drop_on, int seed0, int seed1,
-                            unsigned thresh, float inv, void* stream) {
+                            unsigned thresh, float inv, int row0, void* stream) {
   if (bad_shape(B, L, H, nh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)  // the 3xTF32 forward of attention_tf32.cuh
     return (int)launch_tf32_fwd<true>(qkv, mask, out, stats, B, L, H, nh, drop_on, seed0,
-                                      seed1, thresh, inv, s);
+                                      seed1, thresh, inv, row0, s);
   if (dtype == 1)  // the tensor-core forward of attention_tc.cuh
     return (int)launch_tc_fwd<true>(qkv, mask, out, stats, B, L, H, nh, drop_on, seed0, seed1,
-                                    thresh, inv, s);
+                                    thresh, inv, row0, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // dout [B, L, H] in qkv's dtype; dvec float [B, nh, L] scratch; dqkv
-// [B, L, 3H] in qkv's dtype, every element written.
+// [B, L, 3H] in qkv's dtype, every element written; row0 as the forward's.
 extern "C" int hc_flash_bwd(const void* qkv, const void* mask, const void* dout,
                             const void* stats, void* dvec, void* dqkv, int B, int L, int H,
                             int nh, int dtype, int drop_on, int seed0, int seed1,
-                            unsigned thresh, float inv, void* stream) {
+                            unsigned thresh, float inv, int row0, void* stream) {
   if (bad_shape(B, L, H, nh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)  // the 3xTF32 backward of attention_tf32_bwd.cuh
     return (int)launch_tf32_bwd(qkv, mask, dout, stats, dvec, dqkv, B, L, H, nh, drop_on, seed0,
-                                seed1, thresh, inv, s);
+                                seed1, thresh, inv, row0, s);
   if (dtype == 1)  // the tensor-core backward of attention_tc_bwd.cuh
     return (int)launch_tc_bwd(qkv, mask, dout, stats, dvec, dqkv, B, L, H, nh, drop_on, seed0,
-                              seed1, thresh, inv, s);
+                              seed1, thresh, inv, row0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -29,10 +29,10 @@ extern "C" int hc_fused_attention(const void* qkv, const void* mask, void* out, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch_tf32_fwd<false>(qkv, mask, out, nullptr, B, L, H, num_heads, 0, 0, 0,
-                                      0u, 1.0f, s);
+                                      0u, 1.0f, 0, s);
   if (dtype == 1)
     return (int)launch_tc_fwd<false>(qkv, mask, out, nullptr, B, L, H, num_heads, 0, 0, 0, 0u,
-                                     1.0f, s);
+                                     1.0f, 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

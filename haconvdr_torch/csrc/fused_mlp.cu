@@ -64,6 +64,30 @@
 // two-stream row pipeline measured slower too (development runs).  The
 // up-projection adds its GELU epilogue and 4x the tiles (1.57 ms).
 
+// Split mode (a tensor-parallel tower: the block's inner dimension I cut
+// over tp ranks, rank r holding columns [r I/tp, (r + 1) I/tp) of W1 and the
+// same rows of W2).  Two row maxima would break: the row's max |g| (the g
+// scale) spans every rank's columns, and y2's int32 sums span every rank's
+// products.  So the block runs as three entry points the caller strings
+// together over the group:
+//   hc_fused_mlp_split_up     memset + mlp_gemm<UP> on the rank's I/tp
+//                             columns: g and its partial row maxima gmax;
+//   (the caller takes the group's maximum of gmax, exact in any order, and
+//    hands it back to every rank)
+//   hc_fused_mlp_split_down   quant_kernel with the group's gmax (so every
+//                             rank codes g with the global scale), then
+//                             mlp_gemm<PARTIAL>: the raw int32 products
+//                             [rows, H] of the rank's columns;
+//   hc_fused_mlp_split_finish split_sum: the tp partials summed in int32
+//                             (exact), then (gs / 127) * s2 + b2, the bf16
+//                             cast and the residual add as mlp_gemm<DOWN>'s
+//                             epilogue does them, into t; then fused_ln.cu's
+//                             LayerNorm with codes, as step 4.
+// Every code and every int32 sum is the un-split block's, so the split
+// block's y, yq and ys equal the un-split kernel's bit for bit.  Dequantizing
+// per rank and summing floats would round differently.  The split adds the
+// partials' traffic: tp x rows x H x 4 bytes written and read again.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -89,7 +113,7 @@ constexpr int SMEM = STAGES * (BM + BN) * BK;  // 96 KB
 // u ^ 4 (r & 1), so the two rows that 8 lanes read together fill the 32
 // banks (64-byte rows need no swizzle)
 constexpr int SWZ = BK >= 128 ? 4 : 0;
-constexpr int UP = 0, DOWN = 1;
+constexpr int UP = 0, DOWN = 1, PARTIAL = 2;  // PARTIAL: the raw int32 sums (split mode)
 static_assert(BK % 64 == 0 && NT == 32 * (BM / WM) * (BN / WN), "tile shape");
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
@@ -159,17 +183,19 @@ __device__ __forceinline__ void load_stage(int8_t* smem, int s, const int8_t* __
 
 // The epilogue of one tile (acc[i][j][2h + e] is row m0 + wm WM + 16 i + g
 // + 8 h, column n0 + wn WN + 8 j + 2 tig + e):
-//   UP:   out = bf16(GELU(bf16(dequant(C, a_scale / 127, ws, wb)))) [M, N];
-//         row_max[r - m0] = max |out[r, n0 .. n0 + BN)| as float bits
-//   DOWN: out = bf16(x + bf16(dequant(C, a_scale / 127, ws, wb))) [M, N]
+//   UP:      out = bf16(GELU(bf16(dequant(C, a_scale / 127, ws, wb)))) [M, N];
+//            row_max[r - m0] = max |out[r, n0 .. n0 + BN)| as float bits
+//   DOWN:    out = bf16(x + bf16(dequant(C, a_scale / 127, ws, wb))) [M, N]
+//   PARTIAL: out = C, int32 [M, N] (a_scale, ws, wb and x unused)
 template <int MODE>
 __device__ __forceinline__ void epilogue(const int (&acc)[MT][NTL][4], int M, int N, int m0,
                                          int n0, int wm, int wn, int g, int tig,
                                          const float* __restrict__ a_scale,
                                          const float* __restrict__ ws,
                                          const float* __restrict__ wb,
-                                         const bf16* __restrict__ x, bf16* __restrict__ out,
+                                         const bf16* __restrict__ x, void* __restrict__ out_,
                                          unsigned* row_max) {
+  bf16* out = static_cast<bf16*>(out_);
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -177,12 +203,18 @@ __device__ __forceinline__ void epilogue(const int (&acc)[MT][NTL][4], int M, in
       const int rl = wm * WM + 16 * i + g + 8 * h;
       const int r = m0 + rl;
       const bool live = r < M;
-      const float s_127 = live ? __fdiv_rn(a_scale[r], 127.0f) : 0.0f;
+      const float s_127 = (MODE != PARTIAL && live) ? __fdiv_rn(a_scale[r], 127.0f) : 0.0f;
       float m = 0.0f;
 #pragma unroll
       for (int j = 0; j < NTL; ++j) {
         const int c = n0 + wn * WN + 8 * j + 2 * tig;
         if (c >= N) continue;
+        if (MODE == PARTIAL) {
+          if (live)
+            *reinterpret_cast<int2*>(static_cast<int*>(out_) + (size_t)r * N + c) =
+                make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          continue;
+        }
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e)
@@ -218,7 +250,7 @@ template <int MODE>
 __global__ void __launch_bounds__(NT, MINB)
     mlp_gemm(const int8_t* __restrict__ A, const int8_t* __restrict__ W, int M, int N, int K,
              const float* __restrict__ a_scale, const float* __restrict__ ws,
-             const float* __restrict__ wb, const bf16* __restrict__ x, bf16* __restrict__ out,
+             const float* __restrict__ wb, const bf16* __restrict__ x, void* __restrict__ out,
              unsigned* __restrict__ gmax) {
   extern __shared__ __align__(16) int8_t smem[];
   __shared__ unsigned row_max[BM];
@@ -289,10 +321,40 @@ __global__ void __launch_bounds__(256)
   if (off == (size_t)r * I) gs[r] = s;
 }
 
+// split mode, step 3: t = bf16(x + bf16(dequant(sum_k part[k], gs / 127, s2,
+// b2))) [rows, H] from the tp int32 planes part [tp, rows, H] (the sums
+// exact in int32, the rest as mlp_gemm<DOWN>'s epilogue); one thread a pair
+// of columns.  Bytes bound: tp x 4 + 2 + 2 bytes an element.
+__global__ void __launch_bounds__(256)
+    split_sum_kernel(const int* __restrict__ part, int tp, int rows, int H,
+                     const float* __restrict__ gs, const float* __restrict__ s2,
+                     const float* __restrict__ b2, const bf16* __restrict__ x,
+                     bf16* __restrict__ t) {
+  const long long pairs = (long long)rows * (H / 2);
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= pairs) return;
+  const long long r = e / (H / 2);
+  const int c = 2 * (int)(e % (H / 2));
+  const size_t off = (size_t)r * H + c, plane = (size_t)rows * H;
+  int a0 = 0, a1 = 0;
+  for (int k = 0; k < tp; ++k) {
+    const int2 v = *reinterpret_cast<const int2*>(part + k * plane + off);
+    a0 += v.x;
+    a1 += v.y;
+  }
+  const float s_127 = __fdiv_rn(gs[r], 127.0f);
+  const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + off);
+  const float v0 = hc::round_to<bf16>(dequant(a0, s_127, s2[c], b2[c]));
+  const float v1 = hc::round_to<bf16>(dequant(a1, s_127, s2[c + 1], b2[c + 1]));
+  *reinterpret_cast<uint32_t*>(t + off) =
+      pack_bf16(hc::round_to<bf16>(__fadd_rn(__low2float(xv), v0)),
+                hc::round_to<bf16>(__fadd_rn(__high2float(xv), v1)));
+}
+
 template <int MODE>
 cudaError_t launch_gemm(const int8_t* A, const int8_t* W, int M, int N, int K,
                         const float* a_scale, const float* ws, const float* wb, const bf16* x,
-                        bf16* out, unsigned* gmax, cudaStream_t stream) {
+                        void* out, unsigned* gmax, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(mlp_gemm<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
@@ -347,4 +409,66 @@ extern "C" int hc_fused_mlp(const void* x, const void* xq, const void* xs, const
                           static_cast<const float*>(s2), static_cast<const float*>(b2), xb, tb,
                           nullptr, s));
   return hc_fused_ln(tb, nullptr, lns, lnb, eps, rows, H, 1, 1, y, yq, ys, stream);
+}
+
+// Split mode (see the head note): rank r's I columns (I = the full inner
+// dimension / tp), H and I as hc_fused_mlp takes them.
+// Step 1: xq int8 [rows, H], xs float32 [rows], w1 int8 [I, H], s1, b1
+// float32 [I] -> g bf16 [rows, I], gmax uint32 [rows] (the rank's row
+// maxima of |g| as float bits).
+extern "C" int hc_fused_mlp_split_up(const void* xq, const void* xs, const void* w1,
+                                     const void* s1, const void* b1, int rows, int H, int I,
+                                     void* g, void* gmax, void* stream) {
+  if (rows <= 0 || H < 64 || H % 64 || H > 32 * hc::LN_MAX_VPL || I < 64 || I % 64 ||
+      I > 131072)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned* gm = static_cast<unsigned*>(gmax);
+  HC_TRY(cudaMemsetAsync(gm, 0, sizeof(unsigned) * (size_t)rows, s));
+  HC_TRY(launch_gemm<UP>(static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1), rows, I,
+                        H, static_cast<const float*>(xs), static_cast<const float*>(s1),
+                        static_cast<const float*>(b1), nullptr, g, gm, s));
+  return 0;
+}
+
+// Step 2: g bf16 [rows, I], gmax uint32 [rows] (the group's maxima), w2
+// int8 [H, I] -> scratch gq int8 [rows, I], gs float32 [rows] (the global
+// g scales), part int32 [rows, H] (the rank's raw products).
+extern "C" int hc_fused_mlp_split_down(const void* g, const void* gmax, const void* w2,
+                                       int rows, int H, int I, void* gq, void* gs, void* part,
+                                       void* stream) {
+  if (rows <= 0 || H < 64 || H % 64 || H > 32 * hc::LN_MAX_VPL || I < 64 || I % 64 ||
+      I > 131072)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* gqb = static_cast<int8_t*>(gq);
+  const long long chunks = (long long)rows * (I / 8);
+  quant_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(g), static_cast<const unsigned*>(gmax), rows, I, gqb,
+      static_cast<float*>(gs));
+  HC_TRY(cudaGetLastError());
+  HC_TRY(launch_gemm<PARTIAL>(gqb, static_cast<const int8_t*>(w2), rows, H, I, nullptr, nullptr,
+                             nullptr, nullptr, part, nullptr, s));
+  return 0;
+}
+
+// Step 3: part int32 [tp, rows, H] (every rank's step-2 output, in rank
+// order), gs float32 [rows], x bf16 [rows, H] (the residual), s2, b2, lns,
+// lnb float32 [H] -> scratch t bf16 [rows, H], then y bf16 [rows, H], yq
+// int8 [rows, H], ys float32 [rows].  tp x I <= 131,072 keeps the sums exact.
+extern "C" int hc_fused_mlp_split_finish(const void* part, int tp, const void* gs,
+                                         const void* x, const void* s2, const void* b2,
+                                         const void* lns, const void* lnb, float eps, int rows,
+                                         int H, void* t, void* y, void* yq, void* ys,
+                                         void* stream) {
+  if (rows <= 0 || tp <= 0 || H < 64 || H % 64 || H > 32 * hc::LN_MAX_VPL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long pairs = (long long)rows * (H / 2);
+  split_sum_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, s>>>(
+      static_cast<const int*>(part), tp, rows, H, static_cast<const float*>(gs),
+      static_cast<const float*>(s2), static_cast<const float*>(b2), static_cast<const bf16*>(x),
+      static_cast<bf16*>(t));
+  HC_TRY(cudaGetLastError());
+  return hc_fused_ln(t, nullptr, lns, lnb, eps, rows, H, 1, 1, y, yq, ys, stream);
 }

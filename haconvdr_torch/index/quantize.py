@@ -19,7 +19,7 @@ on tensors that already live on the device:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,12 +81,17 @@ def quantize_int8_torch(emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes, scale
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(
+    x: torch.Tensor, s: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., D] float -> ([..., D] int8 codes, [..., 1] float32 scales):
     ``s = max(max|x|, 1e-30)`` per row, codes ``clip(round(x / s * 127),
-    -127, 127)`` computed in float32 with an IEEE division."""
+    -127, 127)`` computed in float32 with an IEEE division.  A given ``s``
+    ([..., 1] float32) replaces the row's own: the codes of a slice of a
+    row's columns with the whole row's scale (a tensor-parallel split)."""
     xf = x.to(torch.float32)
-    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-30)
+    if s is None:
+        s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-30)
     q = torch.clamp(torch.round(xf / s * 127.0), -127, 127)
     return q.to(torch.int8), s
 

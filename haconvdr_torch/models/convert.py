@@ -11,7 +11,10 @@ module's ``Int8Linear`` buffers); ``params_to_jax`` maps a float state
 dict back (trained weights compared with the JAX package's);
 ``init_params_numpy`` makes the first
 with numpy from a seed, so that tests and chip_smoke.py hand identical
-weights to both packages.
+weights to both packages.  ``encoder_param_pspecs`` names each leaf's
+Megatron split (JAX's function of that name) and ``tp_slice`` cuts one
+tensor-parallel rank's slices out of the nested dict, the carry-over for
+a split tower (``AnceEncoder.from_jax_params(..., tp=)``).
 """
 
 from __future__ import annotations
@@ -77,6 +80,82 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     dense("embedding_head", [params["embedding_head"]])
     ln("norm", params["norm"])
     return sd
+
+
+COLUMN, ROW, REPLICATED = "column", "row", "replicated"
+
+
+def encoder_param_pspecs(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The Megatron split of every leaf of the JAX package's nested-dict
+    params (list or stacked layout, float or int8-quantized), as a tree of
+    the same shape whose leaves are ``"column"`` (cut along the last,
+    output axis: the query, key, value and FFN-up kernels, their biases
+    and per-output-channel ``kernel_scale``s), ``"row"`` (cut along the
+    input axis, the second to last: the attention-output and FFN-down
+    kernels) or ``"replicated"`` (everything else, the row-split denses'
+    biases and scales among them): haconvdr_tpu/parallel/
+    sharded_encode.py:encoder_param_pspecs."""
+
+    def rep(t):
+        return {k: rep(v) for k, v in t.items()} if isinstance(t, dict) else REPLICATED
+
+    def dense(d, kind):
+        return {k: kind if kind == COLUMN or k == "kernel" else REPLICATED for k in d}
+
+    def layer(l):
+        a = l["attention"]
+        return {
+            "attention": {
+                "query": dense(a["query"], COLUMN),
+                "key": dense(a["key"], COLUMN),
+                "value": dense(a["value"], COLUMN),
+                "output": dense(a["output"], ROW),
+                "output_layer_norm": rep(a["output_layer_norm"]),
+            },
+            "intermediate": dense(l["intermediate"], COLUMN),
+            "output": dense(l["output"], ROW),
+            "output_layer_norm": rep(l["output_layer_norm"]),
+        }
+
+    layers = params["layers"]
+    return {
+        "embeddings": rep(params["embeddings"]),
+        "layers": [layer(l) for l in layers] if isinstance(layers, list) else layer(layers),
+        "embedding_head": rep(params["embedding_head"]),
+        "norm": rep(params["norm"]),
+    }
+
+
+def tp_slice(params: Dict[str, Any], rank: int, tp: int) -> Dict[str, Any]:
+    """Rank ``rank``'s slices of ``params`` for a ``tp``-way split
+    (``encoder_param_pspecs``): a column leaf keeps columns ``[rank n / tp, (rank +
+    1) n / tp)`` of its last axis, a row leaf the same rows of its second
+    to last, a replicated leaf stays whole; numpy leaves.  The fused QKV of
+    ``params_from_jax`` then holds the rank's ``[q_r | k_r | v_r]``: its
+    ``num_attention_heads / tp`` heads.  Quantize (``quantize_encoder_params``)
+    before slicing: a row-split kernel's scales span its whole input axis."""
+
+    def cut(a, kind):
+        a = np.asarray(a)
+        if kind == REPLICATED:
+            return a
+        axis = a.ndim - 1 if kind == COLUMN else a.ndim - 2
+        n = a.shape[axis]
+        if n % tp:
+            raise ValueError(f"a {kind} leaf of {n} along the split axis does not divide by tp={tp}")
+        step = n // tp
+        return np.take(a, np.arange(rank * step, (rank + 1) * step), axis=axis)
+
+    def walk(t, k):
+        if isinstance(t, dict):
+            return {key: walk(t[key], k[key]) for key in t}
+        if isinstance(t, list):
+            return [walk(a, b) for a, b in zip(t, k)]
+        return cut(t, k)
+
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside a {tp}-way split")
+    return walk(params, encoder_param_pspecs(params))
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor], stacked: bool = False) -> Dict[str, Any]:

@@ -36,7 +36,24 @@ from a generator made from its own seed where it is applied, so a
 checkpointed block (``cfg.remat``: ``"mlp"`` the MLP block, ``True`` the
 whole layer) draws the same mask when it is recomputed.  JAX draws the
 hidden masks from the TPU's ``rbg`` bits, which cannot be matched, so the
-parity tests run with dropout off.
+parity tests run with dropout off.  A data-parallel slot that holds rows
+a.. of a batch of n (``forward(..., row_offset=a, batch_rows=n)``, with one
+``DropoutDraw`` shared by the slots) draws those rows' masks of the whole
+batch: the attention hash takes the row offset, and each hidden site draws
+all n rows' uniforms and keeps its own (``_dropout`` states the cost).
+
+Tensor parallelism (``tp`` > 1, inference only): a rank's ``AnceEncoder``
+holds its Megatron slices (``AnceLayer``; ``convert.tp_slice``), and
+``encode_split`` runs a group of ranks layer by layer: embeddings,
+LayerNorms and the head on the first rank, the column denses and
+attention (``num_attention_heads / tp`` heads) on every rank, the row
+denses summed on the first rank (``parallel.mesh.group_sum``, in rank
+order) with the bias added once.  int8 towers stay exact: each row-split
+dense's codes take the group's row maximum and its int32 partials are
+summed before the dequantization (``_row_dense``; the MLP block through
+row 10's split pieces, ``mlp_block_split``), so a split int8 tower equals the
+un-split one bit for bit.  Float towers sum float32 partials, a rounding
+the un-split tower does not make.
 """
 
 from __future__ import annotations
@@ -56,6 +73,7 @@ from haconvdr_torch.index.quantize import quantize_rows
 from haconvdr_torch.models.convert import params_from_jax
 from haconvdr_torch.ops import flash_attention, fused_attention, fused_ln, fused_mlp
 from haconvdr_torch.ops.fused_ln import layer_norm
+from haconvdr_torch.parallel.mesh import group_max, group_sum
 
 
 def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int) -> torch.Tensor:
@@ -137,52 +155,158 @@ class _MmF32(torch.autograd.Function):
         return gx, gw
 
 
-def _dense(x, lin, dtype, out_dtype=None, prequant=None):
-    """One dense layer.  int8: ``Int8Linear``.  float: x @ W of the
-    ``dtype``-rounded operands, accumulated and biased in
-    promote(dtype, f32), rounded once to ``out_dtype``.  bfloat16 on CUDA
-    is one bf16 GEMM with a float32 result (``_MmF32``); elsewhere a
-    float32 product of the rounded operands (exact products, float32 sums;
-    TF32 is off, device.py)."""
-    if isinstance(lin, Int8Linear):
-        return lin(x, prequant, out_dtype)
+def _matmul(x, lin, dtype):
+    """``x @ W^T`` of a float dense without its bias: the ``dtype``-rounded
+    operands, accumulated in promote(dtype, f32).  bfloat16 on CUDA is one
+    bf16 GEMM with a float32 result (``_MmF32``); elsewhere a float32
+    product of the rounded operands (exact products, float32 sums; TF32 is
+    off, device.py)."""
     acc = torch.promote_types(dtype, torch.float32)
     w = lin.weight.to(dtype)
     if dtype == torch.bfloat16 and x.is_cuda:
         y = _MmF32.apply(x.reshape(-1, x.shape[-1]).to(dtype), w)
-        y = y.reshape(*x.shape[:-1], w.shape[0])
-    else:
-        y = F.linear(x.to(dtype).to(acc), w.to(acc))
-    y = y + lin.bias.to(acc)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.to(dtype).to(acc), w.to(acc))
+
+
+def _dense(x, lin, dtype, out_dtype=None, prequant=None):
+    """One dense layer.  int8: ``Int8Linear``.  float: ``_matmul`` plus the
+    bias in promote(dtype, f32), rounded once to ``out_dtype``."""
+    if isinstance(lin, Int8Linear):
+        return lin(x, prequant, out_dtype)
+    y = _matmul(x, lin, dtype) + lin.bias.to(torch.promote_types(dtype, torch.float32))
     return y if out_dtype is None else y.to(out_dtype)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+def _row_dense(xs, lins, dtype):
+    """A row-split dense over a tp group: rank r multiplies its input
+    columns ``xs[r]`` by its rows of W (``lins[r]``), the partial products
+    are summed on the first rank (``group_sum``, in rank order) and the
+    bias, replicated, is added once after the sum.  int8: every rank codes
+    its columns with the whole row's scale (the group's maximum of the
+    ranks' row maxima, exact) and the int32 partials are summed before the
+    dequantization, so the result equals the un-split dense bit for bit.
+    float: the float32 partials are summed, a rounding the un-split dense
+    does not make.  One rank is ``_dense``."""
+    if len(lins) == 1:
+        return _dense(xs[0], lins[0], dtype)
+    lin0 = lins[0]
+    first = xs[0].device
+    if isinstance(lin0, Int8Linear):
+        amax = group_max([x.to(torch.float32).abs().amax(dim=-1, keepdim=True) for x in xs])
+        scale = torch.clamp_min(amax, 1e-30)
+        parts = []
+        for x, lin in zip(xs, lins):
+            xq, _ = quantize_rows(x, scale.to(x.device))
+            parts.append(fused_mlp._int_mm(xq.reshape(-1, x.shape[-1]), lin.weight))
+        y = fused_mlp.dequant_int32(group_sum(parts), scale, lin0.kernel_scale, lin0.bias)
+        return y.reshape(*xs[0].shape[:-1], lin0.weight.shape[0])
+    y = group_sum([_matmul(x, lin, dtype) for x, lin in zip(xs, lins)])
+    return y + lin0.bias.to(torch.promote_types(dtype, torch.float32)).to(first)
+
+
+def mlp_block_split(x, xq, xs, w1s, s1s, b1s, w2s, w2_scale, b2, ln_scale, ln_bias,
+                    eps=1e-12, out_dtype=None, plain=False):
+    """``fused_mlp.fused_mlp_block`` over a tp group (row 10's split mode):
+    ``w1s`` [I/tp, H] (with ``s1s``, ``b1s``) and ``w2s`` [H, I/tp] one a
+    rank, in rank order, each on its rank's device; ``x``, ``xq``, ``xs``,
+    W2's scale and bias and the LayerNorm on the first rank's device, where
+    ``(y, yq, ys)`` come back.  Every rank runs ``split_up``; the group's
+    row maximum of |g| (``group_max``, exact) goes back to every rank,
+    which codes its g with it and writes its int32 partial products
+    (``split_down``) into one [tp, rows, H] buffer on the first rank; there
+    ``split_finish`` sums them in int32 before the dequantization, so the
+    result equals the un-split block bit for bit.  Each piece launches its
+    kernels on CUDA tensors; ``plain`` takes the twins on any device."""
+    pre = "_plain" if plain else ""
+    up, down, finish = (getattr(fused_mlp, f"split_{k}{pre}") for k in ("up", "down", "finish"))
+    if sum(w.shape[0] for w in w1s) > fused_mlp.MAX_I:
+        raise ValueError(f"the split block's whole I must be <= {fused_mlp.MAX_I} "
+                         "(exact int32 sums)")
+    first = x.device
+    ups = [up(xq.to(w1.device), xs.to(w1.device), w1, s1, b1) for w1, s1, b1 in zip(w1s, s1s, b1s)]
+    gmax = group_max([gm for _, gm in ups])  # the global g scale, on the first rank
+    H = x.shape[-1]
+    part = torch.empty((len(w1s), x.numel() // H, H), dtype=torch.int32, device=first)
+    gss = []  # every rank's codes take the same scale
+    for r, ((g, _), w2) in enumerate(zip(ups, w2s)):
+        if w2.device == first:  # written in place; another device's partial comes over
+            gss.append(down(g, gmax, w2, out=part[r])[1])
+        else:
+            p_r, gs_r = down(g, gmax.to(w2.device), w2)
+            part[r].copy_(p_r)
+            gss.append(gs_r)
+    return finish(part, gss[0].to(first), x, w2_scale, b2, ln_scale, ln_bias, eps, out_dtype)
+
+
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], rows=None) -> torch.Tensor:
     """Inverted dropout, a no-op without a seed: the mask comes from a
     generator made from ``seed`` on x's device, so a recomputation under
-    ``torch.utils.checkpoint`` draws the same mask."""
+    ``torch.utils.checkpoint`` draws the same mask.  ``rows = (a, n)``: x
+    holds rows a.. of a batch of n rows (a data-parallel slot), and its
+    mask is rows a.. of the mask drawn for the whole batch: each slot draws
+    all n rows' uniforms and keeps its own, so a mesh of dp slots draws dp
+    times the one-device step's uniforms (n x L x H floats a site, each
+    slot).  Rows past the batch's end (shape padding) are kept."""
     if seed is None or rate <= 0.0:
         return x
     g = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    a, n = rows if rows is not None else (0, x.shape[0])
+    u = torch.rand((n,) + tuple(x.shape[1:]), generator=g, device=x.device)[a : a + x.shape[0]]
+    if u.shape[0] < x.shape[0]:
+        u = torch.cat([u, u.new_zeros((x.shape[0] - u.shape[0],) + tuple(x.shape[1:]))])
+    keep = u < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+@dataclasses.dataclass(frozen=True)
+class DropoutDraw:
+    """The seeds of one train-mode forward, drawn up front: each layer's
+    two attention seed words and the ``1 + 2 x layers`` hidden-dropout
+    seeds.  The data-parallel train step draws one and hands it to every
+    slot's forward."""
+
+    words: tuple
+    hseeds: tuple
+
+
+def draw_dropout(generator: torch.Generator, n_layers: int) -> DropoutDraw:
+    """Every seed of one forward, from ``generator`` (in the order a
+    forward given the generator draws them)."""
+    words = tuple(flash_attention.draw_seed(generator) for _ in range(n_layers))
+    hseeds = torch.randint(0, 2**62, (1 + 2 * n_layers,), generator=generator).tolist()
+    return DropoutDraw(words, tuple(hseeds))
+
+
 class AnceLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, int8: bool = False):
+    """One transformer layer; with ``tp`` > 1 one rank's Megatron slice:
+    the fused QKV and FFN-up column-split (``nh / tp`` heads: the rank's
+    ``[q_r | k_r | v_r]``), the attention output and FFN-down row-split."""
+
+    def __init__(self, cfg: ModelConfig, int8: bool = False, tp: int = 1):
         super().__init__()
         H, I = cfg.hidden_size, cfg.intermediate_size
         linear = Int8Linear if int8 else nn.Linear
         self.attention = nn.ModuleDict(
             {
-                "qkv": linear(H, 3 * H),  # [q | k | v] kernels (and scales), fused
-                "output": linear(H, H),
+                "qkv": linear(H, 3 * H // tp),  # [q | k | v] kernels (and scales), fused
+                "output": linear(H // tp, H),
                 "output_layer_norm": nn.LayerNorm(H),
             }
         )
-        self.intermediate = linear(H, I)
-        self.output = linear(I, H)
+        self.intermediate = linear(H, I // tp)
+        self.output = linear(I // tp, H)
         self.output_layer_norm = nn.LayerNorm(H)
+
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """A tower splits over ``tp`` ranks only where ``tp`` divides the heads
+    and the intermediate width (JAX's GSPMD would reshard instead)."""
+    if tp < 1 or cfg.num_attention_heads % tp or cfg.intermediate_size % tp:
+        raise ValueError(
+            f"tp={tp} must divide num_attention_heads ({cfg.num_attention_heads}) and "
+            f"intermediate_size ({cfg.intermediate_size})"
+        )
 
 
 class AnceEncoder(nn.Module):
@@ -192,14 +316,18 @@ class AnceEncoder(nn.Module):
     ``int8`` builds the int8 tower (``from_jax_params`` decides it from the
     params).  ``plain=True`` runs every kernel's plain twin on any device
     (the reference a kernel run is held against); the default dispatches
-    on the tensors' device.
+    on the tensors' device.  ``tp`` > 1 makes one rank's slice of a
+    tensor-parallel tower (``AnceLayer``), which runs with the rest of its
+    group through ``encode_split``.
     """
 
-    def __init__(self, cfg: ModelConfig, int8: bool = False, plain: bool = False):
+    def __init__(self, cfg: ModelConfig, int8: bool = False, plain: bool = False, tp: int = 1):
         super().__init__()
+        check_tp(cfg, tp)
         self.cfg = cfg
         self.int8 = int8
         self.plain = plain
+        self.tp = tp
         H = cfg.hidden_size
         self.embeddings = nn.ModuleDict(
             {
@@ -209,157 +337,226 @@ class AnceEncoder(nn.Module):
                 "layer_norm": nn.LayerNorm(H),
             }
         )
-        self.layers = nn.ModuleList(AnceLayer(cfg, int8) for _ in range(cfg.num_hidden_layers))
+        self.layers = nn.ModuleList(
+            AnceLayer(cfg, int8, tp) for _ in range(cfg.num_hidden_layers)
+        )
         self.embedding_head = nn.Linear(H, cfg.embedding_dim)
         self.norm = nn.LayerNorm(cfg.embedding_dim)
 
     @classmethod
     def from_jax_params(
         cls, params, cfg: ModelConfig, device: DeviceLike = None, plain: bool = False,
+        tp: int = 1,
     ) -> "AnceEncoder":
         """Build from the JAX package's nested-dict params (numpy leaves,
         float or int8-quantized) without a throwaway random init.  The
         embedding width is the head's, as in the JAX ``encode`` (an HF
-        ``config.json`` does not record it: ``config_from_hf``)."""
+        ``config.json`` does not record it: ``config_from_hf``).  With
+        ``tp`` > 1 the params are one rank's slices
+        (``convert.tp_slice``)."""
         sd = params_from_jax(params)
         emb_dim = sd["embedding_head.weight"].shape[0]
         if emb_dim != cfg.embedding_dim:
             cfg = dataclasses.replace(cfg, embedding_dim=emb_dim)
         with torch.device("meta"):
-            enc = cls(cfg, int8="layers.0.attention.qkv.kernel_scale" in sd, plain=plain)
+            enc = cls(cfg, int8="layers.0.attention.qkv.kernel_scale" in sd, plain=plain, tp=tp)
         enc.load_state_dict(sd, assign=True)
         return enc.to(resolve_device(device)).eval()
 
-    def hidden_states(
-        self,
-        input_ids: torch.Tensor,
-        attention_mask: torch.Tensor,
-        dropout: Optional[torch.Generator] = None,
-        trainable: bool = False,
-    ):
-        cfg = self.cfg
-        dtype = torch_dtype(cfg.dtype)
-        carry = torch.promote_types(dtype, torch.bfloat16)  # residual carry
-        eps = cfg.layer_norm_eps
-        plain = self.plain
-        nh = cfg.num_attention_heads
-        hd, ad = cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob
-        if trainable and self.int8:
-            raise ValueError("int8 towers are inference-only: a trainable tower needs float weights")
-        n = len(self.layers)
-        if dropout is not None:  # every seed of this forward, drawn up front
-            words = [flash_attention.draw_seed(dropout) for _ in range(n)]
-            hseeds = torch.randint(0, 2**62, (1 + 2 * n,), generator=dropout).tolist()
-        else:
-            words, hseeds = [None] * n, [None] * (1 + 2 * n)
-        if trainable or dropout is not None:
-            flash = flash_attention.flash_attention_plain if plain else flash_attention.flash_attention
-
-            def attention(qkv, seed):
-                return flash(qkv, attention_mask, nh, seed=seed, drop_rate=ad)
-        else:
-            fused = (
-                fused_attention.fused_attention_qkv_plain if plain
-                else fused_attention.fused_attention_qkv
-            )
-
-            def attention(qkv, seed):
-                return fused(qkv, attention_mask, nh)
-        ln_quant = (
-            fused_ln.fused_residual_ln_quant_plain if plain
-            else fused_ln.fused_residual_ln_quant
-        )
-        mlp_kernel = fused_mlp.fused_mlp_block_plain if plain else fused_mlp.fused_mlp_block
-        # the reference's gates (encoder.py:345-368), less the TPU-only ones
-        use_fused_quant = (
-            cfg.use_fused_ln and carry == torch.bfloat16 and self.int8 and dropout is None
-        )
-        use_fused_mlp = use_fused_quant and cfg.use_fused_mlp
-        remat = cfg.remat if torch.is_grad_enabled() and not self.int8 else False
-
-        def res_ln(x, branch_out, ln):
-            """(LayerNorm(x + branch_out), prequant) in the carry dtype; the
-            branch output is cast to the carry before the add."""
-            if use_fused_quant:
-                y, yq, ys = ln_quant(
-                    x, branch_out.to(x.dtype), ln.weight, ln.bias, eps, out_dtype=carry
-                )
-                return y, (yq, ys)
-            return layer_norm(x + branch_out.to(x.dtype), ln.weight, ln.bias, eps, carry), None
-
-        emb = self.embeddings
-        if cfg.model_type.upper().startswith("BERT"):
-            pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
-        else:
-            pos = roberta_position_ids(input_ids, cfg.pad_token_id)
-        x = (
-            emb["word_embeddings"](input_ids)
-            + emb["position_embeddings"](pos)
-            + emb["token_type_embeddings"](torch.zeros_like(input_ids))
-        )
-        ln = emb["layer_norm"]
-        if use_fused_quant:  # float32 input, no residual
-            x, xq, xs = ln_quant(x, None, ln.weight, ln.bias, eps, out_dtype=carry)
-            pq = (xq, xs)
-        else:
-            x, pq = layer_norm(x, ln.weight, ln.bias, eps, carry), None
-        x = _dropout(x, hd, hseeds[0])
-        gelu = "tanh" if dtype == torch.bfloat16 else "none"
-
-        def mlp_block(x, pq, layer, seed):
-            if use_fused_mlp:
-                ffn, out, ln = layer.intermediate, layer.output, layer.output_layer_norm
-                x, xq, xs = mlp_kernel(
-                    x, pq[0], pq[1], ffn.weight, ffn.kernel_scale, ffn.bias,
-                    out.weight, out.kernel_scale, out.bias, ln.weight, ln.bias,
-                    eps=eps, out_dtype=carry,
-                )
-                return x, (xq, xs)
-            inter = F.gelu(
-                _dense(x, layer.intermediate, dtype, out_dtype=dtype, prequant=pq),
-                approximate=gelu,
-            )
-            out = _dropout(_dense(inter, layer.output, dtype), hd, seed)
-            return res_ln(x, out, layer.output_layer_norm)
-
-        def layer_fn(x, pq, layer, words, s_attn, s_mlp):
-            att = layer.attention
-            qkv = _dense(x, att["qkv"], dtype, out_dtype=dtype, prequant=pq).contiguous()
-            out = _dropout(_dense(attention(qkv, words), att["output"], dtype), hd, s_attn)
-            x, pq = res_ln(x, out, att["output_layer_norm"])
-            if remat == "mlp":  # float towers only: pq is None
-                return checkpoint(lambda x: mlp_block(x, None, layer, s_mlp)[0], x,
-                                  use_reentrant=False, preserve_rng_state=False), None
-            return mlp_block(x, pq, layer, s_mlp)
-
-        for li, layer in enumerate(self.layers):
-            args = (layer, words[li], hseeds[1 + 2 * li], hseeds[2 + 2 * li])
-            if remat and remat != "mlp":  # the whole layer
-                x = checkpoint(lambda x, a=args: layer_fn(x, None, *a)[0], x,
-                               use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, pq = layer_fn(x, pq, *args)
-        return x
+    @property
+    def device(self) -> torch.device:
+        return self.embeddings["word_embeddings"].weight.device
 
     def forward(
         self,
         input_ids: torch.Tensor,
         attention_mask: torch.Tensor,
         use_mean: bool = False,
-        dropout: Optional[torch.Generator] = None,
+        dropout=None,
         trainable: bool = False,
+        row_offset: int = 0,
+        batch_rows: Optional[int] = None,
     ) -> torch.Tensor:
         """encoder -> CLS (or masked-mean) pooling -> embeddingHead ->
         LayerNorm(eps 1e-5); [B, embedding_dim] float32
         (haconvdr_tpu/models/encoder.py:489-519).  ``dropout``: a
-        generator turns on train-mode dropout (None: eval); ``trainable``
-        marks the tower gradients flow through (flash attention)."""
-        input_ids = input_ids.to(torch.int64)
-        hidden = self.hidden_states(input_ids, attention_mask, dropout, trainable)
-        if use_mean:
-            m = attention_mask.to(torch.float32)[:, :, None]
-            pooled = (hidden * m).sum(dim=1) / m.sum(dim=1)
+        generator (or a ``DropoutDraw``) turns on train-mode dropout (None:
+        eval); ``trainable`` marks the tower gradients flow through (flash
+        attention).  ``row_offset`` / ``batch_rows``: these rows are rows
+        ``row_offset..`` of a batch of ``batch_rows`` (a data-parallel
+        slot's slice; default the whole batch), and every dropout mask is
+        those rows' mask of the whole batch."""
+        rows = (row_offset, row_offset + input_ids.shape[0] if batch_rows is None else batch_rows)
+        return encode_split([self], input_ids, attention_mask, use_mean, dropout, trainable,
+                            rows)
+
+
+def encode_split(
+    towers, input_ids: torch.Tensor, attention_mask: torch.Tensor, use_mean: bool = False,
+    dropout=None, trainable: bool = False, rows=None,
+) -> torch.Tensor:
+    """The tower's forward over a tp group: ``towers`` holds one
+    ``AnceEncoder`` a rank (``tp`` each, in rank order, each on its
+    rank's device; one tower is ``AnceEncoder.forward``).  The embeddings,
+    LayerNorms and the head run on the first rank; each layer's column
+    denses and attention run on every rank on its slice and the row denses
+    meet on the first rank (``_row_dense``, ``mlp_block_split``).
+    Returns [B, embedding_dim] float32 on the first rank's device."""
+    if len(towers) != towers[0].tp:
+        raise ValueError(f"a group of {len(towers)} towers split {towers[0].tp} ways")
+    input_ids = input_ids.to(torch.int64)
+    t0 = towers[0]
+    hidden = _hidden_states(towers, input_ids.to(t0.device), attention_mask.to(t0.device),
+                            dropout, trainable, rows)
+    if use_mean:
+        m = attention_mask.to(t0.device).to(torch.float32)[:, :, None]
+        pooled = (hidden * m).sum(dim=1) / m.sum(dim=1)
+    else:
+        pooled = hidden[:, 0]
+    proj = _dense(pooled, t0.embedding_head, torch_dtype(t0.cfg.dtype))
+    return layer_norm(proj, t0.norm.weight, t0.norm.bias, 1e-5)
+
+
+def _hidden_states(towers, input_ids, attention_mask, dropout=None, trainable=False, rows=None):
+    """The transformer over a tp group of towers (one tower: the un-split
+    forward); ids and mask on the first tower's device."""
+    t0 = towers[0]
+    cfg = t0.cfg
+    T = len(towers)
+    dtype = torch_dtype(cfg.dtype)
+    carry = torch.promote_types(dtype, torch.bfloat16)  # residual carry
+    eps = cfg.layer_norm_eps
+    plain = t0.plain
+    nh = cfg.num_attention_heads // T
+    hd, ad = cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob
+    if trainable and t0.int8:
+        raise ValueError("int8 towers are inference-only: a trainable tower needs float weights")
+    if T > 1 and (trainable or dropout is not None):
+        raise ValueError("a tensor-parallel tower is inference-only: train on a dp mesh")
+    n = cfg.num_hidden_layers
+    if isinstance(dropout, torch.Generator):  # every seed of this forward, drawn up front
+        dropout = draw_dropout(dropout, n)
+    if dropout is not None:
+        words, hseeds = dropout.words, dropout.hseeds
+    else:
+        words, hseeds = [None] * n, [None] * (1 + 2 * n)
+    row_offset = 0 if rows is None else rows[0]
+    devs = [t.device for t in towers]
+    masks = [attention_mask.to(d) for d in devs]
+
+    def bcast(t):
+        """``t`` on every rank's device (no copy where it already is)."""
+        return [t.to(d) for d in devs]
+
+    if trainable or dropout is not None:
+        flash = flash_attention.flash_attention_plain if plain else flash_attention.flash_attention
+
+        def attention(qkv, mask, seed):
+            return flash(qkv, mask, nh, seed=seed, drop_rate=ad, row_offset=row_offset)
+    else:
+        fused = (
+            fused_attention.fused_attention_qkv_plain if plain
+            else fused_attention.fused_attention_qkv
+        )
+
+        def attention(qkv, mask, seed):
+            return fused(qkv, mask, nh)
+    ln_quant = (
+        fused_ln.fused_residual_ln_quant_plain if plain
+        else fused_ln.fused_residual_ln_quant
+    )
+    if T == 1:
+        mlp_kernel = fused_mlp.fused_mlp_block_plain if plain else fused_mlp.fused_mlp_block
+    else:
+        def mlp_kernel(*args, **kw):
+            return mlp_block_split(*args, **kw, plain=plain)
+    # the reference's gates (encoder.py:345-368), less the TPU-only ones
+    use_fused_quant = (
+        cfg.use_fused_ln and carry == torch.bfloat16 and t0.int8 and dropout is None
+    )
+    use_fused_mlp = use_fused_quant and cfg.use_fused_mlp
+    remat = cfg.remat if torch.is_grad_enabled() and not t0.int8 else False
+
+    def res_ln(x, branch_out, ln):
+        """(LayerNorm(x + branch_out), prequant) in the carry dtype; the
+        branch output is cast to the carry before the add."""
+        if use_fused_quant:
+            y, yq, ys = ln_quant(
+                x, branch_out.to(x.dtype), ln.weight, ln.bias, eps, out_dtype=carry
+            )
+            return y, (yq, ys)
+        return layer_norm(x + branch_out.to(x.dtype), ln.weight, ln.bias, eps, carry), None
+
+    def col_inputs(x, pq):
+        """x and its prequantization on every rank."""
+        pqs = [None] * T if pq is None else list(zip(bcast(pq[0]), bcast(pq[1])))
+        return bcast(x), pqs
+
+    emb = t0.embeddings
+    if cfg.model_type.upper().startswith("BERT"):
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+    else:
+        pos = roberta_position_ids(input_ids, cfg.pad_token_id)
+    x = (
+        emb["word_embeddings"](input_ids)
+        + emb["position_embeddings"](pos)
+        + emb["token_type_embeddings"](torch.zeros_like(input_ids))
+    )
+    ln = emb["layer_norm"]
+    if use_fused_quant:  # float32 input, no residual
+        x, xq, xs = ln_quant(x, None, ln.weight, ln.bias, eps, out_dtype=carry)
+        pq = (xq, xs)
+    else:
+        x, pq = layer_norm(x, ln.weight, ln.bias, eps, carry), None
+    x = _dropout(x, hd, hseeds[0], rows)
+    gelu = "tanh" if dtype == torch.bfloat16 else "none"
+
+    def mlp_block(x, pq, lyrs, seed):
+        out, ln = lyrs[0].output, lyrs[0].output_layer_norm
+        if use_fused_mlp:
+            if T == 1:
+                ffn = lyrs[0].intermediate
+                w1, s1, b1, w2 = ffn.weight, ffn.kernel_scale, ffn.bias, out.weight
+            else:
+                w1 = [l.intermediate.weight for l in lyrs]
+                s1 = [l.intermediate.kernel_scale for l in lyrs]
+                b1 = [l.intermediate.bias for l in lyrs]
+                w2 = [l.output.weight for l in lyrs]
+            x, xq, xs = mlp_kernel(
+                x, pq[0], pq[1], w1, s1, b1, w2, out.kernel_scale, out.bias, ln.weight, ln.bias,
+                eps=eps, out_dtype=carry,
+            )
+            return x, (xq, xs)
+        xr, pqs = col_inputs(x, pq)
+        inter = [
+            F.gelu(_dense(xi, l.intermediate, dtype, out_dtype=dtype, prequant=pi),
+                   approximate=gelu)
+            for xi, pi, l in zip(xr, pqs, lyrs)
+        ]
+        out = _dropout(_row_dense(inter, [l.output for l in lyrs], dtype), hd, seed, rows)
+        return res_ln(x, out, ln)
+
+    def layer_fn(x, pq, lyrs, words, s_attn, s_mlp):
+        xr, pqs = col_inputs(x, pq)
+        ctx = []
+        for xi, pi, mi, l in zip(xr, pqs, masks, lyrs):
+            qkv = _dense(xi, l.attention["qkv"], dtype, out_dtype=dtype, prequant=pi).contiguous()
+            ctx.append(attention(qkv, mi, words))
+        out = _row_dense(ctx, [l.attention["output"] for l in lyrs], dtype)
+        out = _dropout(out, hd, s_attn, rows)
+        x, pq = res_ln(x, out, lyrs[0].attention["output_layer_norm"])
+        if remat == "mlp":  # float towers only: pq is None
+            return checkpoint(lambda x: mlp_block(x, None, lyrs, s_mlp)[0], x,
+                              use_reentrant=False, preserve_rng_state=False), None
+        return mlp_block(x, pq, lyrs, s_mlp)
+
+    for li in range(n):
+        args = ([t.layers[li] for t in towers], words[li], hseeds[1 + 2 * li],
+                hseeds[2 + 2 * li])
+        if remat and remat != "mlp":  # the whole layer
+            x = checkpoint(lambda x, a=args: layer_fn(x, None, *a)[0], x,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
-            pooled = hidden[:, 0]
-        proj = _dense(pooled, self.embedding_head, torch_dtype(self.cfg.dtype))
-        return layer_norm(proj, self.norm.weight, self.norm.bias, 1e-5)
+            x, pq = layer_fn(x, pq, *args)
+    return x
+

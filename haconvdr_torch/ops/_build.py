@@ -70,13 +70,23 @@ SIGNATURES = {
     # x, xq, xs, w1, s1, b1, w2, s2, b2, ln scale, ln bias, eps, rows, H, I,
     # y, yq, ys, scratch g, gmax, gq, gs, t, stream
     "hc_fused_mlp": [_P] * 11 + [_F, _I, _I, _I] + [_P] * 9,
+    # row 10's split mode: xq, xs, w1, s1, b1, rows, H, I (the rank's), g,
+    # gmax, stream
+    "hc_fused_mlp_split_up": [_P] * 5 + [_I, _I, _I] + [_P] * 3,
+    # g, gmax (the group's), w2, rows, H, I, scratch gq, gs, part(int32
+    # [rows, H]), stream
+    "hc_fused_mlp_split_down": [_P] * 3 + [_I, _I, _I] + [_P] * 4,
+    # part(int32 [tp, rows, H]), tp, gs, x, s2, b2, ln scale, ln bias, eps,
+    # rows, H, scratch t, y, yq, ys, stream
+    "hc_fused_mlp_split_finish": [_P, _I] + [_P] * 6 + [_F, _I, _I] + [_P] * 5,
     # qkv, mask(int32), out, stats(float2 [B, nh, L]), B, L, H, num_heads,
-    # dtype, drop_on, seed0, seed1, keep threshold, 1 / (1 - rate), stream
-    "hc_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _P],
+    # dtype, drop_on, seed0, seed1, keep threshold, 1 / (1 - rate), row0
+    # (the first row's index in the whole batch), stream
+    "hc_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _I, _P],
     # qkv, mask, dout, stats, dvec(float [B, nh, L] scratch), dqkv, B, L, H,
     # num_heads, dtype, drop_on, seed0, seed1, keep threshold, 1 / (1 - rate),
-    # stream
-    "hc_flash_bwd": [_P] * 6 + [_I] * 8 + [_U, _F, _P],
+    # row0, stream
+    "hc_flash_bwd": [_P] * 6 + [_I] * 8 + [_U, _F, _I, _P],
 }
 
 _lock = threading.Lock()

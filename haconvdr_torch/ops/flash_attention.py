@@ -29,6 +29,12 @@ kernel's mask bit for bit, and the backward regenerates it: no mask is
 stored.  The port draws the two int32 seed words of a layer from an
 explicit ``torch.Generator`` (``draw_seed``); it cannot reproduce JAX's
 threefry keys (``rng_to_seed``), so tests hand both packages the same words.
+
+``row_offset`` (default 0) is the first row's index in the whole batch:
+row b of the call draws the mask of tile ``(row_offset + b) * num_heads +
+h``.  A data-parallel slot that holds rows a:b of a batch passes
+``row_offset=a`` and draws rows a:b of the whole batch's masks (JAX's
+kernel takes no offset: its one program sees the whole batch).
 """
 
 from __future__ import annotations
@@ -106,9 +112,12 @@ def keep_mask(s0: torch.Tensor, s1: torch.Tensor, L: int, thresh: int) -> torch.
     return h < thresh
 
 
-def _heads_keep(seed: Sequence[int], B: int, nh: int, L: int, drop_rate: float, device):
-    """[B, nh, L, L] keep mask of every (b, h) tile."""
-    idx = torch.arange(B * nh, dtype=torch.int64, device=device).reshape(B, nh)
+def _heads_keep(seed: Sequence[int], B: int, nh: int, L: int, drop_rate: float, device,
+                row_offset: int = 0):
+    """[B, nh, L, L] keep mask of every (b, h) tile, row b being row
+    ``row_offset + b`` of the whole batch."""
+    idx = torch.arange(row_offset * nh, (row_offset + B) * nh, dtype=torch.int64,
+                       device=device).reshape(B, nh)
     s0, s1 = seed_for(seed, idx)
     return keep_mask(s0, s1, L, keep_thresh(drop_rate))
 
@@ -136,21 +145,22 @@ def _drop(x, keep, drop_rate):
 
 def flash_attention_fwd_plain(
     qkv: torch.Tensor, attention_mask: torch.Tensor, num_heads: int,
-    seed: Seed = None, drop_rate: float = 0.0,
+    seed: Seed = None, drop_rate: float = 0.0, row_offset: int = 0,
 ) -> torch.Tensor:
     """The forward kernel's math in plain PyTorch (no autograd)."""
     COUNTS["plain_fwd"] += 1
     B, L, H3 = qkv.shape
     _, _, v, p, _, acc, _ = _plain_parts(qkv, attention_mask, num_heads)
     if drop_rate > 0.0:
-        p = _drop(p, _heads_keep(seed, B, num_heads, L, drop_rate, qkv.device), drop_rate)
+        keep = _heads_keep(seed, B, num_heads, L, drop_rate, qkv.device, row_offset)
+        p = _drop(p, keep, drop_rate)
     o = p.to(qkv.dtype).to(acc) @ v
     return o.transpose(1, 2).reshape(B, L, H3 // 3).to(qkv.dtype)
 
 
 def flash_attention_bwd_plain(
     qkv: torch.Tensor, attention_mask: torch.Tensor, grad_out: torch.Tensor,
-    num_heads: int, seed: Seed = None, drop_rate: float = 0.0,
+    num_heads: int, seed: Seed = None, drop_rate: float = 0.0, row_offset: int = 0,
 ) -> torch.Tensor:
     """The backward kernel's math in plain PyTorch: ``dqkv`` [B, L, 3H] in
     qkv's dtype for the output cotangent ``grad_out`` [B, L, H]."""
@@ -161,7 +171,7 @@ def flash_attention_bwd_plain(
     keep = None
     pt = p
     if drop_rate > 0.0:
-        keep = _heads_keep(seed, B, num_heads, L, drop_rate, qkv.device)
+        keep = _heads_keep(seed, B, num_heads, L, drop_rate, qkv.device, row_offset)
         pt = _drop(p, keep, drop_rate)
     ptc = pt.to(qkv.dtype).to(acc)
     dv = ptc.transpose(-1, -2) @ do
@@ -200,13 +210,14 @@ def _check(qkv: torch.Tensor, attention_mask: torch.Tensor, num_heads: int):
         raise ValueError("qkv must be contiguous")
 
 
-def _drop_args(seed: Seed, drop_rate: float):
+def _drop_args(seed: Seed, drop_rate: float, row_offset: int):
     if drop_rate <= 0.0:
-        return 0, 0, 0, 0, 1.0
-    return 1, _to_i32(seed[0]), _to_i32(seed[1]), keep_thresh(drop_rate), 1.0 / (1.0 - drop_rate)
+        return 0, 0, 0, 0, 1.0, 0
+    return (1, _to_i32(seed[0]), _to_i32(seed[1]), keep_thresh(drop_rate),
+            1.0 / (1.0 - drop_rate), row_offset)
 
 
-def _fwd_kernel(qkv, mask, num_heads, seed, drop_rate):
+def _fwd_kernel(qkv, mask, num_heads, seed, drop_rate, row_offset=0):
     """Launch the forward kernel: (out [B, L, H], row stats [B, nh, L, 2])."""
     lib = _build.library()
     B, L, H3 = qkv.shape
@@ -216,15 +227,15 @@ def _fwd_kernel(qkv, mask, num_heads, seed, drop_rate):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.hc_flash_fwd(
             qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), stats.data_ptr(),
-            B, L, H3 // 3, num_heads, _DTYPE_CODE[qkv.dtype], *_drop_args(seed, drop_rate),
-            stream,
+            B, L, H3 // 3, num_heads, _DTYPE_CODE[qkv.dtype],
+            *_drop_args(seed, drop_rate, row_offset), stream,
         )
     _build.check(err, "hc_flash_fwd")
     COUNTS["fwd"] += 1
     return out, stats
 
 
-def _bwd_kernel(qkv, mask, stats, grad_out, num_heads, seed, drop_rate):
+def _bwd_kernel(qkv, mask, stats, grad_out, num_heads, seed, drop_rate, row_offset=0):
     """Launch the backward (its dQ kernel, then its dK / dV kernel)."""
     lib = _build.library()
     B, L, H3 = qkv.shape
@@ -237,7 +248,7 @@ def _bwd_kernel(qkv, mask, stats, grad_out, num_heads, seed, drop_rate):
         err = lib.hc_flash_bwd(
             qkv.data_ptr(), mask.data_ptr(), grad_out.data_ptr(), stats.data_ptr(),
             dvec.data_ptr(), dqkv.data_ptr(), B, L, H3 // 3, num_heads,
-            _DTYPE_CODE[qkv.dtype], *_drop_args(seed, drop_rate), stream,
+            _DTYPE_CODE[qkv.dtype], *_drop_args(seed, drop_rate, row_offset), stream,
         )
     _build.check(err, "hc_flash_bwd")
     COUNTS["bwd"] += 1
@@ -246,17 +257,19 @@ def _bwd_kernel(qkv, mask, stats, grad_out, num_heads, seed, drop_rate):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, attention_mask, num_heads, seed, drop_rate, plain):
+    def forward(ctx, qkv, attention_mask, num_heads, seed, drop_rate, row_offset, plain):
         ctx.num_heads, ctx.seed, ctx.drop_rate = num_heads, seed, drop_rate
+        ctx.row_offset = row_offset
         ctx.plain = plain or qkv.device.type == "cpu"
         if ctx.plain:
             ctx.save_for_backward(qkv, attention_mask)
-            return flash_attention_fwd_plain(qkv, attention_mask, num_heads, seed, drop_rate)
+            return flash_attention_fwd_plain(qkv, attention_mask, num_heads, seed, drop_rate,
+                                             row_offset)
         if qkv.device.type != "cuda":
             raise ValueError(f"unsupported device {qkv.device}")
         _check(qkv, attention_mask, num_heads)
         mask = attention_mask.to(torch.int32).contiguous()
-        out, stats = _fwd_kernel(qkv, mask, num_heads, seed, drop_rate)
+        out, stats = _fwd_kernel(qkv, mask, num_heads, seed, drop_rate, row_offset)
         ctx.save_for_backward(qkv, mask, stats)
         return out
 
@@ -265,14 +278,17 @@ class _FlashAttention(torch.autograd.Function):
         qkv, mask = ctx.saved_tensors[:2]
         g = grad_out.to(qkv.dtype).contiguous()
         if ctx.plain:
-            dqkv = flash_attention_bwd_plain(qkv, mask, g, ctx.num_heads, ctx.seed, ctx.drop_rate)
+            dqkv = flash_attention_bwd_plain(qkv, mask, g, ctx.num_heads, ctx.seed, ctx.drop_rate,
+                                             ctx.row_offset)
         else:
             dqkv = _bwd_kernel(qkv, mask, ctx.saved_tensors[2], g, ctx.num_heads, ctx.seed,
-                               ctx.drop_rate)
-        return dqkv, None, None, None, None, None
+                               ctx.drop_rate, ctx.row_offset)
+        return dqkv, None, None, None, None, None, None
 
 
-def _args(seed: Seed, drop_rate: float):
+def _args(seed: Seed, drop_rate: float, row_offset: int):
+    if row_offset < 0:
+        raise ValueError(f"row_offset must be >= 0, got {row_offset}")
     if drop_rate <= 0.0 or seed is None:
         return None, 0.0
     if not 0.0 < drop_rate < 1.0:
@@ -282,19 +298,22 @@ def _args(seed: Seed, drop_rate: float):
 
 def flash_attention(
     qkv: torch.Tensor, attention_mask: torch.Tensor, num_heads: int,
-    seed: Seed = None, drop_rate: float = 0.0,
+    seed: Seed = None, drop_rate: float = 0.0, row_offset: int = 0,
 ) -> torch.Tensor:
     """Trainable-tower attention: differentiable in qkv, attention-probs
     dropout fused in the kernels (off when ``seed`` is None or
-    ``drop_rate`` is 0).  Kernels on CUDA tensors, plain twins on CPU."""
-    seed, drop_rate = _args(seed, drop_rate)
-    return _FlashAttention.apply(qkv, attention_mask, num_heads, seed, drop_rate, False)
+    ``drop_rate`` is 0), each row's masks those of row ``row_offset + b``
+    of the whole batch.  Kernels on CUDA tensors, plain twins on CPU."""
+    seed, drop_rate = _args(seed, drop_rate, row_offset)
+    return _FlashAttention.apply(qkv, attention_mask, num_heads, seed, drop_rate,
+                                 int(row_offset), False)
 
 
 def flash_attention_plain(
     qkv: torch.Tensor, attention_mask: torch.Tensor, num_heads: int,
-    seed: Seed = None, drop_rate: float = 0.0,
+    seed: Seed = None, drop_rate: float = 0.0, row_offset: int = 0,
 ) -> torch.Tensor:
     """``flash_attention`` through the plain twins on any device."""
-    seed, drop_rate = _args(seed, drop_rate)
-    return _FlashAttention.apply(qkv, attention_mask, num_heads, seed, drop_rate, True)
+    seed, drop_rate = _args(seed, drop_rate, row_offset)
+    return _FlashAttention.apply(qkv, attention_mask, num_heads, seed, drop_rate,
+                                 int(row_offset), True)

@@ -3,11 +3,14 @@
 A :class:`Mesh` is a ``[dp, tp]`` numpy array of ``torch.device`` slots
 with the axis names ``("dp", "tp")``:
 
-* ``dp``: batch (data) parallelism; the encoder runs one replica per
-  distinct device and each batch is split over the dp slots
-  (parallel/sharded_encode.py);
-* ``tp``: kept for the layout; no module of the port splits a layer over
-  it yet;
+* ``dp``: batch (data) parallelism; the encoder and the trained towers
+  run one replica per distinct device and each batch is split over the
+  dp slots, the slots of one tp column (a dp group;
+  parallel/sharded_encode.py, train/trainer.py);
+* ``tp``: tensor parallelism inside the encoder: the slots of one dp row
+  (a tp group) each hold one Megatron slice of the tower and run a layer
+  together (models/encoder.py, parallel/sharded_encode.py); training
+  replicates over it, as JAX's ``P("dp", None)`` does (train/trainer.py);
 * the index modules flatten the mesh to one axis of ``size`` slots and
   shard the passages (parallel/sharded_search.py) or the clusters
   (parallel/sharded_ivf.py) over it, in row-major slot order.
@@ -17,7 +20,10 @@ card, or on the CPU (``make_mesh(devices=["cpu"] * 8)``, the port's
 counterpart of the JAX tests' eight virtual CPU devices): each slot keeps
 its own shard and runs its own kernels, and the shards' results are
 merged on the first slot's device.  Slots on one device share that
-device's copy of whatever is replicated.
+device's copy of whatever is replicated.  A group's reductions
+(``group_max``, ``group_sum``) move every operand to the group's first
+slot and combine them in slot order, so their results do not depend on
+timing; an operand already on that device is not copied.
 
 Across processes (``torch.distributed`` initialized), each rank holds a
 mesh of its own slots; the global shard order is the ranks' meshes one
@@ -143,6 +149,29 @@ def shard_batch(mesh: Mesh, x: torch.Tensor, axis: str = "dp") -> List[torch.Ten
     of the other axis)."""
     devs = list(np.moveaxis(mesh.devices, mesh.axis_names.index(axis), 0)[:, 0])
     return [x[a:b].to(d) for (a, b), d in zip(batch_slices(x.shape[0], len(devs)), devs)]
+
+
+def group_max(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The elementwise maximum of a group's tensors (one a slot, in slot
+    order), on the first one's device: each other operand is moved there
+    (a tensor already on it is not copied) and combined in slot order, so
+    the result does not depend on timing."""
+    first = tensors[0].device
+    out = tensors[0]
+    for t in tensors[1:]:
+        out = torch.maximum(out, t.to(first))
+    return out
+
+
+def group_sum(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The elementwise sum of a group's tensors, as ``group_max`` combines
+    them: ``((t0 + t1) + t2) + ...`` on the first one's device, in their
+    dtype (int32 partial products stay int32, and exact)."""
+    first = tensors[0].device
+    out = tensors[0]
+    for t in tensors[1:]:
+        out = out + t.to(first)
+    return out
 
 
 def pad_to_multiple(n: int, m: int) -> int:

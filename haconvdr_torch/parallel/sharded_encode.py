@@ -1,6 +1,7 @@
-"""Runs the encoder over collated batches, on one device or data-parallel
-over a mesh (counterpart of haconvdr_tpu/parallel/sharded_encode.py:
-make_sharded_encode_fn with ``tp=False``, and encode_batches).
+"""Runs the encoder over collated batches, on one device or over a mesh
+(counterpart of haconvdr_tpu/parallel/sharded_encode.py:
+encoder_param_pspecs, shard_params, make_sharded_encode_fn and
+encode_batches).
 
 Batches come from ``haconvdr_torch.data.loader`` (``batch_iter`` /
 ``collate(pad_to=...)``, re-exported here): fixed-size int32 arrays plus
@@ -8,26 +9,33 @@ a ``valid`` row mask; padded rows are dropped from the output.
 
 On a mesh each batch is cut over the ``dp`` slots as GSPMD shards
 ``P("dp", None)``: ``ceil(B / dp)`` rows a slot (a short last slice is
-padded to that shape with copies of the batch's first row).  Each slot
-runs its slice on its own device's replica of the encoder, a slice of
-padding rows only is not run, and the outputs are concatenated in slot
-order on the first slot's device.  A row's embedding is therefore the
-one it gets in a batch of ``ceil(B / dp)`` rows on one device: it depends
-on the batch shape, not on the other rows.
+padded to that shape with copies of the batch's first row).  Each dp row
+of the mesh runs its slice and the outputs are concatenated in slot order
+on the first slot's device.  With replicated params (a module, or
+``shard_params(tp=False)``) every tp slot of a dp row holds the same
+replica and one of them runs; with split params (``shard_params(tp=True)``:
+Megatron column and row splits, ``encoder_param_pspecs``) the tp slots of
+the row run their slices together (``models.encoder.encode_split``).  A
+slice of padding rows only is not run.  A row's embedding is therefore
+the one it gets in a batch of ``ceil(B / dp)`` rows: it depends on the
+batch shape, not on the other rows.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from haconvdr_torch.config import ModelConfig
 from haconvdr_torch.data.loader import batch_iter
 from haconvdr_torch.device import to_numpy, to_torch
+from haconvdr_torch.models.convert import encoder_param_pspecs, tp_slice
 from haconvdr_torch.parallel.mesh import Mesh, batch_slices, replicate
 
-__all__ = ["batch_iter", "dp_encode_fn", "encode_batches"]
+__all__ = ["batch_iter", "dp_encode_fn", "encode_batches", "encoder_param_pspecs",
+           "shard_params"]
 
 EncodeFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -36,18 +44,42 @@ def _device_of(fn) -> Optional[torch.device]:
     return next(fn.parameters()).device if isinstance(fn, torch.nn.Module) else None
 
 
+def shard_params(
+    mesh: Mesh, params, tp: bool = False, *, cfg: ModelConfig,
+) -> List[torch.nn.Module]:
+    """One ``AnceEncoder`` a slot of ``mesh``, in slot order, from the JAX
+    package's nested-dict ``params`` (int8 towers: quantize first).
+    ``tp=False`` replicates the tower (one module a distinct device);
+    ``tp=True`` gives slot (i, j) rank j's Megatron slices
+    (``encoder_param_pspecs``; one module a distinct (device, rank)), which
+    ``dp_encode_fn`` runs as a group per dp row.  ``tp`` must divide the
+    heads and the intermediate width (``ValueError``)."""
+    from haconvdr_torch.models.encoder import AnceEncoder, check_tp
+
+    if not tp:
+        return replicate(mesh, AnceEncoder.from_jax_params(params, cfg, mesh.first))
+    T = mesh.shape["tp"]
+    check_tp(cfg, T)
+    built: Dict[Tuple[torch.device, int], torch.nn.Module] = {}
+    out = []
+    for (_, j), dev in np.ndenumerate(mesh.devices):
+        if (dev, j) not in built:
+            built[dev, j] = AnceEncoder.from_jax_params(tp_slice(params, j, T), cfg, dev, tp=T)
+        out.append(built[dev, j])
+    return out
+
+
 def dp_encode_fn(
     mesh: Mesh, encoder_or_fn: Union[EncodeFn, Sequence[EncodeFn]]
 ) -> Callable[..., torch.Tensor]:
     """``fn(ids, mask, valid=None) -> [B, ...]`` embeddings on the mesh's
     first device, the batch cut over the ``dp`` slots.  ``encoder_or_fn``
     is a module (replicated once to every distinct device of the mesh), a
-    list of one encoder a slot (``mesh.replicate``'s), or a callable that
-    runs on whichever device its inputs are on.  ``valid`` ([B] bool,
-    host) skips the slices that hold no valid row; their rows come back
-    as zeros."""
-    if mesh.shape["tp"] != 1:
-        raise NotImplementedError("the tensor-parallel encode (tp > 1) is not ported")
+    list of one encoder a slot (``replicate``'s or ``shard_params``'), or
+    a callable that runs on whichever device its inputs are on.  A dp row
+    runs its first slot's encoder, or, when the slots hold the slices of a
+    split tower, the row's group.  ``valid`` ([B] bool, host) skips the
+    slices that hold no valid row; their rows come back as zeros."""
     if isinstance(encoder_or_fn, torch.nn.Module):
         per_slot = replicate(mesh, encoder_or_fn)
     elif isinstance(encoder_or_fn, (list, tuple)):
@@ -55,7 +87,8 @@ def dp_encode_fn(
     else:
         per_slot = [encoder_or_fn] * mesh.size
     devices = list(mesh.devices[:, 0])
-    encoders = per_slot[:: mesh.shape["tp"]]
+    T = mesh.shape["tp"]
+    encoders = [_row_runner(per_slot[i * T : (i + 1) * T]) for i in range(len(devices))]
 
     def fn(ids: torch.Tensor, mask: torch.Tensor, valid=None) -> torch.Tensor:
         B = ids.shape[0]
@@ -79,6 +112,16 @@ def dp_encode_fn(
         return out
 
     return fn
+
+
+def _row_runner(group: List[EncodeFn]) -> EncodeFn:
+    """What a dp row runs: its tp group of a split tower's slices together,
+    else its first slot's encoder."""
+    if getattr(group[0], "tp", 1) > 1:
+        from haconvdr_torch.models.encoder import encode_split
+
+        return lambda x, m: encode_split(group, x, m)
+    return group[0]
 
 
 def encode_batches(

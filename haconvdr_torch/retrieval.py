@@ -80,7 +80,9 @@ def get_test_query_embeddings(
 ) -> Tuple[np.ndarray, List[str]]:
     """Encode test queries on the encoder's device, in batches of
     ``per_device_test_batch_size``, or on a ``mesh`` in batches of that
-    many rows a slot (reference get_test_query_embedding,
+    many rows a slot, cut over its dp slots, the encoder replicated (one
+    tp slot of a dp row runs it, as JAX replicates its params over any
+    mesh) (reference get_test_query_embedding,
     src/test_HAConvDR_topiocqa.py:165-219; haconvdr_tpu/retrieval.py:69-86)."""
     if examples is None:
         examples = build_test_examples(cfg, tokenizer)

@@ -5,7 +5,9 @@ One ``torch.save`` file per saved micro step, ``state_<step>.pt`` under the
 directory, holding the whole train state: the query tower's parameters,
 the AdamW moments and count, the accumulation buffer, the micro and global
 step counters and the dropout generator's state, so an interrupted run
-resumes exactly.  The format is the port's own: it does not read or write
+resumes exactly.  A state trained on a mesh saves its first replica
+(``state.model``): the file does not depend on the mesh, and a state saved
+on any number of slots resumes on any other.  The format is the port's own: it does not read or write
 the JAX package's orbax checkpoints (HF-format weights,
 models/hf_import.py, are the interchange format between the packages).
 Files are written under a temporary name and renamed into place, and the
@@ -20,7 +22,7 @@ from typing import List, Optional
 
 import torch
 
-from haconvdr_torch.train.trainer import TrainState
+from haconvdr_torch.train.trainer import TrainState, sync_replicas
 
 _NAME = re.compile(r"^state_(\d+)\.pt$")
 
@@ -63,7 +65,8 @@ def restore_train_state(
     directory: str, like: TrainState, step: Optional[int] = None
 ) -> TrainState:
     """Restore into ``like`` (an initialised TrainState on the target
-    device), in place, and return it."""
+    mesh's first device), in place, and return it; every replica of
+    ``like`` gets the restored parameters."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no train-state checkpoint under {directory}")
@@ -80,4 +83,5 @@ def restore_train_state(
     like.micro_step = saved["micro_step"]
     like.global_step = saved["global_step"]
     like.rng.set_state(saved["rng"])
+    sync_replicas(like)
     return like

@@ -1,5 +1,5 @@
-"""Contrastive training step and host loop on one device (counterpart of
-haconvdr_tpu/train/trainer.py).
+"""Contrastive training step and host loop on a mesh of device slots
+(counterpart of haconvdr_tpu/train/trainer.py).
 
   * a trainable query tower (``AnceEncoder`` in train mode: flash-attention
     kernels, dropout from the state's generator) and a FROZEN passage tower
@@ -13,9 +13,27 @@ haconvdr_tpu/train/trainer.py).
   * ``Trainer.fit``: the best-(micro)batch-loss ``save_fn`` and periodic
     train-state checkpoints with resume (train/checkpoint.py).
 
+Data parallel, as JAX's one jit over the mesh (``P("dp", None)``): each
+micro batch is cut over the mesh's ``dp`` slots (``batch_slices``: ceil(B
+/ dp) rows a slot, a short last slice padded to that shape with copies of
+the batch's first row; the ``tp`` axis replicates).  Each slot embeds its
+rows on its device's replica of the two towers, with the dropout masks of
+those rows in the whole batch (one ``DropoutDraw`` a micro step, the
+slot's first row as the offset).  The slots' embeddings, padding rows
+dropped, are gathered in slot order on the first slot (``.to`` and
+``torch.cat`` carry the query tower's gradient) and the loss is computed
+once there over the whole batch: JAX's loss, every query against every
+positive of the batch, not a mean of per-slot losses.  After the
+backward the other devices' gradients are summed into the first
+replica's accumulation buffer in slot order; the clip and the update run
+there, and the parameters are copied to the other replicas, which stay
+bit-identical.  One slot (``make_mesh(devices=[dev])``) is the
+one-device step.  There is no ``torch.distributed`` training: JAX's
+trainer is one program over the mesh's devices.
+
 The port updates the parameters, the AdamW moments and the accumulation
 buffer in place (JAX returns new arrays): one copy of each lives on the
-device.
+first device.
 """
 
 from __future__ import annotations
@@ -24,8 +42,8 @@ import dataclasses
 import logging
 import math
 import time
-from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,7 +51,8 @@ from torch import nn
 
 from haconvdr_torch.config import ModelConfig, TrainConfig
 from haconvdr_torch.device import DeviceLike, resolve_device, to_torch
-from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+from haconvdr_torch.models.encoder import AnceEncoder, draw_dropout, quantize_encoder_params
+from haconvdr_torch.parallel.mesh import Mesh, batch_slices, replicate
 from haconvdr_torch.train.loss import ranking_loss, ranking_loss_prepos
 
 logger = logging.getLogger(__name__)
@@ -142,6 +161,22 @@ class TrainState:
     micro_step: int  # micro batches in the current accumulation window
     global_step: int  # applied updates
     rng: torch.Generator  # dropout seeds (host generator), drawn every micro step
+    # one tower a distinct device of the step's mesh, ``model`` first (the
+    # step makes them from ``model``); every update leaves them bit-equal
+    replicas: List[AnceEncoder] = field(default_factory=list)
+
+
+def distinct_replicas(mesh: Mesh, module: nn.Module) -> List[nn.Module]:
+    """``module`` and one copy a distinct device of ``mesh`` after the
+    first (``replicate``), in mesh order; ``module`` must live on the
+    mesh's first device."""
+    out: List[nn.Module] = []
+    for m in replicate(mesh, module):
+        if all(m is not o for o in out):
+            out.append(m)
+    if out[0] is not module:
+        raise ValueError(f"the tower must live on the mesh's first device {mesh.first}")
+    return out
 
 
 def init_train_state(model: AnceEncoder, optimizer: ClipAdamW, seed: int = 42) -> TrainState:
@@ -180,48 +215,63 @@ def build_frozen_encoder(
     return enc.requires_grad_(False)
 
 
-def batch_loss(
+def embed_batch(
     model: AnceEncoder,
     frozen: AnceEncoder,
     b: Dict[str, torch.Tensor],
     train_cfg: TrainConfig,
     loss_variant: str = "prepos",
     query_key: str = "conv_qp",
-    dropout: Optional[torch.Generator] = None,
+    dropout=None,
     trainable: bool = True,
-) -> torch.Tensor:
-    """The contrastive loss of one batch of device tensors (the JAX
-    trainer's ``loss_fn``, trainer.py:140-197): the query tower in train
-    mode (``dropout``, ``trainable``; src/train_HAConvDR_topiocqa.py:125),
-    the frozen passage tower in eval mode without gradients (":126")."""
-    q = model(b[query_key], b[f"{query_key}_mask"], dropout=dropout, trainable=trainable)
+    row_offset: int = 0,
+    batch_rows: Optional[int] = None,
+) -> Dict[str, torch.Tensor]:
+    """The embeddings the loss takes (the JAX trainer's ``loss_fn``,
+    trainer.py:140-197): ``q`` from the query tower in train mode
+    (``dropout``, ``trainable``; src/train_HAConvDR_topiocqa.py:125;
+    ``row_offset`` / ``batch_rows`` place these rows in the whole batch),
+    and the passages from the frozen tower in eval mode without gradients
+    (":126"): ``pos``, ``neg`` ([B, D], or [B, R, D] for R negatives per
+    example, folded into the batch for the tower), and for ``"prepos"``
+    ``pseudo`` / ``prepos`` where the config and the batch have them."""
+    out = {"q": model(b[query_key], b[f"{query_key}_mask"], dropout=dropout,
+                      trainable=trainable, row_offset=row_offset, batch_rows=batch_rows)}
     with torch.no_grad():
-        pos = frozen(b["pos_docs"], b["pos_docs_mask"])
+        out["pos"] = frozen(b["pos_docs"], b["pos_docs_mask"])
         neg_ids, neg_mask = b["neg_docs"], b["neg_docs_mask"]
-        neg_valid = None
         if neg_ids.dim() == 3:  # R negatives per example, folded into the batch
             Bn, R, Ln = neg_ids.shape
             neg = frozen(neg_ids.reshape(Bn * R, Ln), neg_mask.reshape(Bn * R, Ln))
-            neg = neg.reshape(Bn, R, -1)
-            if "num_negs" in b:
-                arange = torch.arange(R, device=neg_ids.device)
-                neg_valid = arange[None, :] < b["num_negs"][:, None]
+            out["neg"] = neg.reshape(Bn, R, -1)
         else:
-            neg = frozen(neg_ids, neg_mask)
-        pseudo = prepos = has_pseudo = has_prepos = None
+            out["neg"] = frozen(neg_ids, neg_mask)
         if loss_variant == "prepos":
             if train_cfg.is_pseudo_prepos and "pseudo_prepos_docs" in b:
-                pseudo = frozen(b["pseudo_prepos_docs"], b["pseudo_prepos_docs_mask"])
-                has_pseudo = b["has_pseudo_prepos"]
+                out["pseudo"] = frozen(b["pseudo_prepos_docs"], b["pseudo_prepos_docs_mask"])
             if train_cfg.is_prepos_neg and "prepos_neg_docs" in b:
-                prepos = frozen(b["prepos_neg_docs"], b["prepos_neg_docs_mask"])
-                has_prepos = b["has_prepos_neg"]
+                out["prepos"] = frozen(b["prepos_neg_docs"], b["prepos_neg_docs_mask"])
+    return out
+
+
+def embeddings_loss(
+    e: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor], train_cfg: TrainConfig,
+    loss_variant: str = "prepos",
+) -> torch.Tensor:
+    """The contrastive loss of a whole batch from its embeddings
+    (``embed_batch``'s) and its per-row fields (``valid``, ``num_negs``,
+    ``has_pseudo_prepos``, ``has_prepos_neg``)."""
+    neg_valid = None
+    if e["neg"].dim() == 3 and "num_negs" in b:
+        arange = torch.arange(e["neg"].shape[1], device=e["neg"].device)
+        neg_valid = arange[None, :] < b["num_negs"][:, None]
     if loss_variant == "ranking":
-        return ranking_loss(q, pos, neg, valid=b["valid"], neg_valid=neg_valid)
+        return ranking_loss(e["q"], e["pos"], e["neg"], valid=b["valid"], neg_valid=neg_valid)
     return ranking_loss_prepos(
-        q, pos, neg,
-        pseudo_prepos_embs=pseudo, prepos_neg_doc_embs=prepos,
-        has_pseudo=has_pseudo, has_prepos_neg=has_prepos,
+        e["q"], e["pos"], e["neg"],
+        pseudo_prepos_embs=e.get("pseudo"), prepos_neg_doc_embs=e.get("prepos"),
+        has_pseudo=b["has_pseudo_prepos"] if "pseudo" in e else None,
+        has_prepos_neg=b["has_prepos_neg"] if "prepos" in e else None,
         alpha=train_cfg.alpha, is_pseudo_prepos=train_cfg.is_pseudo_prepos,
         is_prepos_neg=train_cfg.is_prepos_neg, valid=b["valid"],
     )
@@ -233,8 +283,23 @@ def batch_to_device(batch: Dict[str, Any], device: DeviceLike) -> Dict[str, torc
     return {k: to_torch(v, dev) for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
 
 
+def _slot_rows(b: Dict[str, torch.Tensor], a: int, e: int, per: int, dev: torch.device):
+    """Rows a:e of every [B, ...] field of ``b`` on ``dev``, padded to
+    ``per`` rows with copies of the batch's first row (the static slice
+    shape)."""
+    out = {}
+    for k, v in b.items():
+        if v.dim() < 2:
+            continue
+        t = v[a:e]
+        if e - a < per:
+            t = torch.cat([t, v[:1].expand((per - (e - a),) + tuple(v.shape[1:]))])
+        out[k] = t.to(dev)
+    return out
+
+
 def make_train_step(
-    device: DeviceLike,
+    mesh: Mesh,
     model_cfg: ModelConfig,
     train_cfg: TrainConfig,
     optimizer: ClipAdamW,
@@ -242,26 +307,52 @@ def make_train_step(
     query_key: str = "conv_qp",
 ) -> Callable[[TrainState, AnceEncoder, Dict[str, Any]], tuple]:
     """Returns ``step(state, frozen, batch) -> (state, loss)``: one micro
-    batch forward and backward (``batch_loss``), gradients summed into the
+    batch cut over ``mesh``'s dp slots (module docstring), forward and
+    backward with the loss over the whole batch, gradients summed into the
     state's buffer, and every ``accumulation_steps`` micro batches one
-    clipped AdamW update.  ``frozen`` comes from ``build_frozen_encoder``;
-    ``batch`` is a ``collate()`` dict of numpy arrays or tensors; the query
-    field is ``query_key``.  ``loss`` is a device scalar (no host sync)."""
+    clipped AdamW update.  ``frozen`` comes from ``build_frozen_encoder`` on
+    the mesh's first device (replicated once to the others); ``batch`` is a
+    ``collate()`` dict of numpy arrays or tensors; the query field is
+    ``query_key``.  ``loss`` is a device scalar on the first slot (no host
+    sync)."""
     if loss_variant not in ("prepos", "ranking"):
         raise ValueError(f"unknown loss_variant {loss_variant!r}")
-    dev = resolve_device(device)
+    first = mesh.first
     K = train_cfg.accumulation_steps
     dropout_on = model_cfg.hidden_dropout_prob > 0 or model_cfg.attention_probs_dropout_prob > 0
+    slot_devices = list(mesh.devices[:, 0])  # a dp slot's device (tp replicates)
+    frozen_memo: Dict[str, Any] = {"src": None, "copies": None}
 
     def step(state: TrainState, frozen: AnceEncoder, batch: Dict[str, Any]):
-        named = list(state.model.named_parameters())
-        loss = batch_loss(
-            state.model, frozen, batch_to_device(batch, dev), train_cfg, loss_variant,
-            query_key, dropout=state.rng if dropout_on else None,
-        )
-        grads = torch.autograd.grad(loss, [p for _, p in named])
-        for (name, _), g in zip(named, grads):
-            state.accum_grads[name].add_(g)
+        if len(state.replicas) != len(mesh.distinct) or state.replicas[0] is not state.model:
+            state.replicas = distinct_replicas(mesh, state.model)
+        if frozen_memo["src"] is not frozen:
+            frozen_memo["src"], frozen_memo["copies"] = frozen, distinct_replicas(mesh, frozen)
+        towers = dict(zip(mesh.distinct, zip(state.replicas, frozen_memo["copies"])))
+        b = batch_to_device(batch, first)
+        B = b["valid"].shape[0]
+        slices = batch_slices(B, len(slot_devices))
+        per = slices[0][1] - slices[0][0]
+        draw = draw_dropout(state.rng, model_cfg.num_hidden_layers) if dropout_on else None
+        parts = []
+        for (a, e), dev in zip(slices, slot_devices):
+            if e == a:
+                continue
+            model, fz = towers[dev]
+            emb = embed_batch(model, fz, _slot_rows(b, a, e, per, dev), train_cfg,
+                              loss_variant, query_key, dropout=draw, row_offset=a, batch_rows=B)
+            parts.append({k: t[: e - a].to(first) for k, t in emb.items()})
+        emb = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        loss = embeddings_loss(emb, b, train_cfg, loss_variant)
+        named = [list(r.named_parameters()) for r in state.replicas]
+        # a replica whose slots held no row of this batch gets no gradient
+        grads = torch.autograd.grad(loss, [p for rn in named for _, p in rn], allow_unused=True)
+        n = len(named[0])
+        for i, (name, _) in enumerate(named[0]):  # the replicas' in slot order
+            for r in range(len(named)):
+                g = grads[r * n + i]
+                if g is not None:
+                    state.accum_grads[name].add_(g.to(first))
         state.micro_step += 1
         if state.micro_step >= K:
             optimizer.apply_(state.model, state.accum_grads, state.opt_state)
@@ -269,9 +360,19 @@ def make_train_step(
                 g.zero_()
             state.micro_step = 0
             state.global_step += 1
+            sync_replicas(state)
         return state, loss.detach()
 
     return step
+
+
+def sync_replicas(state: TrainState) -> None:
+    """Copy the first replica's parameters to every other replica."""
+    with torch.no_grad():
+        src = dict(state.model.named_parameters())
+        for r in state.replicas[1:]:
+            for name, p in r.named_parameters():
+                p.copy_(src[name])
 
 
 @dataclass
@@ -279,11 +380,14 @@ class Trainer:
     """Host loop: epochs x shuffled batches -> ``make_train_step``; the
     best-loss ``save_fn`` and the periodic train-state checkpoints
     (``state_ckpt_dir`` every ``state_ckpt_every`` micro steps, ``resume``)
-    as in the JAX package (trainer.py:253-347).  ``metrics``
-    (``utils.telemetry.MetricsLogger``) gets one ``train_step`` event
-    (epoch, micro step, loss) after each micro step."""
+    as in the JAX package (trainer.py:253-347).  A step trains
+    ``per_device_train_batch_size`` x ``mesh.size`` rows, every slot of
+    the mesh counted, ``tp`` included, as JAX counts every device
+    (trainer.py:277-281); one slot (``make_mesh(devices=[dev])``) is one
+    device.  ``metrics`` (``utils.telemetry.MetricsLogger``) gets one
+    ``train_step`` event (epoch, micro step, loss) after each micro step."""
 
-    device: DeviceLike
+    mesh: Mesh
     model_cfg: ModelConfig
     train_cfg: TrainConfig
     loss_variant: str = "prepos"
@@ -306,12 +410,12 @@ class Trainer:
         )
 
         cfg = self.train_cfg
-        dev = resolve_device(self.device)
-        batch_size = cfg.per_device_train_batch_size
+        dev = self.mesh.first
+        batch_size = cfg.per_device_train_batch_size * max(1, self.mesh.size)
         total_steps = cfg.num_train_epochs * num_batches(len(examples), batch_size)
         optimizer = make_optimizer(cfg, max(1, total_steps // cfg.accumulation_steps))
         step_fn = make_train_step(
-            dev, self.model_cfg, cfg, optimizer,
+            self.mesh, self.model_cfg, cfg, optimizer,
             loss_variant=self.loss_variant, query_key=self.query_key,
         )
         model = AnceEncoder.from_jax_params(params, self.model_cfg, dev)

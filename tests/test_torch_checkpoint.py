@@ -11,6 +11,7 @@ import torch
 from haconvdr_torch.config import ModelConfig, TrainConfig
 from haconvdr_torch.models.convert import init_params_numpy
 from haconvdr_torch.models.encoder import AnceEncoder
+from haconvdr_torch.parallel.mesh import make_mesh
 from haconvdr_torch.train.checkpoint import latest_step, restore_train_state, save_train_state
 from haconvdr_torch.train.trainer import (
     build_frozen_encoder,
@@ -40,7 +41,7 @@ def _batches(n, B=4):
 
 def _fresh():
     opt = make_optimizer(TCFG, total_steps=20)
-    step = make_train_step("cpu", CFG, TCFG, opt)
+    step = make_train_step(make_mesh(devices=["cpu"]), CFG, TCFG, opt)
     state = init_train_state(AnceEncoder.from_jax_params(init_params_numpy(CFG, 0), CFG, "cpu"),
                              opt, seed=7)
     return step, state, build_frozen_encoder(init_params_numpy(CFG, 1), CFG, TCFG, "cpu")

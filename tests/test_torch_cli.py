@@ -242,6 +242,7 @@ def test_train_retrieval_writes_the_jax_checkpoint(ckpt, tmp_path, prf):
     from haconvdr_torch.cli.train_retrieval import build_train_examples
     from haconvdr_torch.cli.train_retrieval import main as torch_main
     from haconvdr_torch.config import config_from_argv
+    from haconvdr_torch.parallel.mesh import make_mesh
     from haconvdr_torch.train.trainer import Trainer
 
     train_file = _train_file(tmp_path, 8, pseudo=prf)
@@ -283,7 +284,8 @@ def test_train_retrieval_writes_the_jax_checkpoint(ckpt, tmp_path, prf):
     examples, variant = build_train_examples(cfg, thf.load_tokenizer("ANCE", ckpt))
     assert (len(examples), variant) == ((16, "ranking") if prf else (8, "prepos"))
     best = {}
-    Trainer("cpu", model_cfg, cfg.train, loss_variant=variant, query_key="conv_qp",
+    Trainer(make_mesh(devices=["cpu"]), model_cfg, cfg.train, loss_variant=variant,
+            query_key="conv_qp",
             save_fn=lambda m, step: best.update(sd=params_to_jax(m.state_dict()))).fit(
         params, params, examples)
     want = jhf.state_dict_from_params(best["sd"], model_cfg)

@@ -1007,6 +1007,7 @@ def test_fused_mlp_kernel_matches_plain(dev, gen, rows, H, I):
     256 / 512 widths end the 128-column tiles of the down-projection at
     H 256 and take the generic LayerNorm."""
     from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.models.encoder import mlp_block_split
     from haconvdr_torch.ops import fused_mlp as fm
 
     x = (torch.randn(rows, H, device=dev, generator=gen) * 2).to(torch.bfloat16)
@@ -1030,6 +1031,50 @@ def test_fused_mlp_kernel_matches_plain(dev, gen, rows, H, I):
     oq, os_ = quantize_rows(y)
     assert torch.equal(yq, oq) and torch.equal(ys, os_)
     _codes_close(yq, rq)
+
+
+@pytest.mark.parametrize("rows, H, I, tp", [(1003, 768, 3072, 2), (1003, 768, 3072, 4),
+                                          (129, 256, 512, 2), (17, 256, 512, 4)])
+def test_fused_mlp_split_mode_equals_the_block(dev, gen, rows, H, I, tp):
+    """Row 10's split mode (the inner dimension cut over tp ranks on one
+    card): each piece launches its kernels once a rank (finish once), no
+    plain twin; y, yq and ys equal the un-split kernel's bit for bit, and
+    the split twin the un-split twin's; kernel against twin as
+    test_fused_mlp_kernel_matches_plain holds them."""
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.models.encoder import mlp_block_split
+    from haconvdr_torch.ops import fused_mlp as fm
+
+    x = (torch.randn(rows, H, device=dev, generator=gen) * 2).to(torch.bfloat16)
+    xq, xs = quantize_rows(x)
+    w1, s1 = _quant_weight(gen, dev, I, H)
+    w2, s2 = _quant_weight(gen, dev, H, I)
+    b1 = torch.linspace(-0.1, 0.1, I, device=dev)
+    b2 = torch.linspace(-0.1, 0.1, H, device=dev)
+    lns = torch.randn(H, device=dev, generator=gen) * 0.3 + 1.0
+    lnb = torch.randn(H, device=dev, generator=gen) * 0.1
+    n = I // tp
+    w1s = [w1[r * n : (r + 1) * n] for r in range(tp)]
+    s1s = [s1[r * n : (r + 1) * n] for r in range(tp)]
+    b1s = [b1[r * n : (r + 1) * n] for r in range(tp)]
+    w2s = [w2[:, r * n : (r + 1) * n].contiguous() for r in range(tp)]
+    split = (x, xq, xs, w1s, s1s, b1s, w2s, s2, b2, lns, lnb)
+    before = dict(fm.COUNTS)
+    got = mlp_block_split(*split, eps=1e-12)
+    torch.cuda.synchronize()
+    delta = {k: fm.COUNTS[k] - before[k] for k in fm.COUNTS}
+    assert delta == {"kernel": 0, "plain": 0, "split_up": tp, "split_down": tp,
+                     "split_finish": 1, "plain_split_up": 0, "plain_split_down": 0,
+                     "plain_split_finish": 0}
+    whole = fm.fused_mlp_block(x, xq, xs, w1, s1, b1, w2, s2, b2, lns, lnb, eps=1e-12)
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)
+    plain = mlp_block_split(*split, eps=1e-12, plain=True)
+    for g, w in zip(plain, fm.fused_mlp_block_plain(x, xq, xs, w1, s1, b1, w2, s2, b2, lns,
+                                                    lnb, eps=1e-12)):
+        assert torch.equal(g, w)
+    d = (got[0].float() - plain[0].float()).abs()
+    assert bool((d <= 2.0**-6 * plain[0].float().abs() + 0.07).all())
 
 
 @pytest.mark.parametrize("M", [5, 40])
@@ -1105,6 +1150,38 @@ def test_flash_attention_kernels_match_plain(dev, gen, dtype, rate, L):
         assert float((got.float() - want.float()).abs().max()) <= tol
     if dtype == torch.bfloat16:
         _assert_dqkv_parts(x.grad, rdq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_row_offset_draws_the_whole_batchs_masks(dev, gen, dtype):
+    """Rows 11-12 launched on rows a:b with row_offset=a: forward output,
+    row stats and dqkv equal rows a:b of the whole-batch launch bit for
+    bit, and the plain twins with the same offset within
+    test_flash_attention_kernels_match_plain's bounds."""
+    from haconvdr_torch.ops import flash_attention as fa
+
+    B, L, rate, seed = 6, 200, 0.1, (77, -13)
+    qkv = (torch.randn(B, L, 3 * 768, device=dev, generator=gen) * 0.5).to(dtype)
+    go = torch.randn(B, L, 768, device=dev, generator=gen).to(dtype)
+    mask = torch.ones(B, L, dtype=torch.int32, device=dev)
+    mask[1, L // 3 :] = 0
+    mask[4, 40:] = 0
+    out, stats = fa._fwd_kernel(qkv, mask, 12, seed, rate)
+    dq = fa._bwd_kernel(qkv, mask, stats, go, 12, seed, rate)
+    for a, b in ((2, 5), (5, 6)):
+        o, st = fa._fwd_kernel(qkv[a:b].contiguous(), mask[a:b].contiguous(), 12, seed, rate, a)
+        d = fa._bwd_kernel(qkv[a:b].contiguous(), mask[a:b].contiguous(), st,
+                           go[a:b].contiguous(), 12, seed, rate, a)
+        torch.cuda.synchronize()
+        assert torch.equal(o, out[a:b]) and torch.equal(st, stats[a:b])
+        assert torch.equal(d, dq[a:b])
+        ref = fa.flash_attention_fwd_plain(qkv[a:b], mask[a:b], 12, seed, rate, a)
+        rdq = fa.flash_attention_bwd_plain(qkv[a:b], mask[a:b], go[a:b], 12, seed, rate, a)
+        for got, want in ((o, ref), (d, rdq)):
+            tol = 1e-5 if dtype == torch.float32 else _bf16_ulp_of_max(want)
+            assert float((got.float() - want.float()).abs().max()) <= tol
+    o0, _ = fa._fwd_kernel(qkv[2:5].contiguous(), mask[2:5].contiguous(), 12, seed, rate)
+    assert not torch.equal(o0, out[2:5])  # offset 0 draws rows 0-2's masks
 
 
 # --- the bf16 tensor-core forward (csrc/attention_tc.cuh) of rows 1 and 11 --
@@ -1470,6 +1547,7 @@ def test_two_train_steps_on_the_card(dev):
     from haconvdr_torch.models.encoder import AnceEncoder
     from haconvdr_torch.ops import flash_attention as fa
     from haconvdr_torch.ops import fused_mlp
+    from haconvdr_torch.parallel.mesh import make_mesh
     from haconvdr_torch.train.trainer import (
         build_frozen_encoder,
         init_train_state,
@@ -1481,7 +1559,7 @@ def test_two_train_steps_on_the_card(dev):
     tcfg = TrainConfig(accumulation_steps=2, learning_rate=1e-4, is_pseudo_prepos=False,
                        is_prepos_neg=False, frozen_dtype="int8")
     opt = make_optimizer(tcfg, total_steps=10)
-    step = make_train_step(dev, cfg, tcfg, opt)
+    step = make_train_step(make_mesh(devices=[dev]), cfg, tcfg, opt)
     state = init_train_state(AnceEncoder.from_jax_params(init_params_numpy(cfg, 0), cfg, dev), opt)
     frozen = build_frozen_encoder(init_params_numpy(cfg, 1), cfg, tcfg, dev)
     before = {k: v.clone() for k, v in frozen.state_dict().items()}

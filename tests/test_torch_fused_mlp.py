@@ -107,8 +107,9 @@ def test_int8_dense_keeps_leading_axes():
 
 def test_cpu_tensors_take_the_plain_twin_and_supported_widths(mlp_case):
     fm.COUNTS.update(kernel=0, plain=0)
+    before = dict(fm.COUNTS)  # the split mode's counts stay as they were
     y = fm.fused_mlp_block(*_torch_args(mlp_case), eps=1e-12)
-    assert fm.COUNTS == {"kernel": 0, "plain": 1}
+    assert fm.COUNTS == {**before, "kernel": 0, "plain": 1}
     ref = fm.fused_mlp_block_plain(*_torch_args(mlp_case), eps=1e-12)
     for a, b in zip(y, ref):
         assert torch.equal(a, b)

@@ -235,7 +235,8 @@ def test_the_multi_device_layer_needs_the_card_unless_told_cpu(monkeypatch, tmp_
     from haconvdr_torch.parallel.sharded_search import ShardedIndex
 
     assert {"Mesh", "make_mesh", "replicate", "shard_batch", "ShardedIndex", "sharded_topk",
-            "encode_batches", "pad_to_multiple"} <= set(dir(parallel))
+            "encode_batches", "pad_to_multiple", "group_max", "group_sum",
+            "encoder_param_pspecs", "shard_params"} <= set(dir(parallel))
     missing = str(tmp_path / "missing")
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
@@ -280,3 +281,59 @@ def test_wrapper_pieces_take_the_plain_twins_on_cpu():
                                 5, presample=16)
     assert fused_attention.COUNTS == {"kernel": 0, "plain": 1}
     assert fused_topk.COUNTS == {"kernel": 0, "plain": 1}
+
+
+def test_mesh_training_and_the_tp_encode_run_with_jax_blocked():
+    """A mesh train step (four CPU slots, dropout on) and a tp-split int8
+    encode (dp 2 x tp 2) in a process where ``jax`` and ``haconvdr_tpu``
+    cannot be imported: the plain twins only, the split MLP's included."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['haconvdr_tpu'] = None\n"
+        "import dataclasses, numpy as np, torch\n"
+        "from haconvdr_torch.config import ModelConfig, TrainConfig\n"
+        "from haconvdr_torch.models.convert import init_params_numpy\n"
+        "from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params\n"
+        "from haconvdr_torch.ops import flash_attention as fa, fused_mlp as fm\n"
+        "from haconvdr_torch.parallel import make_mesh, shard_params, dp_encode_fn\n"
+        "from haconvdr_torch.train.trainer import (build_frozen_encoder, init_train_state,\n"
+        "    make_optimizer, make_train_step)\n"
+        "cfg = ModelConfig.tiny(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)\n"
+        "tcfg = TrainConfig(accumulation_steps=1, learning_rate=1e-3, is_pseudo_prepos=False,\n"
+        "    is_prepos_neg=False, frozen_dtype='int8')\n"
+        "mesh = make_mesh(devices=['cpu'] * 4)\n"
+        "opt = make_optimizer(tcfg, 4)\n"
+        "step = make_train_step(mesh, cfg, tcfg, opt)\n"
+        "state = init_train_state(AnceEncoder.from_jax_params(init_params_numpy(cfg, 0), cfg,\n"
+        "    'cpu'), opt)\n"
+        "frozen = build_frozen_encoder(init_params_numpy(cfg, 1), cfg, tcfg, 'cpu')\n"
+        "r = np.random.default_rng(0)\n"
+        "b = {k: r.integers(4, 100, (6, 7)).astype(np.int32) for k in ('conv_qp', 'pos_docs',\n"
+        "    'neg_docs')}\n"
+        "b.update({k + '_mask': np.ones((6, 7), np.int32) for k in list(b)})\n"
+        "b['valid'] = np.ones(6, np.int32)\n"
+        "_, loss = step(state, frozen, b)\n"
+        "assert np.isfinite(float(loss)) and state.global_step == 1\n"
+        "assert fa.COUNTS['plain_fwd'] == 3 * cfg.num_hidden_layers and fa.COUNTS['fwd'] == 0\n"
+        "c8 = dataclasses.replace(ModelConfig.tiny(), dtype='bfloat16')\n"
+        "q = quantize_encoder_params(init_params_numpy(c8, 2))\n"
+        "m2 = make_mesh(dp=2, tp=2, devices=['cpu'] * 4)\n"
+        "ids = torch.from_numpy(r.integers(4, 100, (4, 9)).astype(np.int32))\n"
+        "with torch.inference_mode():\n"
+        "    got = dp_encode_fn(m2, shard_params(m2, q, tp=True, cfg=c8))(ids, torch.ones_like(ids))\n"
+        "    want = AnceEncoder.from_jax_params(q, c8, 'cpu')(ids, torch.ones_like(ids))\n"
+        "assert torch.equal(got, want)\n"
+        "assert fm.COUNTS['plain_split_finish'] == 2 * c8.num_hidden_layers\n"
+        "assert fm.COUNTS['split_finish'] == 0\n"
+        "bad = [k for k, v in sys.modules.items() if v is not None and "
+        "k.split('.')[0] in ('jax', 'haconvdr_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+        cwd=PKG.parent,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

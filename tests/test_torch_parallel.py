@@ -417,8 +417,15 @@ def test_dp_encode_skips_slices_of_padding_and_refuses_tp(tower):
         out = dp_encode_fn(make_mesh(devices=["cpu"] * 4), fn)(ids, mask, valid)
     assert calls == [2, 2]  # slices 3 and 4 hold only padding
     assert not out[4:].any()
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        dp_encode_fn(make_mesh(tp=2, devices=["cpu"] * 4), enc)
+    # a dp x tp mesh with replicated params (JAX's get_test_query_embeddings
+    # case): each dp row runs one of its tp slots, and the rows equal the
+    # dp-only mesh's of the same slice shape
+    calls.clear()
+    with torch.inference_mode():
+        tp_out = dp_encode_fn(make_mesh(tp=2, devices=["cpu"] * 4), fn)(ids, mask, valid)
+        ref = dp_encode_fn(make_mesh(devices=["cpu"] * 2), enc)(ids, mask, valid)
+    assert calls == [4]  # two dp slices of 4 rows; the second holds only padding
+    assert torch.equal(tp_out, ref)
 
 
 def test_encode_batches_on_a_mesh(tower):

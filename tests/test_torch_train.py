@@ -40,6 +40,7 @@ from haconvdr_torch.config import ModelConfig, TrainConfig
 from haconvdr_torch.models.convert import init_params_numpy, params_from_jax, params_to_jax
 from haconvdr_torch.models.encoder import AnceEncoder
 from haconvdr_torch.ops import flash_attention as fa
+from haconvdr_torch.parallel.mesh import batch_slices, make_mesh as torch_mesh
 from haconvdr_torch.train import loss as tloss
 from haconvdr_torch.train.trainer import (
     Trainer,
@@ -216,12 +217,16 @@ def _run_jax(cfg, tcfg, params, frozen, batches, variant, query_key):
     return losses, jax.tree_util.tree_map(np.asarray, state.params), first_grads
 
 
-def _run_port(cfg, tcfg, params, frozen_params, batches, variant, query_key):
+def _run_port(cfg, tcfg, params, frozen_params, batches, variant, query_key, mesh=None):
+    """The port's step on ``mesh`` (default one CPU slot): each micro
+    batch of B rows runs one trained forward and backward a dp slot that
+    holds rows."""
+    mesh = mesh or torch_mesh(devices=["cpu"])
     opt = make_optimizer(tcfg, TOTAL)
     norms = []
     clip = opt.clip_
     opt.clip_ = lambda g: norms.append(float(clip(g))) or norms[-1]
-    step = make_train_step("cpu", cfg, tcfg, opt, loss_variant=variant, query_key=query_key)
+    step = make_train_step(mesh, cfg, tcfg, opt, loss_variant=variant, query_key=query_key)
     state = init_train_state(AnceEncoder.from_jax_params(params, cfg, "cpu"), opt)
     frozen = build_frozen_encoder(frozen_params, cfg, tcfg, "cpu")
     before = {k: v.clone() for k, v in frozen.state_dict().items()}
@@ -235,8 +240,11 @@ def _run_port(cfg, tcfg, params, frozen_params, batches, variant, query_key):
             first_grads = params_to_jax({k: v.clone() for k, v in state.accum_grads.items()})
     assert state.global_step == 3 and state.micro_step == 0 and state.opt_state.count == 3
     assert len(norms) == 3 and all(n > tcfg.max_grad_norm for n in norms)  # the clip engaged
-    # one trained forward and backward per micro step: the flash plain twins
-    n = len(batches) * cfg.num_hidden_layers
+    # one trained forward and backward a slot with rows per micro step: the
+    # flash plain twins
+    B = batches[0]["valid"].shape[0]
+    slots = sum(e > a for a, e in batch_slices(B, mesh.shape["dp"]))
+    n = len(batches) * cfg.num_hidden_layers * slots
     assert fa.COUNTS == {"fwd": 0, "bwd": 0, "plain_fwd": n, "plain_bwd": n}
     for k, v in frozen.state_dict().items():  # the frozen tower is unchanged
         assert torch.equal(v, before[k]), k
@@ -253,6 +261,13 @@ def _leaf_rel(ours, ref, select):
 @pytest.mark.parametrize("frozen_dtype", ["", "int8"])
 @pytest.mark.parametrize("variant, query_key", [("prepos", "conv_qp"), ("ranking", "conv_qa")])
 def test_train_step_matches_jax_after_three_updates(variant, query_key, frozen_dtype):
+    compare_with_jax(variant, query_key, frozen_dtype)
+
+
+def compare_with_jax(variant, query_key, frozen_dtype, mesh=None):
+    """Six micro batches of 8 (accumulation 2: three updates) through the
+    port's step on ``mesh`` (default one CPU slot) and JAX's on
+    ``make_mesh(dp=8)``, held to the module docstring's bounds."""
     cfg = ModelConfig.tiny()
     tcfg = TrainConfig(
         accumulation_steps=2, learning_rate=1e-3, weight_decay=0.05, max_grad_norm=0.05,
@@ -263,7 +278,8 @@ def test_train_step_matches_jax_after_three_updates(variant, query_key, frozen_d
     batches = _batches(cfg, variant, 6, seed=11)
     ref_losses, ref_params, ref_grads = _run_jax(cfg, tcfg, params, frozen, batches, variant,
                                                  query_key)
-    losses, ours, grads = _run_port(cfg, tcfg, params, frozen, batches, variant, query_key)
+    losses, ours, grads = _run_port(cfg, tcfg, params, frozen, batches, variant, query_key,
+                                    mesh)
     if frozen_dtype == "":
         np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-5)
         _tree_close(grads, ref_grads, rtol=2e-4, atol=2e-6)
@@ -338,7 +354,7 @@ def test_trainer_fit_smoke(tmp_path):
         for i in range(16)
     ]
     saves = []
-    trainer = Trainer("cpu", cfg, tcfg, save_fn=lambda m, s: saves.append(s),
+    trainer = Trainer(torch_mesh(devices=["cpu"]), cfg, tcfg, save_fn=lambda m, s: saves.append(s),
                       state_ckpt_dir=str(tmp_path / "ckpt"), state_ckpt_every=2)
     state, best = trainer.fit(init_params_numpy(cfg, 0), init_params_numpy(cfg, 1), examples)
     assert np.isfinite(best) and len(saves) >= 1
@@ -379,7 +395,8 @@ def test_trainer_metrics_log_the_jax_trainers_events(tmp_path):
         ("jax", JMetricsLogger, lambda m: jtrain.Trainer(
             make_mesh(devices=jax.devices()[:1]), JModelConfig(**dataclasses.asdict(cfg)),
             JTrainConfig(**dataclasses.asdict(tcfg)), metrics=m)),
-        ("torch", MetricsLogger, lambda m: Trainer("cpu", cfg, tcfg, metrics=m)),
+        ("torch", MetricsLogger, lambda m: Trainer(torch_mesh(devices=["cpu"]), cfg, tcfg,
+                                                   metrics=m)),
     ):
         metrics = logger_cls(str(tmp_path / f"{name}.jsonl"))
         trainer(metrics).fit(params, frozen, examples)
