@@ -1,0 +1,8 @@
+"""Tower: mean host time of Retriever.encode a dispatch (it ends on the host sync), ms."""
+
+from h100_bench.harness.readers import span_mean_s
+
+
+def read(r):
+    s = span_mean_s(r, "embed")
+    return None if s is None else s * 1e3
