@@ -46,7 +46,8 @@ Layers, entry point first:
   models/convert            JAX-layout numpy params <-> module state dict;
                             a tp rank's slices (tp_slice)
   models/hf_import          HF checkpoints <-> params; load_model
-  utils/telemetry           JSONL event sink (Trainer metrics)
+  utils/telemetry           JSONL event sink (Trainer metrics); TRACER,
+                            the serving path's spans and counters
   ops/topk                  block_topk routing, merges, BlockSearcher
   ops/topk_v4               CUDA kernels: v4 window top-2, select, rescore
   ops/fused_topk            CUDA kernel: fused score matmul + exact top-k

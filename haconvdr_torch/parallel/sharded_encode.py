@@ -33,6 +33,7 @@ from haconvdr_torch.data.loader import batch_iter
 from haconvdr_torch.device import to_numpy, to_torch
 from haconvdr_torch.models.convert import encoder_param_pspecs, tp_slice
 from haconvdr_torch.parallel.mesh import Mesh, batch_slices, replicate
+from haconvdr_torch.utils.telemetry import TRACER
 
 __all__ = ["batch_iter", "dp_encode_fn", "encode_batches", "encoder_param_pspecs",
            "shard_params"]
@@ -141,12 +142,21 @@ def encode_batches(
         fn = encoder_or_fn
         device = _device_of(encoder_or_fn)
     embs, ids = [], []
+    batches = iter(batches)
     with torch.inference_mode():
-        for batch in batches:
+        while True:
+            with TRACER.span("tower.collate"):  # a lazy iterator collates here
+                batch = next(batches, None)
+            if batch is None:
+                break
             valid = np.asarray(batch["valid"]).astype(bool)
-            x = to_torch(batch[key_ids], device)
-            m = to_torch(batch[key_mask], device)
-            e = fn(x, m, valid) if mesh is not None else fn(x, m)
-            embs.append(to_numpy(e)[valid])
+            with TRACER.span("tower.h2d"):
+                x = to_torch(batch[key_ids], device)
+                m = to_torch(batch[key_mask], device)
+            with TRACER.span("tower.launch"):
+                e = fn(x, m, valid) if mesh is not None else fn(x, m)
+            with TRACER.span("tower.wait"):
+                e = to_numpy(e)
+            embs.append(e[valid])
             ids.extend(s for s, v in zip(batch["sample_id"], valid) if v)
     return np.concatenate(embs, axis=0), ids

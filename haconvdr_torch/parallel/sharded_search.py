@@ -45,6 +45,7 @@ from haconvdr_torch.device import to_numpy, to_torch, torch_dtype
 from haconvdr_torch.index.quantize import dequantize_int8, quantize_int8, quantize_int8_torch
 from haconvdr_torch.ops.topk import block_topk_finish, block_topk_launch, merge_lists
 from haconvdr_torch.parallel.mesh import Mesh, make_mesh
+from haconvdr_torch.utils.telemetry import TRACER
 
 KERNELS = ("v4", "v3")
 
@@ -298,9 +299,11 @@ class ShardedIndex:
     def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Returns numpy (scores [Q, k], ids [Q, k]): global ids when an id
         array was given, else row offsets; -1 marks empty slots."""
-        q = to_torch(queries, self.mesh.first)
-        s, i = self.search_device(q, k)
-        s, i = to_numpy(s), to_numpy(i)
+        with TRACER.span("search.launch"):
+            q = to_torch(queries, self.mesh.first)
+            s, i = self.search_device(q, k)
+        with TRACER.span("search.wait"):
+            s, i = to_numpy(s), to_numpy(i)
         if self.ids is not None:
             safe = np.clip(i, 0, self.n_valid - 1)
             i = np.where(i >= 0, self.ids[safe], -1)

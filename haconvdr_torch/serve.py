@@ -14,6 +14,7 @@ batches on one worker thread.  Query construction uses the port's
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import queue
@@ -42,6 +43,7 @@ from haconvdr_torch.parallel.sharded_ivf import (
     sharded_ivf_search,
 )
 from haconvdr_torch.parallel.sharded_search import ShardedIndex
+from haconvdr_torch.utils.telemetry import NULL_SPAN, TRACER
 
 logger = logging.getLogger(__name__)
 
@@ -321,13 +323,19 @@ class Retriever:
 
 
 class _Request:
-    __slots__ = ("example", "k", "future")
+    __slots__ = ("example", "k", "future", "id", "enqueued")
 
-    def __init__(self, example: Dict, k: int, future: Future):
+    def __init__(self, example: Dict, k: int, future: Future, rid: Optional[int],
+                 enqueued: Optional[int]):
         self.example = example
         self.k = k
         self.future = future
+        self.id = rid  # drawn only while tracing, as is enqueued
+        self.enqueued = enqueued  # TRACER.now() at enqueue
 
+
+_REQUEST_IDS = itertools.count()  # both taken only while tracing
+_DISPATCH_IDS = itertools.count()
 
 _SHUTDOWN = object()
 
@@ -403,13 +411,16 @@ class BatchingRetriever:
             raise ValueError(
                 f"k={k} exceeds the retriever's top_k={top_k}; raise SearchConfig.top_k"
             )
-        ex = self.retriever.build_query(question, history, history_passages)
+        rid = next(_REQUEST_IDS) if TRACER.on else None
+        with TRACER.span("request.build", request=rid):
+            ex = self.retriever.build_query(question, history, history_passages)
         fut: Future = Future()
         with self._submit_gate:
             if self._closed.is_set():
                 raise RuntimeError("BatchingRetriever is closed")
             try:
-                self._q.put_nowait(_Request(ex, int(k), fut))
+                enqueued = TRACER.now() if TRACER.on else None
+                self._q.put_nowait(_Request(ex, int(k), fut, rid, enqueued))
             except queue.Full:
                 raise BacklogFull(
                     f"batcher backlog at queue_depth={self._q.maxsize}; "
@@ -459,7 +470,10 @@ class BatchingRetriever:
 
     # -- worker --------------------------------------------------------------
     def _run(self) -> None:
+        waited = None  # TRACER.now() when the worker began to wait for a batch
         while True:
+            if waited is None and TRACER.on:
+                waited = TRACER.now()
             try:
                 first = self._q.get(timeout=0.05)
             except queue.Empty:
@@ -476,8 +490,9 @@ class BatchingRetriever:
                             break
                         tail.append(item)
                     while tail:
-                        self._dispatch(tail[: self.max_batch])
+                        self._dispatch(tail[: self.max_batch], waited)
                         tail = tail[self.max_batch :]
+                        waited = TRACER.now() if TRACER.on else None
                     return
                 continue
             if first is _SHUTDOWN:
@@ -497,11 +512,30 @@ class BatchingRetriever:
                     stop = True
                     break
                 batch.append(nxt)
-            self._dispatch(batch)
+            self._dispatch(batch, waited)
+            waited = None
             if stop:
                 return
 
-    def _dispatch(self, batch: List[_Request]) -> None:
+    def _dispatch_span(self, batch: List[_Request], waited: Optional[int]):
+        """The dispatch's span while tracing (else ``NULL_SPAN``), after
+        recording the worker's wait for the batch (from ``waited``, or
+        from the tracer's start if it began earlier or is unknown) and each
+        request's time in the queue, which end where the dispatch begins."""
+        if not TRACER.on:
+            return NULL_SPAN
+        d = next(_DISPATCH_IDS)
+        t = TRACER.now()
+        t_wait = TRACER.started if waited is None else max(waited, TRACER.started)
+        TRACER.record("batcher.wait", t_wait, t, threading.get_ident(), dispatch=d)
+        for req in batch:
+            if req.enqueued is not None:
+                TRACER.record("request.queue", req.enqueued, t, None, request=req.id,
+                              dispatch=d)
+        return TRACER.span("batcher.dispatch", t, dispatch=d,
+                           requests=[req.id for req in batch])
+
+    def _dispatch(self, batch: List[_Request], waited: Optional[int]) -> None:
         n = len(batch)
         bucket = 1
         while bucket < n:
@@ -510,25 +544,27 @@ class BatchingRetriever:
         with self._lock:
             self._n_dispatches += 1
             self._batch_hist[n] = self._batch_hist.get(n, 0) + 1
-        try:
-            r = self.retriever
-            embs = r.encode(batch_iter([req.example for req in batch], bucket))
-            if n < bucket:  # fixed search shape: pad queries to the bucket
-                pad = np.broadcast_to(embs[:1], (bucket - n, embs.shape[1]))
-                embs = np.concatenate([embs, pad], axis=0)
-            scores, ids = r.search(embs)
-            for i, req in enumerate(batch):
-                # slice to req.k before the validity filter, as the
-                # sequential path does; claim the future before resolving
-                hits = [
-                    (int(p), float(s))
-                    for p, s in zip(ids[i][: req.k], scores[i][: req.k])
-                    if p >= 0
-                ]
-                if req.future.set_running_or_notify_cancel():
-                    req.future.set_result(hits)
-        except Exception as e:  # surface the failure on every waiter
-            logger.exception("batched dispatch failed (%d queries)", n)
-            for req in batch:
-                if not req.future.done() and req.future.set_running_or_notify_cancel():
-                    req.future.set_exception(e)
+        with self._dispatch_span(batch, waited):
+            try:
+                r = self.retriever
+                embs = r.encode(batch_iter([req.example for req in batch], bucket))
+                if n < bucket:  # fixed search shape: pad queries to the bucket
+                    pad = np.broadcast_to(embs[:1], (bucket - n, embs.shape[1]))
+                    embs = np.concatenate([embs, pad], axis=0)
+                scores, ids = r.search(embs)
+                with TRACER.span("batcher.resolve"):
+                    for i, req in enumerate(batch):
+                        # slice to req.k before the validity filter, as the
+                        # sequential path does; claim the future before resolving
+                        hits = [
+                            (int(p), float(s))
+                            for p, s in zip(ids[i][: req.k], scores[i][: req.k])
+                            if p >= 0
+                        ]
+                        if req.future.set_running_or_notify_cancel():
+                            req.future.set_result(hits)
+            except Exception as e:  # surface the failure on every waiter
+                logger.exception("batched dispatch failed (%d queries)", n)
+                for req in batch:
+                    if not req.future.done() and req.future.set_running_or_notify_cancel():
+                        req.future.set_exception(e)
