@@ -174,8 +174,7 @@ order; any failure raises and the script exits non-zero:
    0.99.  300 single requests through the IVF retriever and flat f32 and
    bf16 ones in turn, and 128 concurrent clients through
    BatchingRetriever(max_batch=16) over IVF and flat bf16: each IVF
-   answer must equal Retriever.search of its request embedded in a batch
-   of a dispatched bucket.  It prints build, save, load and reload
+   answer must equal its dispatch (or single call) run again.  It prints build, save, load and reload
    seconds, the buckets' bytes, recall@100 against the flat search at
    nprobe 8, 32 and 64, the search ms at Q 1, 8 and 64 beside the flat v4
    search (CUDA events and torch.profiler's device ms), single-request
@@ -198,8 +197,7 @@ order; any failure raises and the script exits non-zero:
    nlist the flat bf16 search's; a 4-shard save reloaded onto one slot and
    onto four; (c) Retriever(mesh=...) over the f32 rows: 64 concurrent
    requests through BatchingRetriever(max_batch=64) and single ones, each
-   equal to Retriever.search of its request embedded at the slot shape of
-   a dispatched bucket, and within phase 12's rule of the one-slot
+   equal to its dispatch run again, and within phase 12's rule of the one-slot
    Retriever's sequential answer; (d) two processes on the card (this
    script with --mp-child, a gloo group for barriers only, a timeout
    each): the per-process save_ivf_sharded / load_ivf_sharded round trip
@@ -297,8 +295,8 @@ Tolerances (kernel vs plain twin on the same inputs):
   IVF (phase 13)     as top-k ids and scores above: full probe against
                      the flat bf16 search, the card against the CPU (two
                      float32 sums of exact products in another order); a
-                     reload, and every served answer against
-                     Retriever.search at its bucket, bit for bit
+                     reload, and every served answer against its
+                     dispatch run again, bit for bit
   mesh (phase 14)    through the kernels, bit for bit: float sharded
                      answers against the one-shard index (one fmaf chain a
                      row), int8 v4 against the per-shard int8 x int8
@@ -311,18 +309,18 @@ Tolerances (kernel vs plain twin on the same inputs):
                      (the probed buckets are scored in batched products of
                      other shapes); the 4-slot reload, from_store against
                      the tensor build, the stitched encode and every served
-                     answer against Retriever.search at the slot shape of
-                     its bucket: bit for bit; against the one-slot
+                     answer against its dispatch run again: bit for bit;
+                     against the one-slot
                      Retriever: phase 12's rule
-  HTTP answers       bit for bit Retriever.search of the same request
-                     embedded in a batch of its dispatch's bucket (a row's
-                     embedding depends on the batch shape, not on the
-                     other rows); against a sequential Retriever.retrieve
+  HTTP answers       bit for bit their dispatch run again (the tower packs
+                     a batch to its rows' lengths, so a row's embedding
+                     depends on the token rows it was batched with);
+                     against a sequential Retriever.retrieve
                      (batch 1): scores within 1e-4 |ref| + delta, ids
                      where the neighbouring scores (the 101st included)
                      differ by more than 1e-5 |s| + 2 delta, delta =
-                     ||q_bucket - q_1|| x the index's largest row norm,
-                     with ||q_bucket - q_1|| <= 1e-5 ||q_1|| and at least
+                     ||q_batch - q_1|| x the index's largest row norm,
+                     with ||q_batch - q_1|| <= 1e-5 ||q_1|| and at least
                      half the ranks so separated (phase 12)
   train micro step   the trained tower through the kernels vs through
                      its plain twins, the same int8 frozen towers (phase
@@ -590,6 +588,86 @@ def check_counts(counts, need, what: str) -> None:
     for mod, c in counts.items():
         for key, n in c.items():
             check(not key.startswith("plain") or n == 0, f"{what}: a plain twin of {mod} ran")
+
+
+class DispatchLog:
+    """Every tower call of one Retriever while it serves (``encode`` and the
+    ``search`` that follows it on the same thread, patched on the instance),
+    so that a check can run each again as it ran.  The tower packs a batch
+    to its rows' lengths (ops/pack.py): a row's float32 embedding depends on
+    the token rows it was batched with (the GEMMs' row count), not on its
+    bucket alone, so an answer is held to its own dispatch run again."""
+
+    def __init__(self, retriever):
+        self.retriever = retriever
+        self.encode, self.search = retriever.encode, retriever.search
+        self.runs, self._open = [], {}
+        retriever.encode, retriever.search = self._encode, self._search
+
+    def _encode(self, batches):
+        batches = list(batches)
+        self._open[threading.get_ident()] = batches
+        return self.encode(batches)
+
+    def _search(self, queries, k=None):
+        batches = self._open.pop(threading.get_ident(), None)
+        if batches is not None:
+            self.runs.append((batches, int(np.asarray(queries).shape[0]), k))
+        return self.search(queries, k)
+
+    def close(self) -> None:
+        self.retriever.encode, self.retriever.search = self.encode, self.search
+
+    @staticmethod
+    def key(ids) -> bytes:
+        """A request's token ids (a built query's ``conv_qp``) as a key."""
+        return np.asarray(ids, np.int64).tobytes()
+
+    def against_padded(self, what: str) -> float:
+        """Each logged call's batches encoded again, packed as served and
+        through the padded layout (``encoder._encode`` without a plan) on
+        the retriever's float32 tower: the packed rows' scores against the
+        padded rows within 1e-6 of the top score (an int8 tower would be
+        bit for bit; these are float32).  Returns the largest error."""
+        from haconvdr_torch.models.encoder import _encode
+
+        tower = self.retriever.encoder
+        check(tower.cfg.dtype == "float32", f"{what}: the padded check takes a float32 tower")
+        errs = []
+        with torch.inference_mode():
+            for batches, _, _ in self.runs:
+                packed = torch.from_numpy(self.encode(batches)).to(tower.device)
+                padded = torch.cat([_encode(
+                    [tower], torch.from_numpy(b["conv_qp"]).to(tower.device),
+                    torch.from_numpy(b["conv_qp_mask"]).to(tower.device))[
+                        torch.from_numpy(np.asarray(b["valid"], bool)).to(tower.device)]
+                    for b in batches])
+                ref = padded @ padded.T
+                errs.append(float((packed @ padded.T - ref).abs().max() / ref.abs().max()))
+        worst = max(errs)
+        check(worst <= 1e-6, f"{what}: a served dispatch's packed scores are {worst:.3g} of the "
+              "top score from the padded layout's (limit 1e-6)")
+        print(f"{what}: {len(errs)} served dispatches encoded packed and padded: scores within "
+              f"{worst:.3e} of the top score (limit 1e-6)")
+        return worst
+
+    def rerun(self):
+        """{``key`` of a request's ids: [(embedding, hits), ...]}: each logged
+        call run again, its embeddings padded to the searched Q with copies
+        of the first (as ``BatchingRetriever`` pads a dispatch to its
+        bucket), hits as (id, score) of every rank."""
+        from collections import defaultdict
+
+        out = defaultdict(list)
+        for batches, n, k in self.runs:
+            q = self.encode(batches)
+            pad = np.broadcast_to(q[:1], (n - len(q), q.shape[1]))
+            sc, ids = self.search(np.concatenate([q, pad]), k)
+            rows = [x for b in batches for x, v in zip(b["conv_qp"], b["valid"]) if v]
+            for j, x in enumerate(rows):
+                out[self.key(x)].append(
+                    (q[j], [(int(i), float(y)) for i, y in zip(ids[j], sc[j])]))
+        return out
 
 
 def check_window_routes(counts, search_qs, dtype, what: str, card: str) -> None:
@@ -1973,8 +2051,8 @@ def eval_loss(state, frozen, batch, tcfg, dev) -> float:
 
     b = batch_to_device(batch, dev)
     with torch.no_grad():
-        return float(embeddings_loss(embed_batch(state.model, frozen, b, tcfg, trainable=False),
-                                     b, tcfg))
+        e = embed_batch(state.model, frozen, b, tcfg, trainable=False, host_masks=batch)
+        return float(embeddings_loss(e, b, tcfg))
 
 
 def check_train_counts(counts, layers: int, n_frozen: int, n_micro: int, int8: bool = True,
@@ -2641,6 +2719,7 @@ def phase_http(seed: int, dev, params, cfg, served, p_sum: float, card: str):
             return search(queries, k)
 
         retriever.index.search = recording_search
+        log = DispatchLog(retriever)
         srv = RetrievalServer(retriever, port=0, max_batch=64, max_wait_ms=2.0).start()
         answers = [None] * HTTP_CLIENTS
         latency = [0.0] * HTTP_CLIENTS
@@ -2679,6 +2758,7 @@ def phase_http(seed: int, dev, params, cfg, served, p_sum: float, card: str):
             _, stats = http_call(srv, "/stats")
         finally:
             srv.close()
+            log.close()
         counts = read_counts()
         refused = False
         try:
@@ -2701,52 +2781,41 @@ def phase_http(seed: int, dev, params, cfg, served, p_sum: float, card: str):
         check(stats["dispatches"] == len(search_qs), "load and serve: dispatches vs searches")
 
         # ---- every answer against the retriever's own answer for the same
-        # request.  A dispatch of n requests embeds them in a batch of its
-        # bucket (the power of two >= n); a row's embedding depends on that
-        # batch shape (the GEMMs' tiling), not on the other rows.  So each
-        # answer must equal, bit for bit, Retriever.search of its request
-        # embedded in a batch of one of the buckets dispatched; and it is
-        # held to a sequential Retriever.retrieve (batch 1) as kernel
-        # answers are held to plain ones, with the id rule's separation
-        # widened by the most the batch-1 embedding can move a score,
-        # delta = ||q_bucket - q_1|| x the largest row norm of the index.
-        # The drift itself is held to 1e-5 ||q_1|| (float32 tiling noise),
-        # and at least half the ranks must stay separated, so a batched
-        # tower that drifts fails rather than widening its own tolerance.
-        from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
-
+        # request.  A dispatch embeds its requests in one batch of its bucket
+        # (the power of two >= n), packed to their rows' lengths, so a row's
+        # embedding depends on the token rows of its batch (the GEMMs' row
+        # count).  So each answer must equal, bit for bit, its dispatch run
+        # again (``DispatchLog``); and it is held to a sequential
+        # Retriever.retrieve (batch 1) as kernel answers are held to plain
+        # ones, with the id rule's separation widened by the most the
+        # batch-1 embedding can move a score, delta = ||q_batch - q_1|| x the
+        # largest row norm of the index.  The drift itself is held to 1e-5
+        # ||q_1|| (float32 tiling noise), and at least half the ranks must
+        # stay separated, so a batched tower that drifts fails rather than
+        # widening its own tolerance.
         got = [lone_hits] + answers + [r["hits"] for r in batch["results"]]
         asked = [HTTP_CLIENTS] + list(range(HTTP_CLIENTS)) + list(range(HTTP_BATCH))  # in reqs
         examples = [retriever.build_query(*r) for r in reqs[:HTTP_CLIENTS + 1]]
-        by_bucket = {}
-        for b in sorted(set(search_qs)):
-            q = encode_batches(retriever.encoder, batch_iter(examples, b), "conv_qp",
-                               "conv_qp_mask")[0]
-            hits = []
-            for c0 in range(0, len(q), b):
-                chunk = q[c0:c0 + b]
-                pad = np.broadcast_to(chunk[:1], (b - len(chunk), chunk.shape[1]))
-                sc, ids = retriever.search(np.concatenate([chunk, pad]))
-                hits += [[(int(i), float(x)) for i, x in zip(ids[j], sc[j])]
-                         for j in range(len(chunk))]
-            by_bucket[b] = (q, hits)
+        rerun = log.rerun()
+        stages["padded_score_err"] = log.against_padded("load and serve")
         max_norm = float(retriever.index.passages.norm(dim=1).max())
-        seq, deltas, drifts, seps, buckets_used = {}, [], [], [], set()
+        seq, deltas, drifts, seps = {}, [], [], []
         for j, r in enumerate(asked):
             hits = [(h["pid"], h["score"]) for h in got[j]]
-            match = [b for b, (_, ans) in by_bucket.items() if ans[r] == hits]
+            match = [q for q, ans in rerun[DispatchLog.key(examples[r]["conv_qp"])]
+                     if ans == hits]
             check(len(hits) == TOP_K and bool(match),
-                  f"load and serve: request {j}: {len(hits)} hits, equal to no bucket's answer")
-            buckets_used.add(match[0])
+                  f"load and serve: request {j}: {len(hits)} hits, equal to no run of its "
+                  "dispatch")
             if r not in seq:  # k + 1: the gap past the last rank is known
                 seq[r] = (retriever.retrieve(*reqs[r], k=TOP_K + 1),
                           retriever.embed([examples[r]])[0])
             ref, q1 = seq[r]
             check(len(ref) == TOP_K + 1, f"load and serve: sequential request {j}: "
                   f"{len(ref)} hits")
-            drift = float(np.linalg.norm(by_bucket[match[0]][0][r] - q1))
+            drift = float(np.linalg.norm(match[0] - q1))
             rel = drift / float(np.linalg.norm(q1))
-            check(rel <= 1e-5, f"load and serve: request {j}: the bucket-{match[0]} embedding "
+            check(rel <= 1e-5, f"load and serve: request {j}: the batched embedding "
                   f"is {rel:.3g} of its norm from the batch-1 one (limit 1e-5)")
             delta = drift * max_norm
             deltas.append(delta)
@@ -2765,8 +2834,8 @@ def phase_http(seed: int, dev, params, cfg, served, p_sum: float, card: str):
                   f"separated scores (delta {delta:.3g})")
         stages.update(seq_delta_max=max(deltas), seq_drift_max=max(drifts),
                       separated_min=min(seps))
-        print(f"load and serve: every answer equals Retriever.search of its request in a batch "
-              f"of its bucket (buckets {sorted(buckets_used)}), bit for bit; against sequential "
+        print(f"load and serve: every answer equals its dispatch run again ({len(log.runs)} "
+              f"tower calls), bit for bit; against sequential "
               f"Retriever.retrieve within delta <= {max(deltas):.3g} (embedding drift <= "
               f"{max(drifts):.3g} of its norm), ids equal at >= {min(seps)} of {TOP_K} ranks")
         stages.update(
@@ -2851,7 +2920,6 @@ def phase_ivf(seed: int, dev, params, cfg, card: str, tmp: str):
     from haconvdr_torch.config import DataConfig, SearchConfig
     from haconvdr_torch.index import ivf
     from haconvdr_torch.index.store import EmbeddingBlockStore
-    from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
     from haconvdr_torch.parallel.sharded_ivf import load_ivf_sharded
     from haconvdr_torch.parallel.sharded_search import ShardedIndex
     from haconvdr_torch.serve import BatchingRetriever, Retriever
@@ -3002,6 +3070,7 @@ def phase_ivf(seed: int, dev, params, cfg, card: str, tmp: str):
     r16.search = recording_search
     for r in served.values():
         r.retrieve(*reqs[0])
+    log = DispatchLog(r16)
     zero_counts()
     stages["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
     before = alloc_counts()
@@ -3038,28 +3107,21 @@ def phase_ivf(seed: int, dev, params, cfg, card: str, tmp: str):
         if name == "ivf":
             answers = got
     counts = read_counts()
+    log.close()
     r16.search = search
     check(all(a is not None and len(a) == TOP_K for a in answers + singles),
           "ivf: a request got no answer or fewer than k hits")
     print("ivf launch counts:", json.dumps(counts))
     check_counts(counts, [("fused_attention", "kernel"), ("topk_v4", "window"),
                           ("topk_v4", "select_t"), ("topk_v4", "select")], "ivf")
-    # each IVF answer is Retriever.search of its request in a batch of a
-    # dispatched bucket (a row's embedding depends on the batch shape)
+    # each IVF answer is its dispatch (or its single call) run again, bit for
+    # bit (a row's embedding depends on the token rows of its batch)
     examples = [r16.build_query(*r) for r in reqs]
-    by_bucket = {}
-    for b in sorted(set(search_qs)):
-        q = encode_batches(r16.encoder, batch_iter(examples, b), "conv_qp", "conv_qp_mask")[0]
-        hits = []
-        for c0 in range(0, len(q), b):
-            chunk = q[c0 : c0 + b]
-            pad = np.broadcast_to(chunk[:1], (b - len(chunk), chunk.shape[1]))
-            sc, ids = r16.search(np.concatenate([chunk, pad]))
-            hits += [[(int(x), float(y)) for x, y in zip(ids[j], sc[j])] for j in range(len(chunk))]
-        by_bucket[b] = hits
+    rerun = log.rerun()
+    stages["padded_score_err"] = log.against_padded("ivf")
     for j, ans in enumerate(answers + singles):  # singles follow the batched in reqs
-        check(any(h[j] == ans for h in by_bucket.values()),
-              f"ivf: request {j} equals no bucket's Retriever.search answer")
+        check(any(h == ans for _, h in rerun[DispatchLog.key(examples[j]["conv_qp"])]),
+              f"ivf: request {j} equals no run of its dispatch")
     # tower queries: recall of nprobe 32 against the flat f32 search
     tq = r16.embed(examples)
     stages["tower_query_recall_at_100"] = recall_at(
@@ -3229,11 +3291,10 @@ def mesh_flat(seed, dev, mesh, rows, queries, total, card: str):
 def mesh_retriever(seed, dev, mesh, params, cfg, rows, total, card: str):
     """(c) Retriever on the mesh over the flat f32 rows: MESH_BATCHED
     concurrent requests through BatchingRetriever(max_batch=64) and single
-    ones; each answer equals Retriever.search of its request embedded at the
-    slot shape of a dispatched bucket, and holds phase 12's rule against the
-    one-slot Retriever's sequential answer."""
+    ones; each answer equals its dispatch run again (``DispatchLog``), and
+    holds phase 12's rule against the one-slot Retriever's sequential
+    answer."""
     from haconvdr_torch.config import DataConfig, SearchConfig
-    from haconvdr_torch.parallel.sharded_encode import batch_iter, encode_batches
     from haconvdr_torch.serve import Retriever
     from haconvdr_torch.utils.testing import HashTokenizer
 
@@ -3253,38 +3314,30 @@ def mesh_retriever(seed, dev, mesh, params, cfg, rows, total, card: str):
     r4.search = recording_search
     r4.retrieve(*reqs[-1])  # warm-up
     search_qs.clear()
+    log = DispatchLog(r4)
     zero_counts()
     answers, metrics = serve(r4, reqs[:MESH_BATCHED], reqs[MESH_BATCHED:])
     c = read_counts()
+    log.close()
     r4.search = search
     add_counts(total, c)
     check_counts(c, [("fused_attention", "kernel"), ("topk_v4", "window"),
                      ("topk_v4", "select_t"), ("topk_v4", "select"), ("topk_v4", "rescore")],
                  "mesh retriever")
     examples = [r4.build_query(*r) for r in reqs]
-    by_bucket = {}
-    for b in sorted(set(search_qs)):
-        per_slot = -(-b // MESH_SLOTS)
-        q = encode_batches(r4.encoder, batch_iter(examples, per_slot), "conv_qp",
-                           "conv_qp_mask")[0]
-        hits = []
-        for c0 in range(0, len(q), b):
-            chunk = q[c0 : c0 + b]
-            pad = np.broadcast_to(chunk[:1], (b - len(chunk), chunk.shape[1]))
-            sc, ids = r4.search(np.concatenate([chunk, pad]))
-            hits += [[(int(x), float(y)) for x, y in zip(ids[j], sc[j])] for j in range(len(chunk))]
-        by_bucket[b] = (q, hits)
+    rerun = log.rerun()
+    metrics["padded_score_err"] = log.against_padded("mesh retriever")
     one = build_retriever(params, cfg, dev, rows, None)
     max_norm = float(rows.norm(dim=1).max())
-    deltas, drifts, seps, used = [], [], [], set()
+    deltas, drifts, seps = [], [], []
     for j, ans in enumerate(answers):
-        match = [b for b, (_, hits) in by_bucket.items() if hits[j] == ans]
+        match = [q for q, hits in rerun[DispatchLog.key(examples[j]["conv_qp"])]
+                 if hits == ans]
         check(len(ans) == TOP_K and bool(match),
-              f"mesh retriever: request {j} equals no bucket's Retriever.search answer")
-        used.add(match[0])
+              f"mesh retriever: request {j} equals no run of its dispatch")
         ref = one.retrieve(*reqs[j], k=TOP_K + 1)
         q1 = one.embed([examples[j]])[0]
-        drift = float(np.linalg.norm(by_bucket[match[0]][0][j] - q1))
+        drift = float(np.linalg.norm(match[0] - q1))
         rel = drift / float(np.linalg.norm(q1))
         check(rel <= 1e-5, f"mesh retriever: request {j}: the slot embedding is {rel:.3g} of "
               "its norm from the one-slot batch-1 one (limit 1e-5)")
@@ -3301,11 +3354,11 @@ def mesh_retriever(seed, dev, mesh, params, cfg, rows, total, card: str):
         deltas.append(delta)
         drifts.append(rel)
         seps.append(int(sep.sum()))
-    metrics.update(buckets=sorted(used), delta_max=max(deltas), drift_max=max(drifts),
+    metrics.update(tower_calls=len(log.runs), delta_max=max(deltas), drift_max=max(drifts),
                    separated_min=min(seps))
     print(f"mesh retriever: {len(answers)} answers ({MESH_BATCHED} concurrent, "
-          f"{N_SINGLE} single) each equal Retriever.search at the slot shape of its bucket "
-          f"(buckets {sorted(used)}), bit for bit; against the one-slot Retriever within "
+          f"{N_SINGLE} single) each equal their dispatch run again ({len(log.runs)} tower "
+          f"calls), bit for bit; against the one-slot Retriever within "
           f"delta <= {max(deltas):.3g} (drift <= {max(drifts):.3g}), ids equal at >= "
           f"{min(seps)} of {TOP_K} ranks")
     print("mesh retriever e2e:", json.dumps(metrics), f"[{card}]")

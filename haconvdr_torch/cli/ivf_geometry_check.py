@@ -145,7 +145,8 @@ def embed_corpus(enc: AnceEncoder, n, length, n_topics, batch=512, q_len=0):
     parts = []
     for _ in range(-(-n // batch)):
         ids, _ = make_topic_batch(g, batch, L, n_topics, enc.cfg.vocab_size)
-        e = enc(ids, torch.ones_like(ids), use_mean=True)
+        e = enc(ids, torch.ones_like(ids), use_mean=True,
+                host_mask=np.ones(tuple(ids.shape), np.int32))
         parts.append(e.to(torch.bfloat16).to(torch.float32).cpu().numpy())
     return np.concatenate(parts)[:n]
 

@@ -26,6 +26,7 @@ from haconvdr_torch.config import IndexConfig
 from haconvdr_torch.device import DeviceLike, resolve_device, to_numpy
 from haconvdr_torch.index.quantize import quantize_int8
 from haconvdr_torch.index.store import EmbeddingBlockStore, TokenizedCorpus, TokenizedCorpusWriter
+from haconvdr_torch.ops.pack import takes_host_mask
 
 __all__ = [
     "EmbeddingBlockStore",
@@ -190,9 +191,14 @@ def encode_corpus(
     (default: the device of ``encode_fn``'s parameters when it is a
     module, else the CUDA card) and returns [B, D] embeddings, or [B, n_chunks, D]
     for a multi-chunk encoder (one row per chunk, chunk-major, each with
-    the passage's offset).  As in the JAX package: every batch has the
-    static shape [batch_size, L] (the tail is padded with fully masked
-    rows whose first mask position is set, and dropped on the host);
+    the passage's offset); an ``encode_fn`` that takes ``host_mask`` also
+    gets each batch's mask as numpy (``ops.pack.takes_host_mask``), from
+    which the port's tower packs the batch without reading the mask back.
+    As in the JAX package: every batch has the static shape [batch_size,
+    L] (the tail is padded with fully masked rows whose first mask
+    position is set, and dropped on the host), while the tower runs only
+    each row's tokens (its kept span, ``ops.pack``) and attention at the
+    batch's longest row;
     blocks hold whole batches (``per_block_passage_num // batch_size``
     batches); ``store_dtype`` float32, bfloat16 or int8 (float rows
     quantized per block at flush with the shared ``quantize_int8``);
@@ -217,6 +223,7 @@ def encode_corpus(
         device = mesh.first
     elif device is None and isinstance(encode_fn, torch.nn.Module):
         device = next(encode_fn.parameters()).device
+    take = dp_fn is not None or takes_host_mask(encode_fn)
     dev = resolve_device(device)
     store = EmbeddingBlockStore(out_dir, fmt=fmt)
     quantize = store_dtype == "int8"
@@ -297,19 +304,20 @@ def encode_corpus(
             ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int32))
             mask_t = torch.from_numpy(np.ascontiguousarray(mask, np.int32))
             done: Optional[torch.cuda.Event] = None
+            kw = {"host_mask": mask} if take else {}
             if dp_fn is not None:
-                valid = np.arange(batch_size) < n
-                run = lambda x, m: dp_fn(x, m, valid)  # noqa: E731
+                kw["valid"] = np.arange(batch_size) < n
+                run = dp_fn
             else:
                 run = encode_fn
             if cuda:
                 ids_t = ids_t.pin_memory().to(dev, non_blocking=True)
                 mask_t = mask_t.pin_memory().to(dev, non_blocking=True)
-                host = run(ids_t, mask_t).to("cpu", non_blocking=True)  # pinned
+                host = run(ids_t, mask_t, **kw).to("cpu", non_blocking=True)  # pinned
                 done = torch.cuda.Event()
                 done.record()
             else:
-                host = run(ids_t.to(dev), mask_t.to(dev))
+                host = run(ids_t.to(dev), mask_t.to(dev), **kw)
             inflight.append((host, done, np.asarray(offsets, np.int64), n))
             drain(PIPELINE_DEPTH)
         drain(0)

@@ -11,6 +11,18 @@ layer's attention goes through one fused QKV projection ``[B, L, 3H]``
 straight into ``ops.fused_attention.fused_attention_qkv`` (the CUDA kernel
 on CUDA tensors), so no head transposes happen around it.
 
+Inference forwards run packed (``ops.pack``): the plan, made on the host
+from the mask (``host_mask=``, else read from the mask tensor), keeps each
+row's span up to its last valid token.  The embeddings, every dense, the
+GELU, the LayerNorms and the int8 codes run on those ``T`` rows only
+(``[T, H]``); each layer scatters its packed QKV rows into a ``[B, L']``
+buffer (``L'`` the longest span rounded up to 16; zeroed once a forward,
+so its pad positions stay finite), runs the same attention kernel there
+and gathers the context rows back.  CLS pooling reads each row's first
+packed row.  Every step is per token or per row, so an int8 tower gives the
+padded layout's result bit for bit; a float tower's denses round over
+another row count.  Train-mode forwards keep the padded ``[B, L]`` rows.
+
 int8 towers (``quantize_encoder_params``): the transformer layers' dense
 kernels are int8 per output channel (``Int8Linear``), activations are
 quantized per token, dynamically, and multiplied with exact int32
@@ -71,7 +83,7 @@ from haconvdr_torch.config import ModelConfig
 from haconvdr_torch.device import DeviceLike, resolve_device, torch_dtype
 from haconvdr_torch.index.quantize import quantize_rows
 from haconvdr_torch.models.convert import params_from_jax
-from haconvdr_torch.ops import flash_attention, fused_attention, fused_ln, fused_mlp
+from haconvdr_torch.ops import flash_attention, fused_attention, fused_ln, fused_mlp, pack
 from haconvdr_torch.ops.fused_ln import layer_norm
 from haconvdr_torch.parallel.mesh import group_max, group_sum
 
@@ -376,6 +388,7 @@ class AnceEncoder(nn.Module):
         trainable: bool = False,
         row_offset: int = 0,
         batch_rows: Optional[int] = None,
+        host_mask=None,
     ) -> torch.Tensor:
         """encoder -> CLS (or masked-mean) pooling -> embeddingHead ->
         LayerNorm(eps 1e-5); [B, embedding_dim] float32
@@ -385,15 +398,17 @@ class AnceEncoder(nn.Module):
         attention).  ``row_offset`` / ``batch_rows``: these rows are rows
         ``row_offset..`` of a batch of ``batch_rows`` (a data-parallel
         slot's slice; default the whole batch), and every dropout mask is
-        those rows' mask of the whole batch."""
+        those rows' mask of the whole batch.  ``host_mask``: the mask as
+        numpy on the host, from which an inference forward plans its
+        packing (``ops.pack``; without it the forward reads the mask)."""
         rows = (row_offset, row_offset + input_ids.shape[0] if batch_rows is None else batch_rows)
         return encode_split([self], input_ids, attention_mask, use_mean, dropout, trainable,
-                            rows)
+                            rows, host_mask)
 
 
 def encode_split(
     towers, input_ids: torch.Tensor, attention_mask: torch.Tensor, use_mean: bool = False,
-    dropout=None, trainable: bool = False, rows=None,
+    dropout=None, trainable: bool = False, rows=None, host_mask=None,
 ) -> torch.Tensor:
     """The tower's forward over a tp group: ``towers`` holds one
     ``AnceEncoder`` a rank (``tp`` each, in rank order, each on its
@@ -401,25 +416,53 @@ def encode_split(
     LayerNorms and the head run on the first rank; each layer's column
     denses and attention run on every rank on its slice and the row denses
     meet on the first rank (``_row_dense``, ``mlp_block_split``).
+    An inference forward packs the batch (``ops.pack``, planned from
+    ``host_mask`` or the mask); a train-mode one (``dropout`` or
+    ``trainable``) runs the padded ``[B, L]`` rows.
     Returns [B, embedding_dim] float32 on the first rank's device."""
     if len(towers) != towers[0].tp:
         raise ValueError(f"a group of {len(towers)} towers split {towers[0].tp} ways")
-    input_ids = input_ids.to(torch.int64)
+    plan = None
+    if dropout is None and not trainable:
+        plan = pack.plan_of(attention_mask, host_mask)
+    return _encode(towers, input_ids, attention_mask, use_mean, dropout, trainable, rows, plan)
+
+
+def _encode(towers, input_ids, attention_mask, use_mean=False, dropout=None, trainable=False,
+            rows=None, plan=None):
+    """``encode_split`` in the layout ``plan`` gives: packed (a
+    ``pack.Plan``), or the padded rows (None)."""
     t0 = towers[0]
-    hidden = _hidden_states(towers, input_ids.to(t0.device), attention_mask.to(t0.device),
-                            dropout, trainable, rows)
+    dev = t0.device
+    input_ids = input_ids.to(torch.int64).to(dev)
+    attention_mask = attention_mask.to(dev)
+    kept = starts = None
+    if plan is not None:
+        input_ids = input_ids[:, : plan.width]
+        attention_mask = attention_mask[:, : plan.width].to(torch.int32).contiguous()
+        kept, starts = plan.to(dev)
+    hidden = _hidden_states(towers, input_ids, attention_mask, dropout, trainable, rows, kept)
     if use_mean:
-        m = attention_mask.to(t0.device).to(torch.float32)[:, :, None]
+        m = attention_mask.to(torch.float32)[:, :, None]
+        if kept is not None:  # the packed rows back in [B, width], zero elsewhere
+            full = hidden.new_zeros((m.shape[0] * m.shape[1], hidden.shape[-1]))
+            hidden = pack.scatter(full, kept, hidden).view(m.shape[0], m.shape[1], -1)
         pooled = (hidden * m).sum(dim=1) / m.sum(dim=1)
+    elif kept is not None:
+        pooled = hidden.index_select(0, starts)
     else:
         pooled = hidden[:, 0]
     proj = _dense(pooled, t0.embedding_head, torch_dtype(t0.cfg.dtype))
     return layer_norm(proj, t0.norm.weight, t0.norm.bias, 1e-5)
 
 
-def _hidden_states(towers, input_ids, attention_mask, dropout=None, trainable=False, rows=None):
+def _hidden_states(towers, input_ids, attention_mask, dropout=None, trainable=False, rows=None,
+                   kept=None):
     """The transformer over a tp group of towers (one tower: the un-split
-    forward); ids and mask on the first tower's device."""
+    forward); ids and mask on the first tower's device.  ``kept``: the
+    packed layout's positions in ``[B, L]`` (``pack.Plan.to``), whose rows
+    the token-wise layers run ([T, H] out); None: every position ([B, L,
+    H] out)."""
     t0 = towers[0]
     cfg = t0.cfg
     T = len(towers)
@@ -451,16 +494,27 @@ def _hidden_states(towers, input_ids, attention_mask, dropout=None, trainable=Fa
     if trainable or dropout is not None:
         flash = flash_attention.flash_attention_plain if plain else flash_attention.flash_attention
 
-        def attention(qkv, mask, seed):
-            return flash(qkv, mask, nh, seed=seed, drop_rate=ad, row_offset=row_offset)
+        def attention(qkv, r, seed):
+            return flash(qkv, masks[r], nh, seed=seed, drop_rate=ad, row_offset=row_offset)
     else:
         fused = (
             fused_attention.fused_attention_qkv_plain if plain
             else fused_attention.fused_attention_qkv
         )
 
-        def attention(qkv, mask, seed):
-            return fused(qkv, mask, nh)
+        if kept is None:
+            def attention(qkv, r, seed):
+                return fused(qkv, masks[r], nh)
+        else:  # packed rows in, through a [B, L] buffer, context rows out
+            B, L = input_ids.shape
+            kepts = bcast(kept)
+            bufs = [None] * T  # each rank's [B * L, 3H / tp], zeroed once: finite pads
+
+            def attention(qkv, r, seed):
+                if bufs[r] is None:
+                    bufs[r] = qkv.new_zeros((B * L, qkv.shape[-1]))
+                buf = pack.scatter(bufs[r], kepts[r], qkv).view(B, L, -1)
+                return pack.gather(fused(buf, masks[r], nh), kepts[r])
     ln_quant = (
         fused_ln.fused_residual_ln_quant_plain if plain
         else fused_ln.fused_residual_ln_quant
@@ -497,6 +551,9 @@ def _hidden_states(towers, input_ids, attention_mask, dropout=None, trainable=Fa
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
     else:
         pos = roberta_position_ids(input_ids, cfg.pad_token_id)
+    if kept is not None:  # over the padded row (the pads count), then packed
+        pos = pack.gather(pos.expand_as(input_ids), kept)
+        input_ids = pack.gather(input_ids, kept)
     x = (
         emb["word_embeddings"](input_ids)
         + emb["position_embeddings"](pos)
@@ -539,9 +596,9 @@ def _hidden_states(towers, input_ids, attention_mask, dropout=None, trainable=Fa
     def layer_fn(x, pq, lyrs, words, s_attn, s_mlp):
         xr, pqs = col_inputs(x, pq)
         ctx = []
-        for xi, pi, mi, l in zip(xr, pqs, masks, lyrs):
+        for r, (xi, pi, l) in enumerate(zip(xr, pqs, lyrs)):
             qkv = _dense(xi, l.attention["qkv"], dtype, out_dtype=dtype, prequant=pi).contiguous()
-            ctx.append(attention(qkv, mi, words))
+            ctx.append(attention(qkv, r, words))
         out = _row_dense(ctx, [l.attention["output"] for l in lyrs], dtype)
         out = _dropout(out, hd, s_attn, rows)
         x, pq = res_ln(x, out, lyrs[0].attention["output_layer_norm"])

@@ -16,9 +16,12 @@ on the first slot's device.  With replicated params (a module, or
 replica and one of them runs; with split params (``shard_params(tp=True)``:
 Megatron column and row splits, ``encoder_param_pspecs``) the tp slots of
 the row run their slices together (``models.encoder.encode_split``).  A
-slice of padding rows only is not run.  A row's embedding is therefore
-the one it gets in a batch of ``ceil(B / dp)`` rows: it depends on the
-batch shape, not on the other rows.
+slice of padding rows only is not run.  Each batch's host mask goes with
+it (``host_mask``) to every encoder that takes one, which packs its rows
+from it (``ops.pack``) without reading the mask back from the device.  A
+row's embedding is therefore the one it gets among a slice's kept token
+rows: it depends on the other rows only through the rounding of the
+dense layers over that row count, and on nothing else of the batch.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from haconvdr_torch.config import ModelConfig
 from haconvdr_torch.data.loader import batch_iter
 from haconvdr_torch.device import to_numpy, to_torch
 from haconvdr_torch.models.convert import encoder_param_pspecs, tp_slice
+from haconvdr_torch.ops.pack import takes_host_mask
 from haconvdr_torch.parallel.mesh import Mesh, batch_slices, replicate
 from haconvdr_torch.utils.telemetry import TRACER
 
@@ -73,14 +77,16 @@ def shard_params(
 def dp_encode_fn(
     mesh: Mesh, encoder_or_fn: Union[EncodeFn, Sequence[EncodeFn]]
 ) -> Callable[..., torch.Tensor]:
-    """``fn(ids, mask, valid=None) -> [B, ...]`` embeddings on the mesh's
+    """``fn(ids, mask, valid=None, host_mask=None) -> [B, ...]`` embeddings on the mesh's
     first device, the batch cut over the ``dp`` slots.  ``encoder_or_fn``
     is a module (replicated once to every distinct device of the mesh), a
     list of one encoder a slot (``replicate``'s or ``shard_params``'), or
     a callable that runs on whichever device its inputs are on.  A dp row
     runs its first slot's encoder, or, when the slots hold the slices of a
     split tower, the row's group.  ``valid`` ([B] bool, host) skips the
-    slices that hold no valid row; their rows come back as zeros."""
+    slices that hold no valid row; their rows come back as zeros.
+    ``host_mask`` (numpy [B, L]) goes, sliced as the batch, to the
+    encoders that take it (``ops.pack.takes_host_mask``)."""
     if isinstance(encoder_or_fn, torch.nn.Module):
         per_slot = replicate(mesh, encoder_or_fn)
     elif isinstance(encoder_or_fn, (list, tuple)):
@@ -90,21 +96,27 @@ def dp_encode_fn(
     devices = list(mesh.devices[:, 0])
     T = mesh.shape["tp"]
     encoders = [_row_runner(per_slot[i * T : (i + 1) * T]) for i in range(len(devices))]
+    takes = [takes_host_mask(enc) for enc in encoders]
 
-    def fn(ids: torch.Tensor, mask: torch.Tensor, valid=None) -> torch.Tensor:
+    def fn(ids: torch.Tensor, mask: torch.Tensor, valid=None, host_mask=None) -> torch.Tensor:
         B = ids.shape[0]
+        host_mask = None if host_mask is None else np.asarray(host_mask)
         slices = batch_slices(B, len(devices))
         per = slices[0][1] - slices[0][0]
         outs: List[Tuple[int, int, torch.Tensor]] = []
-        for (a, b), dev, enc in zip(slices, devices, encoders):
+        for (a, b), dev, enc, take in zip(slices, devices, encoders, takes):
             if b == a or (valid is not None and not np.asarray(valid[a:b]).any()):
                 continue
             x, m = ids[a:b], mask[a:b]
+            hm = None if host_mask is None else host_mask[a:b]
             if b - a < per:  # the batch's static slice shape
                 fill = per - (b - a)
                 x = torch.cat([x, ids[:1].expand(fill, -1)])
                 m = torch.cat([m, mask[:1].expand(fill, -1)])
-            outs.append((a, b, enc(x.to(dev), m.to(dev))))
+                if hm is not None:
+                    hm = np.concatenate([hm, np.repeat(host_mask[:1], fill, 0)])
+            kw = {"host_mask": hm} if take and hm is not None else {}
+            outs.append((a, b, enc(x.to(dev), m.to(dev), **kw)))
         first = mesh.first
         head = outs[0][2]
         out = torch.zeros((B,) + tuple(head.shape[1:]), dtype=head.dtype, device=first)
@@ -121,7 +133,7 @@ def _row_runner(group: List[EncodeFn]) -> EncodeFn:
     if getattr(group[0], "tp", 1) > 1:
         from haconvdr_torch.models.encoder import encode_split
 
-        return lambda x, m: encode_split(group, x, m)
+        return lambda x, m, host_mask=None: encode_split(group, x, m, host_mask=host_mask)
     return group[0]
 
 
@@ -134,13 +146,15 @@ def encode_batches(
 ) -> Tuple[np.ndarray, List]:
     """(embeddings [n_valid, E] float32 numpy, sample ids) over the
     batches: on the encoder's device, or with a ``mesh`` cut over its dp
-    slots (:func:`dp_encode_fn`)."""
+    slots (:func:`dp_encode_fn`).  Each batch's host mask goes with it
+    (``host_mask``) where the encoder takes one."""
     if mesh is not None:
         fn = dp_encode_fn(mesh, encoder_or_fn)
         device = mesh.first
     else:
         fn = encoder_or_fn
         device = _device_of(encoder_or_fn)
+    take = takes_host_mask(fn)
     embs, ids = [], []
     batches = iter(batches)
     with torch.inference_mode():
@@ -153,8 +167,9 @@ def encode_batches(
             with TRACER.span("tower.h2d"):
                 x = to_torch(batch[key_ids], device)
                 m = to_torch(batch[key_mask], device)
+            kw = {"host_mask": np.asarray(batch[key_mask])} if take else {}
             with TRACER.span("tower.launch"):
-                e = fn(x, m, valid) if mesh is not None else fn(x, m)
+                e = fn(x, m, valid, **kw) if mesh is not None else fn(x, m, **kw)
             with TRACER.span("tower.wait"):
                 e = to_numpy(e)
             embs.append(e[valid])

@@ -2,8 +2,10 @@
 (counterpart of haconvdr_tpu/train/trainer.py).
 
   * a trainable query tower (``AnceEncoder`` in train mode: flash-attention
-    kernels, dropout from the state's generator) and a FROZEN passage tower
-    (eval mode, under ``torch.no_grad``), as the reference trains
+    kernels, dropout from the state's generator, the padded ``[B, L]``
+    rows) and a FROZEN passage tower (eval mode, under ``torch.no_grad``;
+    an inference forward, so packed to its rows' lengths by ``ops.pack``,
+    planned from the batch's masks on the host), as the reference trains
     (src/train_HAConvDR_topiocqa.py:119-208);
   * AdamW with no decay on biases and LayerNorms, and the linear warmup /
     linear decay schedule, with optax's arithmetic (the JAX package's
@@ -226,6 +228,7 @@ def embed_batch(
     trainable: bool = True,
     row_offset: int = 0,
     batch_rows: Optional[int] = None,
+    host_masks: Optional[Dict[str, np.ndarray]] = None,
 ) -> Dict[str, torch.Tensor]:
     """The embeddings the loss takes (the JAX trainer's ``loss_fn``,
     trainer.py:140-197): ``q`` from the query tower in train mode
@@ -234,23 +237,33 @@ def embed_batch(
     and the passages from the frozen tower in eval mode without gradients
     (":126"): ``pos``, ``neg`` ([B, D], or [B, R, D] for R negatives per
     example, folded into the batch for the tower), and for ``"prepos"``
-    ``pseudo`` / ``prepos`` where the config and the batch have them."""
+    ``pseudo`` / ``prepos`` where the config and the batch have them.
+    ``host_masks``: ``b``'s ``<field>_mask`` arrays as numpy on the host
+    (``_host_masks``), from which each inference forward plans its packing
+    without reading its mask back (a field left out is read once)."""
+    hm = host_masks or {}
     out = {"q": model(b[query_key], b[f"{query_key}_mask"], dropout=dropout,
-                      trainable=trainable, row_offset=row_offset, batch_rows=batch_rows)}
+                      trainable=trainable, row_offset=row_offset, batch_rows=batch_rows,
+                      host_mask=hm.get(f"{query_key}_mask"))}
+
+    def passages(key):
+        """The frozen tower over ``key``'s rows: [B, D], or [B, R, D] for
+        R passages per example (folded into the batch for the tower)."""
+        ids, host = b[key], hm.get(f"{key}_mask")
+        L = ids.shape[-1]
+        if host is not None:
+            host = host.reshape(-1, L)
+        e = frozen(ids.reshape(-1, L), b[f"{key}_mask"].reshape(-1, L), host_mask=host)
+        return e.reshape(ids.shape[:-1] + (-1,))
+
     with torch.no_grad():
-        out["pos"] = frozen(b["pos_docs"], b["pos_docs_mask"])
-        neg_ids, neg_mask = b["neg_docs"], b["neg_docs_mask"]
-        if neg_ids.dim() == 3:  # R negatives per example, folded into the batch
-            Bn, R, Ln = neg_ids.shape
-            neg = frozen(neg_ids.reshape(Bn * R, Ln), neg_mask.reshape(Bn * R, Ln))
-            out["neg"] = neg.reshape(Bn, R, -1)
-        else:
-            out["neg"] = frozen(neg_ids, neg_mask)
+        out["pos"] = passages("pos_docs")
+        out["neg"] = passages("neg_docs")
         if loss_variant == "prepos":
             if train_cfg.is_pseudo_prepos and "pseudo_prepos_docs" in b:
-                out["pseudo"] = frozen(b["pseudo_prepos_docs"], b["pseudo_prepos_docs_mask"])
+                out["pseudo"] = passages("pseudo_prepos_docs")
             if train_cfg.is_prepos_neg and "prepos_neg_docs" in b:
-                out["prepos"] = frozen(b["prepos_neg_docs"], b["prepos_neg_docs_mask"])
+                out["prepos"] = passages("prepos_neg_docs")
     return out
 
 
@@ -281,6 +294,34 @@ def batch_to_device(batch: Dict[str, Any], device: DeviceLike) -> Dict[str, torc
     """The array fields of a ``collate()`` dict as tensors on ``device``."""
     dev = resolve_device(device)
     return {k: to_torch(v, dev) for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+
+
+def _host_masks(batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The ``<field>_mask`` arrays of a ``collate()`` dict that are on the
+    host, as numpy (a mask already on a device is left out)."""
+    out = {}
+    for k, v in batch.items():
+        if not k.endswith("_mask"):
+            continue
+        if isinstance(v, torch.Tensor):
+            if v.device.type != "cpu":
+                continue
+            v = v.numpy()
+        if isinstance(v, np.ndarray) and v.ndim >= 2:
+            out[k] = v
+    return out
+
+
+def _slot_host_masks(masks: Dict[str, np.ndarray], a: int, e: int, per: int):
+    """``_slot_rows`` of the host masks: rows a:e, padded to ``per`` rows
+    with copies of the first row."""
+    out = {}
+    for k, v in masks.items():
+        t = v[a:e]
+        if e - a < per:
+            t = np.concatenate([t, np.repeat(v[:1], per - (e - a), axis=0)])
+        out[k] = t
+    return out
 
 
 def _slot_rows(b: Dict[str, torch.Tensor], a: int, e: int, per: int, dev: torch.device):
@@ -314,7 +355,8 @@ def make_train_step(
     the mesh's first device (replicated once to the others); ``batch`` is a
     ``collate()`` dict of numpy arrays or tensors; the query field is
     ``query_key``.  ``loss`` is a device scalar on the first slot (no host
-    sync)."""
+    sync: the frozen towers plan their packing from ``batch``'s masks on
+    the host; masks given as device tensors would each be read back)."""
     if loss_variant not in ("prepos", "ranking"):
         raise ValueError(f"unknown loss_variant {loss_variant!r}")
     first = mesh.first
@@ -330,6 +372,7 @@ def make_train_step(
             frozen_memo["src"], frozen_memo["copies"] = frozen, distinct_replicas(mesh, frozen)
         towers = dict(zip(mesh.distinct, zip(state.replicas, frozen_memo["copies"])))
         b = batch_to_device(batch, first)
+        host = _host_masks(batch)
         B = b["valid"].shape[0]
         slices = batch_slices(B, len(slot_devices))
         per = slices[0][1] - slices[0][0]
@@ -340,7 +383,8 @@ def make_train_step(
                 continue
             model, fz = towers[dev]
             emb = embed_batch(model, fz, _slot_rows(b, a, e, per, dev), train_cfg,
-                              loss_variant, query_key, dropout=draw, row_offset=a, batch_rows=B)
+                              loss_variant, query_key, dropout=draw, row_offset=a, batch_rows=B,
+                              host_masks=_slot_host_masks(host, a, e, per))
             parts.append({k: t[: e - a].to(first) for k, t in emb.items()})
         emb = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
         loss = embeddings_loss(emb, b, train_cfg, loss_variant)

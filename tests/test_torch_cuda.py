@@ -1867,3 +1867,64 @@ def test_quantize_int8_torch_equals_numpy_on_the_card(dev, gen):
     ref_codes, ref_scale = quantize_int8(x.cpu().numpy())
     assert torch.equal(scale.cpu(), torch.from_numpy(ref_scale))
     assert torch.equal(codes.cpu(), torch.from_numpy(ref_codes))
+
+
+def _base_tower(int8: bool, dev):
+    """ANCE RoBERTa-base widths (12 x 768, 12 heads, FFN 3072), random
+    weights: the f32 tower, or the int8 tower with a bf16 carry."""
+    from haconvdr_torch.config import ModelConfig
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+
+    cfg = ModelConfig(dtype="bfloat16" if int8 else "float32")
+    params = init_params_numpy(cfg, seed=5)
+    if int8:
+        params = quantize_encoder_params(params)
+    return AnceEncoder.from_jax_params(params, cfg, dev)
+
+
+@pytest.mark.parametrize("mix", ["first_turn", "sessions"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_packed_tower_equals_padded_on_the_card(dev, monkeypatch, int8, mix):
+    """The packed inference forward (ops/pack.py) against the padded one at B
+    64, L 512: first-turn lengths (6-16 tokens) and sessions-like ones
+    (13-512, a full row); f32 scores within 1e-6 of the top score (cuBLAS
+    picks its SGEMM by the row count, so an element may move by more),
+    int8 bit for bit.  Every attention call of the packed forward gets a buffer
+    whose pad positions are finite (zeros) across the 12 layers."""
+    import numpy as np
+
+    from haconvdr_torch.models import encoder as E
+    from haconvdr_torch.ops import fused_attention, pack
+
+    enc = _base_tower(int8, dev)
+    rng = np.random.RandomState(11)
+    B, L = 64, 512
+    lens = rng.randint(6, 17, B) if mix == "first_turn" else rng.randint(13, L + 1, B)
+    if mix == "sessions":
+        lens[5] = L
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    ids = (rng.randint(3, 50265, (B, L)) * mask).astype(np.int32)
+    x, m = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    kernel = fused_attention.fused_attention_qkv
+    seen = []
+
+    def checked(qkv, mask_, nh):
+        seen.append((tuple(qkv.shape), bool(torch.isfinite(qkv).all())))
+        return kernel(qkv, mask_, nh)
+
+    with torch.inference_mode():
+        padded = E._encode([enc], x, m)
+        monkeypatch.setattr(fused_attention, "fused_attention_qkv", checked)
+        packed = enc(x, m, host_mask=mask)
+    torch.cuda.synchronize()
+    width = pack.Plan(mask).width
+    assert seen == [((B, width, 3 * 768), True)] * 12
+    if int8:
+        assert torch.equal(packed, padded)
+    else:  # each row's scores against the padded rows, to the top score
+        scores, ref = packed @ padded.T, padded @ padded.T
+        err = float((scores - ref).abs().max() / ref.abs().max())
+        elem = float((packed - padded).abs().max() / padded.abs().max())
+        print(f"packed f32 {mix}: score error {err:.3e} of the top score, element {elem:.3e}")
+        assert err <= 1e-6, (err, elem)

@@ -304,11 +304,14 @@ def _reader(name):
 
 NEW = ("queue_wait_ms", "collate_ms", "launch_ms", "resolve_ms", "idle_wait_ms",
        "idle_host_ms", "plain_calls")
+# readers of the port's counters added later: like plain_calls, the window's
+# deltas where the reading holds a snapshot, else the process's totals
+COUNTER_READERS = ("pack_share",)
 
 
 def test_the_readers_that_were_there_read_the_same_with_the_snapshot():
     names = [m["name"] for m in load_manifest()["per_layer"]
-             if m["name"].split(".")[-1] not in NEW]
+             if m["name"].split(".")[-1] not in NEW + COUNTER_READERS]
     assert "embed_ms" in names and "open.idle_share" in names
     tr, spans = _trace(), _bench_spans()
     counters = {"queries": 7, "dispatches": 2, "gen_late_s": [0.001, 0.004], "p95_ms": 12.5}
@@ -337,6 +340,29 @@ def test_the_new_readers_return_the_hand_computed_values():
         "queue_wait_ms.py"
     assert reader_path(BENCH_DIR, "encode.plain_calls") == BENCH_DIR / "metrics" / \
         "plain_calls.py"
+
+
+def test_pack_share_reads_rows_over_slots_of_the_window_or_the_process():
+    from haconvdr_torch.ops import pack
+
+    snap = _snapshot()
+    snap.counters["ops.pack"] = {"forwards": 2, "slots": 2048, "rows": 64, "valid": 60,
+                                 "plan_reads": 0}
+    read = _reader("pack_share").read
+    assert read(P.PortReading(_bench_spans(), _trace(), {}, port=snap)) == \
+        pytest.approx(100 * 64 / 2048)
+    # a window whose port has no packing counter (a parent without it)
+    assert read(P.PortReading(_bench_spans(), _trace(), {}, port=_snapshot())) is None
+    saved = dict(pack.COUNTS)
+    try:
+        pack.COUNTS.update(slots=1000, rows=250)
+        assert read(Reading(_bench_spans(), _trace(), {})) == pytest.approx(25.0)
+        pack.COUNTS.update(slots=0, rows=0)  # nothing packed yet
+        assert read(Reading(_bench_spans(), _trace(), {})) is None
+    finally:
+        pack.COUNTS.update(saved)
+    assert reader_path(BENCH_DIR, "encode.pack_share") == BENCH_DIR / "metrics" / \
+        "pack_share.py"
 
 
 def test_without_a_snapshot_the_new_readers_find_nothing_but_the_kernel_counters():
