@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (haconvdr_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--only experts]
 
 Run from the repository root, with one CUDA card visible.  Phases, in
 order; any failure raises and the script exits non-zero:
@@ -234,7 +234,17 @@ order; any failure raises and the script exits non-zero:
    10's split mode at 98,304 rows, tp 2 and 4: bit for bit the un-split
    kernel's, within row 10's bounds of its plain twin, device ms beside
    the un-split block's, plain ms and the bound.  It prints its seconds.
-Each of phases 4-15 zeroes every launch count just before it (phase 10:
+16. the expert layer (ops/moe.py, csrc/moe_experts.cu: row 13) at the
+   DeepSeek-V2 cell's shape (MOE_T = 21,000 tokens, H 2048, I 1408, 64
+   experts, top 6, random bf16 weights): with the routing of random
+   weights and with every token moved along expert 0's router row so that
+   it takes about half the tokens (MOE_SHIFT), one call each with the
+   launch counts zeroed just before (three launches, no twin), the largest
+   load read from the device accumulators, the plain twin, device ms over
+   MOE_REPS calls, the bound (2 x T x 6 x 3 x H x I operations at the bf16
+   peak, or the bytes) and torch._grouped_mm's ms for the same grouped
+   products.  ``--only experts`` runs phases 1, 2 and 16 alone.
+Each of phases 4-16 zeroes every launch count just before it (phase 10:
 before the encode, the search and the labeling; phase 14: before each
 search, serving run and encode of its path, in the children too; phase
 15: before each training run and each split encode) and reads them just
@@ -352,6 +362,13 @@ Tolerances (kernel vs plain twin on the same inputs):
                      tests/test_parallel.py bound); row 10's split mode
                      bit for bit the un-split kernel's, against its twin
                      as the int8 MLP block above
+  expert layer       each row within MOE_REL = 1% of its norm of the plain
+                     twin's (both round the same intermediates to bf16 and
+                     sum in float32, in an order that may differ; at phase
+                     16's shape every element came out equal; a wrong
+                     expert, weight or row reads ~100%); the row's
+                     ``max_abs_err`` is that relative error, and the line
+                     counts the elements that differ
 
 The line before the last is the card's nvidia-smi name and power limit;
 the last line is {"ok": true, "device": {...}}.
@@ -437,6 +454,13 @@ RESCORE_QS = (1, 8, Q_KERNEL)
 # the rate each route of row 3 does its operations at: fmaf on the CUDA
 # cores (A and B, float modes), dp4a (A, int8: four int8 products an
 # instruction at the fmaf rate), the int8 tensor cores (C)
+# phase 16: the expert layer (ops/moe.py) at the DeepSeek-V2 cell's shape: the
+# packed token rows of a full dispatch (~21,000 measured with ANCE on the
+# same mix), H 2048, I 1408, 64 experts, top 6; MOE_SHIFT moves every token
+# along expert 0's router row so that it takes about half the tokens (a
+# largest load ~5x the mean, as the cell's random router reads)
+MOE_T, MOE_H, MOE_I, MOE_E, MOE_K = 21_000, 2048, 1408, 64, 6
+MOE_SHIFT, MOE_REL, MOE_REPS = 1.35, 0.01, 10
 WINDOW_RATE = {("a", "float32"): PEAK["f32"], ("a", "bfloat16"): PEAK["f32"],
                ("a", "int8"): 4 * PEAK["f32"], ("b", "float32"): PEAK["f32"],
                ("b", "bfloat16"): PEAK["f32"], ("c", "int8"): PEAK["int8"]}
@@ -566,9 +590,11 @@ def _count_modules():
         topk_v4,
     )
 
+    from haconvdr_torch.ops import moe
+
     return {"fused_attention": fused_attention, "fused_topk": fused_topk, "topk_v4": topk_v4,
             "fused_ln": fused_ln, "fused_mlp": fused_mlp, "flash_attention": flash_attention,
-            "topk_stream": topk_stream}
+            "topk_stream": topk_stream, "moe": moe}
 
 
 def zero_counts():
@@ -3984,9 +4010,97 @@ def phase_mesh_train_tp(seed: int, dev, params, phase9: dict, card: str):
     return counts, dict(split=split, offset=offset)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the expert layer
+# ---------------------------------------------------------------------------
+
+def grouped_mm_ms(x, gate, w13, w2):
+    """torch._grouped_mm's ms for the expert layer's two grouped products
+    over tokens already sorted by expert (the library yardstick), or None
+    where this PyTorch lacks it or refuses the shapes."""
+    from haconvdr_torch.ops import moe
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    _, e = moe.route_plain(x, gate, MOE_K)
+    xs = x[torch.argsort(e.flatten()) // MOE_K]
+    offs = torch.cumsum(torch.bincount(e.flatten(), minlength=MOE_E), 0).to(torch.int32)
+
+    def lib():
+        gt, up = torch._grouped_mm(xs, w13.transpose(1, 2), offs=offs).chunk(2, dim=-1)
+        return torch._grouped_mm(F.silu(gt) * up, w2.transpose(1, 2), offs=offs)
+
+    try:
+        return cuda_ms(lib, MOE_REPS)
+    except RuntimeError:
+        return None
+
+
+def phase_experts(seed: int, dev, card: str):
+    """Phase 16: ops.moe.routed_experts (csrc/moe_experts.cu: routing, grouped
+    up, grouped down) at the DeepSeek-V2 cell's shape, with the routing of
+    random weights (a largest load ~1.1x the mean) and with one expert taking
+    about half the tokens (~5x, the cell's reading): each call against the
+    plain twin (every row within MOE_REL of its norm), its launches counted
+    from zero (three, no twin), the largest load read from the device
+    accumulators, device ms, the bound and torch._grouped_mm's ms."""
+    from haconvdr_torch.ops import moe
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 16)
+    T, H, I, E, K = MOE_T, MOE_H, MOE_I, MOE_E, MOE_K
+    gate = (torch.randn(E, H, device=dev, generator=g) * H ** -0.5).to(torch.bfloat16)
+    w13 = (torch.randn(E, 2 * I, H, device=dev, generator=g) * H ** -0.5).to(torch.bfloat16)
+    w2 = (torch.randn(E, H, I, device=dev, generator=g) * I ** -0.5).to(torch.bfloat16)
+    x0 = torch.randn(T, H, device=dev, generator=g)
+    row0 = gate[0].float()
+    rows, counts = [], {}
+    flops = 2.0 * T * K * 3 * H * I
+    nbytes = (E * 3 * H * I * 2 + T * H * 2 + T * H * 4  # weights, x, y
+              + 2 * T * K * I * 2)  # h written and read
+    for name, shift in (("uniform", 0.0), ("skewed", MOE_SHIFT)):
+        x = (x0 + shift * row0 / row0.dot(row0)).to(torch.bfloat16)
+        moe.routed_experts(x, gate, w13, w2, K)  # warm
+        torch.cuda.synchronize()
+        zero_counts()
+        max0 = moe.device_counts()["max_load_sum"]
+        out = moe.routed_experts(x, gate, w13, w2, K)
+        torch.cuda.synchronize()
+        c = read_counts()
+        skew = (moe.device_counts()["max_load_sum"] - max0) / (T * K / E)
+        check(c["moe"]["kernel"] == 1 and c["moe"]["launches"] == 3,
+              f"experts ({name}): {c['moe']['launches']} launches, not 3")
+        check_counts(c, [("moe", "launches")], f"experts ({name})")
+        add_counts(counts, c)
+        ref = moe.routed_experts_plain(x, gate, w13, w2, K)
+        err = (out - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+        differ = int((out != ref).sum())
+        check(float(err.max()) <= MOE_REL,
+              f"experts ({name}): a row {float(err.max()):.3e} of its norm from the twin")
+        ms = cuda_ms(lambda: moe.routed_experts(x, gate, w13, w2, K), MOE_REPS)
+        plain_ms = cuda_ms(lambda: moe.routed_experts_plain(x, gate, w13, w2, K), 1)
+        lib = grouped_mm_ms(x, gate, w13, w2)
+        row = dict(kernel="moe_experts", config=f"bf16, {name}", max_abs_err=float(err.max()),
+                   ms=ms, plain_ms=plain_ms, library_ms=lib, skew=skew,
+                   **bound_row(flops, nbytes, "bf16"))
+        rows.append(row)
+        print(f"experts {name}: T {T} H {H} I {I} E {E} top {K}, largest load {skew:.2f}x "
+              f"the mean; {ms:.3f} ms (plain {plain_ms:.2f} ms, torch._grouped_mm "
+              f"{'none' if lib is None else f'{lib:.3f} ms'}), bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}), {100 * row['bound_ms'] / ms:.1f}% of it; max row error "
+              f"{float(err.max()):.2e}, {differ} of {out.numel()} elements not the twin's "
+              f"[{card}]")
+    del gate, w13, w2, x0
+    torch.cuda.empty_cache()
+    print(f"phase 16 (the expert layer) took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return counts, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["experts"],
+                    help="run phases 1-2 and this phase alone (experts: phase 16)")
     ap.add_argument("--mp-child", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help="run one rank of phase 14's two processes (the script starts them)")
     args = ap.parse_args(argv)
@@ -4012,6 +4126,13 @@ def main(argv=None) -> int:
     _build.library()
     print(f"build: {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s "
           f"nvcc (0 = loaded from build/haconvdr_torch/) [{card}]")
+
+    if args.only == "experts":
+        c16, rows16 = phase_experts(args.seed, dev, card)
+        for r in rows16:
+            print("kernel vs plain:", json.dumps(r), f"[{card}]")
+        print(json.dumps({"kernels": [moe_entry(c16, rows16)]}))
+        return finish(t_start, card)
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     passages = torch.randn(N_ROWS, DIM, device=dev, generator=g)
@@ -4049,6 +4170,9 @@ def main(argv=None) -> int:
         c14, _ = phase_mesh(args.seed, dev, params, cfg, p_sum, work, s13, card)
         print(f"phase 14 (the mesh) took {time.perf_counter() - t14:.1f} s [{card}]")
     c15, _ = phase_mesh_train_tp(args.seed, dev, params, m9, card)
+    c16, rows16 = phase_experts(args.seed, dev, card)
+    for r in rows16:
+        print("kernel vs plain:", json.dumps(r), f"[{card}]")
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def launches(mod, *keys):
@@ -4095,7 +4219,22 @@ def main(argv=None) -> int:
         # row 7 lies on no path of either package: phase 3 checks it alone
         entry("topk_stream", "haconvdr_torch/csrc/topk_stream.cu",
               "haconvdr_tpu/ops/pallas_topk_v2.py:38", "topk_stream", "kernel"),
+        moe_entry(c16, rows16),
     ]}))
+    return finish(t_start, card)
+
+
+def moe_entry(counts: dict, rows: list) -> dict:
+    """Row 13 of the kernels line: phase 16's launches, its largest row
+    error, and its times at the cell's skewed routing."""
+    main_row = next(r for r in rows if r["config"] == "bf16, skewed")
+    return {"name": "moe_experts", "route": "cuda", "source": "haconvdr_torch/csrc/moe_experts.cu",
+            "replaces": None, "launches": counts["moe"]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
+def finish(t_start: float, card: str) -> int:
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, the build included [{card}]")
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -142,6 +142,70 @@ class ModelConfig:
         return cls(**base)
 
 
+def _yarn_scaling() -> Dict[str, Any]:
+    return {"type": "yarn", "factor": 40.0, "original_max_position_embeddings": 4096,
+            "beta_fast": 32.0, "beta_slow": 1.0, "mscale": 0.707, "mscale_all_dim": 0.707}
+
+
+@dataclass
+class DeepseekV2Config(ModelConfig):
+    """A DeepSeek-V2 decoder as the query tower (``models/deepseek_v2.py``):
+    ``model_type`` "DEEPSEEK_V2" and the keys of its published
+    ``config.json`` (``models.hf_import.config_from_hf`` reads them), with
+    DeepSeek-V2-Lite's values as defaults.  A subclass, so that
+    ``ModelConfig`` keeps the JAX package's fields and every ANCE path reads
+    it as before.  ``embedding_dim`` is the hidden size (the last valid
+    token's final RMSNorm, no head); ``layer_norm_eps`` and the dropout
+    keys are not read (``rms_norm_eps``; inference only).  Weights and
+    activations are ``dtype`` (bfloat16) with float32 accumulation; only
+    ``scoring_func`` "softmax", ``topk_method`` "greedy", no q LoRA and
+    "yarn" (or no) ``rope_scaling`` are built."""
+
+    model_type: str = "DEEPSEEK_V2"
+    hidden_size: int = 2048
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    intermediate_size: int = 10944  # the leading dense layers' SwiGLU width
+    vocab_size: int = 102400
+    max_position_embeddings: int = 163840
+    embedding_dim: int = 2048
+    dtype: str = "bfloat16"
+    rms_norm_eps: float = 1e-6
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    scoring_func: str = "softmax"
+    topk_method: str = "greedy"
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[Dict[str, Any]] = field(default_factory=_yarn_scaling)
+
+    @classmethod
+    def tiny(cls, **kw) -> "DeepseekV2Config":
+        """Small config for tests: hidden 64, one dense and two expert
+        layers of 8 experts (top 2, one shared), latent rank 16, YaRN
+        factor 4."""
+        base = dict(
+            hidden_size=64, num_hidden_layers=3, num_attention_heads=4, intermediate_size=96,
+            vocab_size=128, max_position_embeddings=256, embedding_dim=64,
+            moe_intermediate_size=32, n_routed_experts=8, n_shared_experts=1,
+            num_experts_per_tok=2, kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=4,
+            v_head_dim=8,
+            rope_scaling={**_yarn_scaling(), "factor": 4.0, "original_max_position_embeddings": 16},
+        )
+        base.update(kw)
+        return cls(**base)
+
+
 @dataclass
 class TrainConfig:
     num_train_epochs: int = 10

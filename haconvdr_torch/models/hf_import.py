@@ -21,18 +21,49 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from haconvdr_torch.config import ModelConfig
+from haconvdr_torch.config import DeepseekV2Config, ModelConfig
 from haconvdr_torch.device import DeviceLike, resolve_device
 from haconvdr_torch.models.encoder import AnceEncoder
 
 EncoderParams = Dict[str, Any]
 
 
+# DeepseekV2Config's fields read from a deepseek_v2 config.json as they are
+_DEEPSEEK_V2_KEYS = (
+    "hidden_size", "num_hidden_layers", "num_attention_heads", "intermediate_size",
+    "vocab_size", "max_position_embeddings", "rms_norm_eps", "moe_intermediate_size",
+    "n_routed_experts", "n_shared_experts", "num_experts_per_tok", "first_k_dense_replace",
+    "moe_layer_freq", "scoring_func", "topk_method", "norm_topk_prob",
+    "routed_scaling_factor", "q_lora_rank", "kv_lora_rank", "qk_nope_head_dim",
+    "qk_rope_head_dim", "v_head_dim", "rope_theta", "rope_scaling",
+)
+
+
+def deepseek_v2_config(hf: Dict[str, Any], path: str = "") -> DeepseekV2Config:
+    """A ``deepseek_v2`` ``config.json`` (as a dict) -> DeepseekV2Config, in
+    bfloat16; ``embedding_dim`` is the hidden size.  Raises on what the
+    tower does not build: attention biases, an activation other than SiLU,
+    group-limited routing."""
+    if hf.get("model_type", "deepseek_v2") != "deepseek_v2":
+        raise ValueError(f"not a deepseek_v2 config: model_type {hf.get('model_type')!r}")
+    if hf.get("attention_bias") or hf.get("hidden_act", "silu") != "silu":
+        raise ValueError("the DeepSeek-V2 tower has no attention biases and runs SiLU")
+    if hf.get("n_group", 1) != 1 or hf.get("topk_group", 1) != 1:
+        raise ValueError("group-limited routing (n_group, topk_group > 1) is not built")
+    kw = {k: hf[k] for k in _DEEPSEEK_V2_KEYS if k in hf}
+    return DeepseekV2Config(pretrained_encoder_path=path, embedding_dim=hf["hidden_size"],
+                            **kw)
+
+
 def config_from_hf(path: str, model_type: str = "ANCE") -> ModelConfig:
     """``config.json`` of an HF checkpoint -> ModelConfig (dtype stays the
-    default float32, as in the reference)."""
+    default float32, as in the reference); a ``deepseek_v2`` config gives a
+    ``DeepseekV2Config`` (``deepseek_v2_config``) whatever ``model_type``
+    says."""
     with open(os.path.join(path, "config.json")) as f:
         hf = json.load(f)
+    if hf.get("model_type") == "deepseek_v2":
+        return deepseek_v2_config(hf, path)
     return ModelConfig(
         model_type=model_type,
         pretrained_encoder_path=path,

@@ -87,6 +87,12 @@ SIGNATURES = {
     # num_heads, dtype, drop_on, seed0, seed1, keep threshold, 1 / (1 - rate),
     # row0, stream
     "hc_flash_bwd": [_P] * 6 + [_I] * 8 + [_U, _F, _I, _P],
+    # logits(float [T, E]), T, E, k, scale, counts(int32 [E]),
+    # perm_tok(int32 [E, cap]), perm_w(float [E, cap]), cap, stream
+    "hc_moe_route": [_P, _I, _I, _I, _F, _P, _P, _P, _I, _P],
+    # mode (0 up, 1 down), A, W, counts, perm_tok, perm_w, cap, E, N, K,
+    # M tiles, out, loads(int64 [E] or NULL), max_sum(int64 [1] or NULL), stream
+    "hc_moe_gemm": [_I] + [_P] * 5 + [_I] * 5 + [_P] * 4,
 }
 
 _lock = threading.Lock()

@@ -84,6 +84,10 @@ class Retriever:
     store stays the exact rescore stage
     (``SearchConfig.rescore_oversample``).
     ``params`` are the JAX package's nested-dict params (numpy leaves).
+    With ``model_cfg.model_type`` "DEEPSEEK_V2" (a ``DeepseekV2Config``)
+    the tower is ``models.deepseek_v2.DeepseekV2Encoder`` and ``params`` its
+    named weights: torch tensors already on the device in the config's
+    dtype are taken as they are (no host copy), numpy leaves are cast.
     ``encoder_int8=True`` quantizes them (``quantize_encoder_params``) and
     serves the int8 tower: with ``model_cfg.dtype="bfloat16"`` it runs the
     fused LayerNorm-quant and MLP kernels.
@@ -110,7 +114,10 @@ class Retriever:
     ):
         # ivf_nlist, ivf_nprobe and ivf_dir are read only with ivf=True, as
         # in the JAX package
+        decoder = model_cfg.model_type == "DEEPSEEK_V2"
         if encoder_int8:
+            if decoder:
+                raise ValueError("the DeepSeek-V2 tower has no int8 route")
             # int8 query tower (haconvdr_tpu/serve.py:92-104); the port's
             # quantize_encoder_params leaves int8 params as they are
             params = quantize_encoder_params(params)
@@ -124,7 +131,12 @@ class Retriever:
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg or DataConfig(is_train=False, use_PRL=False)
         self.search_cfg = search_cfg or SearchConfig()
-        self.encoder = AnceEncoder.from_jax_params(params, model_cfg, self.device)
+        if decoder:
+            from haconvdr_torch.models.deepseek_v2 import DeepseekV2Encoder
+
+            self.encoder = DeepseekV2Encoder.from_params(params, model_cfg, self.device)
+        else:
+            self.encoder = AnceEncoder.from_jax_params(params, model_cfg, self.device)
         # the replicas a batch's slices run on (the tower itself on one slot)
         self._encoders = replicate(self.mesh, self.encoder)
         self.offset2pid = None if offset2pid is None else np.asarray(offset2pid)

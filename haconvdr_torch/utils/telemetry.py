@@ -28,6 +28,10 @@ dispatch's and a request's count are their spans').  Spans are named
                     a lazy iterator collates
   tower.h2d         the ids and mask copied to the device
   tower.launch      the tower's launches, returning before any sync
+  tower.route       inside tower.launch, an expert layer's router logits
+                    and the launch of its routing kernel (ops.moe)
+  tower.experts     inside tower.launch, the launches of an expert layer's
+                    grouped expert products (ops.moe)
   tower.wait        the embeddings copied back (the host sync)
   search.launch     the queries copied and the search launched
   search.wait       the scores and ids copied back (the host sync)
@@ -157,12 +161,18 @@ def clock_pair() -> Tuple[int, int]:
 
 def read_counters() -> Dict[str, Dict[str, int]]:
     """The kernels' counters where they live: each loaded
-    ``haconvdr_torch.ops`` module's ``COUNTS``, by ``ops.<module>``."""
+    ``haconvdr_torch.ops`` module's ``COUNTS``, by ``ops.<module>``, with
+    what its ``device_counts()`` reads off the device where it has one (a
+    sync: call it outside the forward)."""
     out: Dict[str, Dict[str, int]] = {}
     for name, mod in list(sys.modules.items()):
         counts = getattr(mod, "COUNTS", None) if name.startswith("haconvdr_torch.ops.") else None
         if isinstance(counts, dict):
-            out[name[len("haconvdr_torch."):]] = dict(counts)
+            counts = dict(counts)
+            on_device = getattr(mod, "device_counts", None)
+            if callable(on_device):
+                counts.update(on_device())
+            out[name[len("haconvdr_torch."):]] = counts
     return out
 
 

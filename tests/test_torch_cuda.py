@@ -1928,3 +1928,159 @@ def test_packed_tower_equals_padded_on_the_card(dev, monkeypatch, int8, mix):
         elem = float((packed - padded).abs().max() / padded.abs().max())
         print(f"packed f32 {mix}: score error {err:.3e} of the top score, element {elem:.3e}")
         assert err <= 1e-6, (err, elem)
+
+
+# -- the expert layer (ops/moe.py, csrc/moe_experts.cu) and the DeepSeek-V2
+# tower.  The kernel and the plain twin both take bf16 products with f32
+# sums and round the same intermediates to bf16, in another order of the
+# sums: a bf16 rounding of h may flip, so outputs are held to 1% of their
+# norm a row (a wrong expert, weight or row reads ~100%).
+
+
+def _moe_inputs(gen, dev, T, H, I, E, logits=None):
+    x = torch.randn(T, H, device=dev, generator=gen).to(torch.bfloat16)
+    gate = (torch.randn(E, H, device=dev, generator=gen) * H ** -0.5).to(torch.bfloat16)
+    w13 = (torch.randn(E, 2 * I, H, device=dev, generator=gen) * H ** -0.5).to(torch.bfloat16)
+    w2 = (torch.randn(E, H, I, device=dev, generator=gen) * I ** -0.5).to(torch.bfloat16)
+    return x, gate, w13, w2
+
+
+def _moe_close(out, ref):
+    err = (out.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert float(err.max()) <= 1e-2, float(err.max())
+
+
+@pytest.mark.parametrize("case", ["T1", "empty_expert", "one_expert", "ragged"])
+def test_moe_kernel_matches_plain_at_the_edges(dev, gen, case):
+    from haconvdr_torch.ops import moe
+
+    T, H, I, E, k = {"T1": (1, 64, 32, 8, 2), "empty_expert": (300, 64, 32, 8, 2),
+                     "one_expert": (257, 72, 40, 8, 1), "ragged": (1000, 136, 24, 24, 3)}[case]
+    x, gate, w13, w2 = _moe_inputs(gen, dev, T, H, I, E)
+    if case == "empty_expert":  # expert 3 can never win
+        gate[3] = -gate.abs().sum(0)
+        x = x.abs()
+    if case == "one_expert":  # every token on expert 5
+        gate.zero_()
+        gate[5] = 1
+        x = x.abs() + 0.1
+    before = dict(moe.COUNTS)
+    out = moe.routed_experts(x, gate, w13, w2, k, 1.5)
+    torch.cuda.synchronize()
+    assert moe.COUNTS["kernel"] == before["kernel"] + 1
+    assert moe.COUNTS["assignments"] == before["assignments"] + T * k
+    _moe_close(out, moe.routed_experts_plain(x, gate, w13, w2, k, 1.5))
+    if case == "one_expert":
+        w, e = moe.route_plain(x, gate, k)
+        assert bool((e == 5).all())
+
+
+def test_moe_kernel_at_the_published_widths_makes_no_host_sync(dev, gen):
+    """DeepSeek-V2-Lite's expert layer (H 2048, I 1408, 64 experts, top 6) over
+    4,096 tokens: one call under sync-debug "error", then the plain twin."""
+    from haconvdr_torch.ops import moe
+
+    x, gate, w13, w2 = _moe_inputs(gen, dev, 4096, 2048, 1408, 64)
+    moe.routed_experts(x, gate, w13, w2, 6)  # builds the library first
+    torch.cuda.synchronize()
+    loads0 = sum(int(t.sum()) for t in moe.expert_loads())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe.routed_experts(x, gate, w13, w2, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _moe_close(out, moe.routed_experts_plain(x, gate, w13, w2, 6))
+    # the kernel's load accumulators count its tokens; the plain twin's too
+    assert sum(int(t.sum()) for t in moe.expert_loads()) == loads0 + 2 * 4096 * 6
+
+
+def _tiny_decoder(dev, **kw):
+    from haconvdr_torch.config import DeepseekV2Config
+    from haconvdr_torch.models.deepseek_v2 import DeepseekV2Encoder
+
+    cfg = DeepseekV2Config(**kw)
+    with torch.device("meta"):
+        shapes = {n: p.shape for n, p in DeepseekV2Encoder(cfg).state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(7)
+    params = {n: (torch.ones(s, device=dev) if n.endswith("norm.weight")
+                  else torch.randn(s, device=dev, generator=g) * 0.05).to(torch.bfloat16)
+              for n, s in shapes.items()}
+    return cfg, params, DeepseekV2Encoder.from_params(params, cfg, dev)
+
+
+def test_deepseek_v2_tower_on_the_card_makes_no_host_sync(dev):
+    """The tower at the published widths, cut to one dense and two expert
+    layers: one packed forward under sync-debug "error" with the host mask
+    (no plan read back), then the same weights with the plain expert twin,
+    and the float32 reference."""
+    import dataclasses
+
+    import numpy as np
+
+    from haconvdr_torch.ops import moe, pack
+    from h100_bench.reference.deepseek_v2 import Reference
+
+    cfg, params, enc = _tiny_decoder(dev, num_hidden_layers=3)
+    rng = np.random.default_rng(0)
+    lens = [512, 3, 77, 1, 200, 64, 130, 9]
+    mask = np.zeros((len(lens), 512), np.int64)
+    for b, n in enumerate(lens):
+        mask[b, :n] = 1
+    ids = torch.from_numpy(rng.integers(5, cfg.vocab_size, mask.shape) * mask).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    with torch.inference_mode():
+        enc(ids, m, host_mask=mask)  # warm: builds the library
+        torch.cuda.synchronize()
+        reads = pack.COUNTS["plan_reads"]
+        kernel = moe.COUNTS["kernel"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = enc(ids, m, host_mask=mask)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert pack.COUNTS["plan_reads"] == reads and moe.COUNTS["kernel"] == kernel + 2
+        enc.plain = True
+        twin = enc(ids, m, host_mask=mask)
+        enc.plain = False
+    ref = Reference(dataclasses.asdict(cfg), params, dev).embed(
+        [ids[b, :n].tolist() for b, n in enumerate(lens)])
+    for got, lim in ((out, 0.08), (twin, 0.08)):
+        err = (got - ref).norm(dim=-1) / ref.norm(dim=-1)
+        assert float(err.max()) <= lim, err
+    assert float(((out - twin).norm(dim=-1) / twin.norm(dim=-1)).max()) <= 0.05
+
+
+def test_v4_search_bf16_at_d2048_over_a_million_rows(dev, gen):
+    """The v4 search in bf16 at D 2048 over 1,000,000 rows (2.048e9 elements,
+    under 2^31) against the plain exact top-k of the same bf16 rows."""
+    from haconvdr_torch.parallel.sharded_search import ShardedIndex
+
+    N, D, k = 1_000_000, 2048, 100
+    rows = torch.empty((N, D), dtype=torch.bfloat16, device=dev)
+    for a in range(0, N, 100_000):
+        rows[a:a + 100_000] = torch.randn(100_000, D, device=dev, generator=gen)
+    q = torch.randn(64, D, device=dev, generator=gen)
+    index = ShardedIndex.from_tensor(rows, dtype="bfloat16")
+    s, i = index.search(q.cpu().numpy(), k)
+    qb = q.to(torch.bfloat16).float()
+    best_s = best_i = None
+    for a in range(0, N, 100_000):
+        sc = qb @ rows[a:a + 100_000].float().T
+        ts, ti = torch.topk(sc, k, dim=1)
+        ti = ti + a
+        if best_s is not None:
+            ts, j = torch.topk(torch.cat([best_s, ts], 1), k, dim=1)
+            ti = torch.gather(torch.cat([best_i, ti], 1), 1, j)
+        best_s, best_i = ts, ti
+    rs, ri = best_s.cpu().numpy(), best_i.cpu().numpy()
+    import numpy as np
+
+    assert np.all(np.abs(s - rs) <= 1e-4 * np.abs(rs))
+    # ids equal wherever the neighbours' scores are not within the tolerance
+    gap = np.minimum(np.abs(np.diff(rs, axis=1, prepend=np.inf)),
+                     np.abs(np.diff(rs, axis=1, append=-np.inf)))
+    clear = gap > 2e-4 * np.abs(rs)
+    assert np.array_equal(i[clear], ri[clear]) and clear.mean() > 0.5
