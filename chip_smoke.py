@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (haconvdr_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--only experts]
+    python3 chip_smoke.py [--seed 0] [--only experts|dense]
 
 Run from the repository root, with one CUDA card visible.  Phases, in
 order; any failure raises and the script exits non-zero:
@@ -244,7 +244,17 @@ order; any failure raises and the script exits non-zero:
    MOE_REPS calls, the bound (2 x T x 6 x 3 x H x I operations at the bf16
    peak, or the bytes) and torch._grouped_mm's ms for the same grouped
    products.  ``--only experts`` runs phases 1, 2 and 16 alone.
-Each of phases 4-16 zeroes every launch count just before it (phase 10:
+17. the int8 dense (ops/int8_dense.py, csrc/int8_dense.cu: row 14) at the
+   int8 cells' shapes (DENSE_ROWS: 53,248 and 9,000 rows): the QKV dense
+   (768 -> 2,304 from given codes) and the attention-output dense (768 ->
+   768 from bf16 rows: the codes kernel, then the dense), bf16 out; one
+   call each with the launch counts zeroed just before, bit for bit the
+   plain twin (the composition of quantize_rows, torch._int_mm and the
+   elementwise dequantization it replaced), device ms over DENSE_REPS
+   calls, the twin's ms, torch._int_mm's alone (the library) and the bound
+   (the products at the int8 peak, or the input, W and the bf16 y once).
+   ``--only dense`` runs phases 1, 2 and 17 alone.
+Each of phases 4-17 zeroes every launch count just before it (phase 10:
 before the encode, the search and the labeling; phase 14: before each
 search, serving run and encode of its path, in the children too; phase
 15: before each training run and each split encode) and reads them just
@@ -461,6 +471,9 @@ RESCORE_QS = (1, 8, Q_KERNEL)
 # largest load ~5x the mean, as the cell's random router reads)
 MOE_T, MOE_H, MOE_I, MOE_E, MOE_K = 21_000, 2048, 1408, 64, 6
 MOE_SHIFT, MOE_REL, MOE_REPS = 1.35, 0.01, 10
+# phase 17: the int8 dense (ops/int8_dense.py) at the encode cell's packed rows
+# a batch (~53,000 of 256 x 384 slots) and an open-cell dispatch's (~9,000)
+DENSE_ROWS, DENSE_REPS = (53_248, 9_000), 20
 WINDOW_RATE = {("a", "float32"): PEAK["f32"], ("a", "bfloat16"): PEAK["f32"],
                ("a", "int8"): 4 * PEAK["f32"], ("b", "float32"): PEAK["f32"],
                ("b", "bfloat16"): PEAK["f32"], ("c", "int8"): PEAK["int8"]}
@@ -590,11 +603,11 @@ def _count_modules():
         topk_v4,
     )
 
-    from haconvdr_torch.ops import moe
+    from haconvdr_torch.ops import int8_dense, moe
 
     return {"fused_attention": fused_attention, "fused_topk": fused_topk, "topk_v4": topk_v4,
             "fused_ln": fused_ln, "fused_mlp": fused_mlp, "flash_attention": flash_attention,
-            "topk_stream": topk_stream, "moe": moe}
+            "topk_stream": topk_stream, "moe": moe, "int8_dense": int8_dense}
 
 
 def zero_counts():
@@ -1829,13 +1842,18 @@ def count_forwards(encoder):
 
 def check_tower_counts(counts, n_fwd: int, layers: int, what: str) -> None:
     """Per forward of the int8 bf16 tower, 1 + layers LayerNorm-quant
-    launches (embeddings, then each attention residual) and one MLP launch
-    per layer: 13 and 12 at 12 layers."""
+    launches (embeddings, then each attention residual), one MLP launch
+    per layer, and two int8 dense launches a layer (QKV, the attention
+    output) with the output dense's codes: 13, 12, 24 and 12 at 12 layers."""
     check(n_fwd > 0, f"{what}: no tower forward ran")
     check(counts["fused_ln"]["ln_quant"] == (1 + layers) * n_fwd
           and counts["fused_ln"]["ln"] == 0 and counts["fused_mlp"]["kernel"] == layers * n_fwd,
           f"{what}: {n_fwd} forwards launched LN-quant {counts['fused_ln']['ln_quant']} "
           f"and MLP {counts['fused_mlp']['kernel']} times, not {1 + layers} and {layers} each")
+    dense = counts["int8_dense"]
+    check(dense["dense"] == 2 * layers * n_fwd and dense["codes"] == layers * n_fwd,
+          f"{what}: {n_fwd} forwards launched the int8 dense {dense['dense']} and its codes "
+          f"{dense['codes']} times, not {2 * layers} and {layers} each")
 
 
 def tower_agreement(got, ref, what: str):
@@ -2177,7 +2195,7 @@ def phase_training(seed: int, dev, card: str):
     check_train_counts(ck, L, n_frozen, 1)
     check(cp["flash_attention"] == {"fwd": 0, "bwd": 0, "plain_fwd": L, "plain_bwd": L},
           f"training (plain): flash launches {cp['flash_attention']}")
-    for mod in ("fused_ln", "fused_mlp", "fused_attention"):
+    for mod in ("fused_ln", "fused_mlp", "fused_attention", "int8_dense"):
         check(cp[mod] == ck[mod], f"training (plain): the frozen towers' {mod} launches differ")
     grad_rel = float((gk - gp).norm() / gp.norm())
     other_rel = float((go - gk).norm() / gk.norm())
@@ -3972,7 +3990,8 @@ def tp_encode(seed: int, dev, devices, params, card: str):
         check(rel32 <= TP_F32_REL, f"tp encode dp {dp} x tp {tp}: f32 {rel32} > {TP_F32_REL}")
         want = {("fused_attention", "kernel"): L * tp * dp, ("fused_ln", "ln_quant"): (1 + L) * dp,
                 ("fused_mlp", "split_up"): L * tp * dp, ("fused_mlp", "split_down"): L * tp * dp,
-                ("fused_mlp", "split_finish"): L * dp, ("fused_mlp", "kernel"): 0}
+                ("fused_mlp", "split_finish"): L * dp, ("fused_mlp", "kernel"): 0,
+                ("int8_dense", "dense"): L * tp * dp, ("int8_dense", "codes"): 0}
         for (mod, key), k in want.items():
             check(c[mod][key] == k, f"tp encode dp {dp} x tp {tp}: {mod} {key} launched "
                   f"{c[mod][key]} times, not {k}")
@@ -4096,11 +4115,78 @@ def phase_experts(seed: int, dev, card: str):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the int8 dense
+# ---------------------------------------------------------------------------
+
+def phase_int8_dense(seed: int, dev, card: str):
+    """Phase 17 (see the module docstring): (counts, rows)."""
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.ops import fused_mlp
+    from haconvdr_torch.ops import int8_dense as idn
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    rows, counts = [], {}
+    for M in DENSE_ROWS:
+        x = (torch.randn(M, DIM, device=dev, generator=g) * 2).to(torch.bfloat16)
+        pq = quantize_rows(x)
+        for name, N, given in (("qkv", 3 * DIM, True), ("output", DIM, False)):
+            w, ks = int8_weight(g, dev, N, DIM)
+            b = torch.linspace(-0.1, 0.1, N, device=dev)
+            p = pq if given else None
+
+            def run():
+                return idn.int8_dense(x, w, ks, b, p, torch.bfloat16)
+
+            run()  # warm
+            torch.cuda.synchronize()
+            zero_counts()
+            y = run()
+            torch.cuda.synchronize()
+            c = read_counts()
+            what = f"int8 dense ({name}, {M} rows)"
+            check(c["int8_dense"] == {"dense": 1, "codes": 0 if given else 1, "plain": 0},
+                  f"{what}: launches {c['int8_dense']}")
+            check_counts(c, [("int8_dense", "dense")], what)
+            add_counts(counts, c)
+            differ = int((y != idn.int8_dense_plain(x, w, ks, b, p, torch.bfloat16)).sum())
+            check(differ == 0, f"{what}: {differ} elements not the twin's")
+            ms = device_ms(run, DENSE_REPS)
+            plain_ms = device_ms(lambda: idn.int8_dense_plain(x, w, ks, b, p, torch.bfloat16), 5)
+            lib = device_ms(lambda: fused_mlp._int_mm(pq[0], w), DENSE_REPS)
+            flops = 2.0 * M * N * DIM
+            nbytes = M * DIM * (1 if given else 2) + N * DIM + 2.0 * M * N
+            row = dict(kernel="int8_dense", config=f"{name}, {M} rows", max_abs_err=0.0, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib,
+                       **bound_row(flops, nbytes, "int8"))
+            rows.append(row)
+            print(f"int8 dense {name}: [{M}, {DIM}] x [{N}, {DIM}]^T -> bf16"
+                  f"{'' if given else ' (with the codes kernel)'}: "
+                  f"{ms:.4f} ms; plain twin (the parent's composition) {plain_ms:.4f} ms; "
+                  f"torch._int_mm alone {lib:.4f} ms; bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), {100 * row['bound_ms'] / ms:.1f}% of it; bit for bit "
+                  f"the twin [{card}]")
+        del x, pq, w
+    torch.cuda.empty_cache()
+    print(f"phase 17 (the int8 dense) took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return counts, rows
+
+
+def dense_entry(launches: int, rows: list) -> dict:
+    """Row 14 of the kernels line: the int8 dense's launches over phases
+    4-15 and 17, and its times at the encode cell's QKV dense."""
+    main_row = next(r for r in rows if r["config"] == f"qkv, {DENSE_ROWS[0]} rows")
+    return {"name": "int8_dense", "route": "cuda", "source": "haconvdr_torch/csrc/int8_dense.cu",
+            "replaces": None, "launches": launches, "max_abs_err": 0.0,
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["experts"],
-                    help="run phases 1-2 and this phase alone (experts: phase 16)")
+    ap.add_argument("--only", choices=["experts", "dense"],
+                    help="run phases 1-2 and this phase alone (experts: phase 16; dense: 17)")
     ap.add_argument("--mp-child", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help="run one rank of phase 14's two processes (the script starts them)")
     args = ap.parse_args(argv)
@@ -4132,6 +4218,12 @@ def main(argv=None) -> int:
         for r in rows16:
             print("kernel vs plain:", json.dumps(r), f"[{card}]")
         print(json.dumps({"kernels": [moe_entry(c16, rows16)]}))
+        return finish(t_start, card)
+    if args.only == "dense":
+        c17, rows17 = phase_int8_dense(args.seed, dev, card)
+        for r in rows17:
+            print("kernel vs plain:", json.dumps(r), f"[{card}]")
+        print(json.dumps({"kernels": [dense_entry(c17["int8_dense"]["dense"], rows17)]}))
         return finish(t_start, card)
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -4172,6 +4264,9 @@ def main(argv=None) -> int:
     c15, _ = phase_mesh_train_tp(args.seed, dev, params, m9, card)
     c16, rows16 = phase_experts(args.seed, dev, card)
     for r in rows16:
+        print("kernel vs plain:", json.dumps(r), f"[{card}]")
+    c17, rows17 = phase_int8_dense(args.seed, dev, card)
+    for r in rows17:
         print("kernel vs plain:", json.dumps(r), f"[{card}]")
     print(f"phases done in {time.perf_counter() - t_start:.1f} s [{card}]")
 
@@ -4220,6 +4315,7 @@ def main(argv=None) -> int:
         entry("topk_stream", "haconvdr_torch/csrc/topk_stream.cu",
               "haconvdr_tpu/ops/pallas_topk_v2.py:38", "topk_stream", "kernel"),
         moe_entry(c16, rows16),
+        dense_entry(launches("int8_dense", "dense") + c17["int8_dense"]["dense"], rows17),
     ]}))
     return finish(t_start, card)
 

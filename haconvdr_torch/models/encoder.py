@@ -26,7 +26,9 @@ another row count.  Train-mode forwards keep the padded ``[B, L]`` rows.
 int8 towers (``quantize_encoder_params``): the transformer layers' dense
 kernels are int8 per output channel (``Int8Linear``), activations are
 quantized per token, dynamically, and multiplied with exact int32
-accumulation.  With a bfloat16 carry the tower routes as the reference's
+accumulation (``ops.int8_dense``: on CUDA one kernel for the codes and one
+for the product with its dequantization, bias and cast).  With a bfloat16
+carry the tower routes as the reference's
 gates do (haconvdr_tpu/models/encoder.py:345-368): every LayerNorm also
 emits its output's int8 codes (``ops.fused_ln.fused_residual_ln_quant``),
 which the next dense takes as ``prequant``, and each MLP block is one
@@ -83,7 +85,9 @@ from haconvdr_torch.config import ModelConfig
 from haconvdr_torch.device import DeviceLike, resolve_device, torch_dtype
 from haconvdr_torch.index.quantize import quantize_rows
 from haconvdr_torch.models.convert import params_from_jax
-from haconvdr_torch.ops import flash_attention, fused_attention, fused_ln, fused_mlp, pack
+from haconvdr_torch.ops import (
+    flash_attention, fused_attention, fused_ln, fused_mlp, int8_dense, pack,
+)
 from haconvdr_torch.ops.fused_ln import layer_norm
 from haconvdr_torch.parallel.mesh import group_max, group_sum
 
@@ -128,7 +132,9 @@ def quantize_encoder_params(params: Dict[str, Any]) -> Dict[str, Any]:
 
 class Int8Linear(nn.Module):
     """Inference int8 dense: ``weight`` int8 [out, in] (nn.Linear's layout),
-    per-output-channel ``kernel_scale`` and ``bias`` float32 [out]."""
+    per-output-channel ``kernel_scale`` and ``bias`` float32 [out].  CUDA
+    tensors take ``ops.int8_dense``'s kernels, CPU tensors and ``plain``
+    its plain twin."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -136,12 +142,12 @@ class Int8Linear(nn.Module):
         self.register_buffer("kernel_scale", torch.zeros(out_features))
         self.register_buffer("bias", torch.zeros(out_features))
 
-    def forward(self, x: torch.Tensor, prequant=None, out_dtype=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, prequant=None, out_dtype=None,
+                plain: bool = False) -> torch.Tensor:
         """float32 (or ``out_dtype``) ``x @ W^T``; ``prequant=(xq, xs)``
         skips the dynamic per-token quantization of x."""
-        xq, xs = quantize_rows(x) if prequant is None else prequant
-        y = fused_mlp.int8_dense(xq, xs, self.weight, self.kernel_scale, self.bias)
-        return y if out_dtype is None else y.to(out_dtype)
+        dense = int8_dense.int8_dense_plain if plain else int8_dense.int8_dense
+        return dense(x, self.weight, self.kernel_scale, self.bias, prequant, out_dtype)
 
 
 class _MmF32(torch.autograd.Function):
@@ -181,16 +187,17 @@ def _matmul(x, lin, dtype):
     return F.linear(x.to(dtype).to(acc), w.to(acc))
 
 
-def _dense(x, lin, dtype, out_dtype=None, prequant=None):
-    """One dense layer.  int8: ``Int8Linear``.  float: ``_matmul`` plus the
-    bias in promote(dtype, f32), rounded once to ``out_dtype``."""
+def _dense(x, lin, dtype, out_dtype=None, prequant=None, plain=False):
+    """One dense layer.  int8: ``Int8Linear`` (``plain``: its twin).  float:
+    ``_matmul`` plus the bias in promote(dtype, f32), rounded once to
+    ``out_dtype``."""
     if isinstance(lin, Int8Linear):
-        return lin(x, prequant, out_dtype)
+        return lin(x, prequant, out_dtype, plain)
     y = _matmul(x, lin, dtype) + lin.bias.to(torch.promote_types(dtype, torch.float32))
     return y if out_dtype is None else y.to(out_dtype)
 
 
-def _row_dense(xs, lins, dtype):
+def _row_dense(xs, lins, dtype, out_dtype=None, plain=False):
     """A row-split dense over a tp group: rank r multiplies its input
     columns ``xs[r]`` by its rows of W (``lins[r]``), the partial products
     are summed on the first rank (``group_sum``, in rank order) and the
@@ -199,9 +206,10 @@ def _row_dense(xs, lins, dtype):
     ranks' row maxima, exact) and the int32 partials are summed before the
     dequantization, so the result equals the un-split dense bit for bit.
     float: the float32 partials are summed, a rounding the un-split dense
-    does not make.  One rank is ``_dense``."""
+    does not make.  One rank is ``_dense``.  The result is float32 (or
+    ``out_dtype``, rounded once)."""
     if len(lins) == 1:
-        return _dense(xs[0], lins[0], dtype)
+        return _dense(xs[0], lins[0], dtype, out_dtype, plain=plain)
     lin0 = lins[0]
     first = xs[0].device
     if isinstance(lin0, Int8Linear):
@@ -212,9 +220,11 @@ def _row_dense(xs, lins, dtype):
             xq, _ = quantize_rows(x, scale.to(x.device))
             parts.append(fused_mlp._int_mm(xq.reshape(-1, x.shape[-1]), lin.weight))
         y = fused_mlp.dequant_int32(group_sum(parts), scale, lin0.kernel_scale, lin0.bias)
-        return y.reshape(*xs[0].shape[:-1], lin0.weight.shape[0])
-    y = group_sum([_matmul(x, lin, dtype) for x, lin in zip(xs, lins)])
-    return y + lin0.bias.to(torch.promote_types(dtype, torch.float32)).to(first)
+        y = y.reshape(*xs[0].shape[:-1], lin0.weight.shape[0])
+    else:
+        y = group_sum([_matmul(x, lin, dtype) for x, lin in zip(xs, lins)])
+        y = y + lin0.bias.to(torch.promote_types(dtype, torch.float32)).to(first)
+    return y if out_dtype is None else y.to(out_dtype)
 
 
 def mlp_block_split(x, xq, xs, w1s, s1s, b1s, w2s, w2_scale, b2, ln_scale, ln_bias,
@@ -531,6 +541,12 @@ def _hidden_states(towers, input_ids, attention_mask, dropout=None, trainable=Fa
     use_fused_mlp = use_fused_quant and cfg.use_fused_mlp
     remat = cfg.remat if torch.is_grad_enabled() and not t0.int8 else False
 
+    def branch_dtype(seed):
+        """A row dense's output type: the carry where no dropout follows
+        (res_ln casts to it before the add, so rounding there is the same),
+        else float32."""
+        return carry if seed is None else None
+
     def res_ln(x, branch_out, ln):
         """(LayerNorm(x + branch_out), prequant) in the carry dtype; the
         branch output is cast to the carry before the add."""
@@ -586,20 +602,22 @@ def _hidden_states(towers, input_ids, attention_mask, dropout=None, trainable=Fa
             return x, (xq, xs)
         xr, pqs = col_inputs(x, pq)
         inter = [
-            F.gelu(_dense(xi, l.intermediate, dtype, out_dtype=dtype, prequant=pi),
+            F.gelu(_dense(xi, l.intermediate, dtype, out_dtype=dtype, prequant=pi, plain=plain),
                    approximate=gelu)
             for xi, pi, l in zip(xr, pqs, lyrs)
         ]
-        out = _dropout(_row_dense(inter, [l.output for l in lyrs], dtype), hd, seed, rows)
-        return res_ln(x, out, ln)
+        out = _row_dense(inter, [l.output for l in lyrs], dtype, branch_dtype(seed), plain)
+        return res_ln(x, _dropout(out, hd, seed, rows), ln)
 
     def layer_fn(x, pq, lyrs, words, s_attn, s_mlp):
         xr, pqs = col_inputs(x, pq)
         ctx = []
         for r, (xi, pi, l) in enumerate(zip(xr, pqs, lyrs)):
-            qkv = _dense(xi, l.attention["qkv"], dtype, out_dtype=dtype, prequant=pi).contiguous()
+            qkv = _dense(xi, l.attention["qkv"], dtype, out_dtype=dtype, prequant=pi,
+                         plain=plain).contiguous()
             ctx.append(attention(qkv, r, words))
-        out = _row_dense(ctx, [l.attention["output"] for l in lyrs], dtype)
+        out = _row_dense(ctx, [l.attention["output"] for l in lyrs], dtype, branch_dtype(s_attn),
+                         plain)
         out = _dropout(out, hd, s_attn, rows)
         x, pq = res_ln(x, out, lyrs[0].attention["output_layer_norm"])
         if remat == "mlp":  # float towers only: pq is None

@@ -79,6 +79,12 @@ SIGNATURES = {
     # part(int32 [tp, rows, H]), tp, gs, x, s2, b2, ln scale, ln bias, eps,
     # rows, H, scratch t, y, yq, ys, stream
     "hc_fused_mlp_split_finish": [_P, _I] + [_P] * 6 + [_F, _I, _I] + [_P] * 5,
+    # xq(int8 [M, K]), xs(float [M]), w(int8 [N, K]), ks, bias(float [N]), M,
+    # N, K, out dtype (0 f32 / 1 bf16), y, stream
+    "hc_int8_dense": [_P] * 5 + [_I] * 4 + [_P, _P],
+    # x, rows, K, x dtype (0 f32 / 1 bf16), xq(int8 [rows, K]), xs(float
+    # [rows]), stream
+    "hc_row_codes": [_P, _I, _I, _I, _P, _P, _P],
     # qkv, mask(int32), out, stats(float2 [B, nh, L]), B, L, H, num_heads,
     # dtype, drop_on, seed0, seed1, keep threshold, 1 / (1 - rate), row0
     # (the first row's index in the whole batch), stream

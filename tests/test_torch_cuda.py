@@ -1105,6 +1105,186 @@ def test_int8_tower_wrappers_reject_unsupported(dev):
         fused_mlp_block(x, q, vh[:4, None], w1, vi, vi, w2, vh, vh, vh, vh)
 
 
+# -- the int8 dense (ops/int8_dense.py, csrc/int8_dense.cu): bit for bit the
+# plain twin (the parent's composition of quantize_rows, torch._int_mm and
+# PyTorch's elementwise dequantization)
+
+DENSE_WIDTHS = [(768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 576)]
+
+
+def _dense_case(gen, dev, M, K, N, dtype):
+    x = (torch.randn(M, K, device=dev, generator=gen) * 2).to(dtype)
+    w, ks = _quant_weight(gen, dev, N, K)
+    b = torch.linspace(-0.1, 0.1, N, device=dev)
+    return x, w, ks, b
+
+
+@pytest.mark.parametrize("prequant", [False, True], ids=["codes", "prequant"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K, N", DENSE_WIDTHS)
+@pytest.mark.parametrize("M", [1, 5, 17, 40, 131, 9_000])
+def test_int8_dense_kernel_equals_the_twin(dev, gen, M, K, N, out_dtype, prequant):
+    """The tile the kernel picks, from rows in the output's type (bf16 rows
+    for the bf16 carry, f32 rows for the f32 one): y equal to
+    ``int8_dense_plain``'s, one dense launch, and one codes launch where no
+    prequant came."""
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.ops import int8_dense as idn
+
+    x, w, ks, b = _dense_case(gen, dev, M, K, N, out_dtype)
+    pq = quantize_rows(x) if prequant else None
+    before = dict(idn.COUNTS)
+    y = idn.int8_dense(x, w, ks, b, pq, out_dtype)
+    torch.cuda.synchronize()
+    assert idn.COUNTS == {**before, "dense": before["dense"] + 1,
+                          "codes": before["codes"] + (0 if prequant else 1)}
+    want = idn.int8_dense_plain(x, w, ks, b, pq, out_dtype)
+    assert y.dtype == out_dtype and y.shape == (M, N)
+    assert torch.equal(y, want)
+
+
+# (M, K, N) reaching both of the kernel's tiles, 128 and 64 rows of 192
+# columns: 128 where ceil(M / 128) * ceil(N / 192) tiles fill the card's
+# 132 SMs once, else 64
+DENSE_TILE_CASES = [
+    (40, 768, 640),  # 64 rows; 640 masks the last tile's second and third 64 columns
+    (9_000, 768, 640),  # 128 rows, the same mask
+    (131, 768, 576),  # 64 rows, a tp rank's QKV
+    (40, 768, 1152),  # 64 rows
+    (9_000, 3072, 768),  # 128 rows, the f32-carry tower's down dense
+    (9_000, 768, 64),  # 64 rows, N under one tile
+    (20_000, 768, 64),  # 128 rows, N under one tile
+]
+
+
+@pytest.mark.parametrize("M, K, N", DENSE_TILE_CASES)
+def test_int8_dense_every_tile_equals_the_twin(dev, gen, M, K, N):
+    """Both tiles, reached through M (DENSE_TILE_CASES), on masked column
+    tiles (N not a multiple of 192, N under one tile), ragged rows and
+    K 3,072: bf16 and f32 y equal to the twin's."""
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.ops import int8_dense as idn
+
+    x, w, ks, b = _dense_case(gen, dev, M, K, N, torch.bfloat16)
+    pq = quantize_rows(x)
+    for dt in (torch.bfloat16, torch.float32):
+        y = idn.int8_dense(x, w, ks, b, pq, dt)
+        assert torch.equal(y, idn.int8_dense_plain(x, w, ks, b, pq, dt)), dt
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows, K", [(1, 768), (37, 64), (4_099, 768), (1_003, 3072)])
+def test_row_codes_kernel_equals_quantize_rows(dev, gen, dtype, rows, K):
+    from haconvdr_torch.index.quantize import quantize_rows
+    from haconvdr_torch.ops import int8_dense as idn
+
+    x = (torch.randn(rows, K, device=dev, generator=gen) * 3).to(dtype)
+    x[0, : K // 2] = 0  # a half-empty row
+    if rows > 1:
+        x[1] = 0  # an empty row: the scale's floor
+    q, s = idn.row_codes(x)
+    rq, rs = quantize_rows(x)
+    assert q.dtype == torch.int8 and s.shape == (rows, 1)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+def test_packed_int8_tower_through_the_dense_kernel_equals_the_parents_route(dev, monkeypatch):
+    """The packed int8 bf16 tower (ANCE-base widths, quantize_encoder_params)
+    with Int8Linear on the kernels against the same tower with Int8Linear on
+    its plain twin (the parent's route; every other kernel the same): the
+    embeddings bit for bit, one dense launch a CUDA Int8Linear call (QKV and
+    the attention output, 24), codes for the output dense alone (12), no
+    twin."""
+    import numpy as np
+
+    from haconvdr_torch.models.encoder import Int8Linear
+    from haconvdr_torch.ops import int8_dense as idn
+
+    enc = _base_tower(True, dev)
+    rng = np.random.RandomState(12)
+    B, L = 32, 384
+    lens = rng.randint(32, L + 1, B)
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    ids = (rng.randint(3, 50265, (B, L)) * mask).astype(np.int32)
+    x, m = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    calls = []
+    forward = Int8Linear.forward
+
+    def counted(self, *args, **kw):
+        calls.append(1)
+        return forward(self, *args, **kw)
+
+    monkeypatch.setattr(Int8Linear, "forward", counted)
+    for k in idn.COUNTS:
+        idn.COUNTS[k] = 0
+    with torch.inference_mode():
+        got = enc(x, m, host_mask=mask)
+        torch.cuda.synchronize()
+        counts, n_calls = dict(idn.COUNTS), len(calls)
+        monkeypatch.setattr(idn, "int8_dense", idn.int8_dense_plain)
+        want = enc(x, m, host_mask=mask)
+    assert counts == {"dense": n_calls, "codes": 12, "plain": 0} and n_calls == 24
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("use_fused", [True, False], ids=["fused", "unfused"])
+def test_int8_tp2_split_tower_equals_the_unsplit_one_on_the_card(dev, use_fused):
+    """Two tp ranks on one card (ANCE widths, 2 layers, bf16 carry): the
+    ranks' column denses (QKV, 1,152 columns; unfused also the FFN up, 1,536)
+    go through the dense kernel, the row denses through the int32 partials;
+    the embeddings equal the un-split tower's bit for bit."""
+    import numpy as np
+
+    from haconvdr_torch.config import ModelConfig
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+    from haconvdr_torch.ops import int8_dense as idn
+    from haconvdr_torch.parallel.mesh import make_mesh
+    from haconvdr_torch.parallel.sharded_encode import dp_encode_fn, shard_params
+
+    cfg = ModelConfig(dtype="bfloat16", num_hidden_layers=2, use_fused_ln=use_fused,
+                      use_fused_mlp=use_fused)
+    params = quantize_encoder_params(init_params_numpy(cfg, seed=9))
+    rng = np.random.RandomState(13)
+    B, L = 16, 128
+    lens = rng.randint(8, L + 1, B)
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    ids = (rng.randint(3, 50265, (B, L)) * mask).astype(np.int32)
+    with torch.inference_mode():
+        ref = AnceEncoder.from_jax_params(params, cfg, dev)(
+            torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)).cpu()
+        mesh = make_mesh(dp=1, tp=2, devices=[dev, dev])
+        for k in idn.COUNTS:
+            idn.COUNTS[k] = 0
+        out = dp_encode_fn(mesh, shard_params(mesh, params, tp=True, cfg=cfg))(
+            torch.from_numpy(ids), torch.from_numpy(mask)).cpu()
+    per_rank = 1 if use_fused else 2  # QKV; unfused also the FFN up
+    assert idn.COUNTS["dense"] == 2 * per_rank * cfg.num_hidden_layers
+    assert idn.COUNTS["plain"] == 0
+    assert torch.equal(out, ref)
+
+
+def test_int8_dense_wrapper_rejects_unsupported(dev):
+    from haconvdr_torch.ops import int8_dense as idn
+
+    x = torch.zeros(8, 768, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(768, 768, device=dev, dtype=torch.int8)
+    v = torch.ones(768, device=dev)
+    with pytest.raises(ValueError):  # K % 64
+        idn.int8_dense(torch.zeros(8, 96, device=dev),
+                       torch.zeros(768, 96, device=dev, dtype=torch.int8), v, v)
+    with pytest.raises(ValueError):  # a float weight
+        idn.int8_dense(x, w.float(), v, v)
+    off_w = torch.zeros(768 * 768 + 1, device=dev, dtype=torch.int8)[1:].view(768, 768)
+    with pytest.raises(ValueError):  # a weight off its 16-byte boundary
+        idn.int8_dense(x, off_w, v, v)
+    off_x = torch.zeros(8 * 768 + 1, device=dev, dtype=torch.bfloat16)[1:].view(8, 768)
+    with pytest.raises(ValueError):  # rows off their 16-byte boundary
+        idn.int8_dense(off_x, w, v, v)
+    with pytest.raises(ValueError):  # N % 64
+        idn.int8_dense(x, torch.zeros(100, 768, device=dev, dtype=torch.int8), v[:100], v[:100])
+
+
 def _bf16_ulp_of_max(t):
     import math
 

@@ -169,3 +169,42 @@ def test_int8_tower_routes_as_the_reference_gates():
     ):
         _, ln_c, mlp_c = _counts_of_forward(cfg, p, ids, mask)
         assert ln_c["plain"] == mlp_c["plain"] == 0
+
+
+@pytest.mark.parametrize("dtype, fused, per_layer", [
+    ("bfloat16", {}, 2),  # QKV (codes from the LayerNorm) and the attention output
+    ("bfloat16", {"use_fused_mlp": False}, 4),
+    ("bfloat16", {"use_fused_ln": False}, 4),
+    ("float32", {}, 4),
+])
+@pytest.mark.parametrize("plain", [False, True], ids=["default", "plain"])
+def test_int8_linear_takes_the_twin_on_the_cpu_and_under_plain(monkeypatch, dtype, fused,
+                                                               per_layer, plain):
+    """Every Int8Linear call of a forward goes through ``ops.int8_dense``:
+    on CPU tensors ``int8_dense`` takes the plain twin (counted under
+    ``plain``), and a tower built with ``plain=True`` calls the twin itself,
+    never ``int8_dense``; no kernel launch is counted.  Both give the same
+    embeddings."""
+    from haconvdr_torch.ops import int8_dense as idn
+
+    L = 2
+    cfg = ModelConfig.tiny(dtype=dtype, num_hidden_layers=L, **fused)
+    params = quantize_encoder_params(init_params_numpy(cfg, seed=8))
+    ids, mask = _inputs(cfg)
+    routed = []
+    dense = idn.int8_dense
+
+    def counting(*args, **kw):
+        routed.append(args[0].shape)
+        return dense(*args, **kw)
+
+    monkeypatch.setattr(idn, "int8_dense", counting)
+    for k in idn.COUNTS:
+        idn.COUNTS[k] = 0
+    enc = AnceEncoder.from_jax_params(params, cfg, "cpu", plain=plain)
+    out = _encode(enc, ids, mask)
+    assert idn.COUNTS == {"dense": 0, "codes": 0, "plain": per_layer * L}
+    assert len(routed) == (0 if plain else per_layer * L)
+    monkeypatch.setattr(idn, "int8_dense", dense)
+    np.testing.assert_array_equal(out, _encode(AnceEncoder.from_jax_params(params, cfg, "cpu"),
+                                               ids, mask))

@@ -120,3 +120,64 @@ def test_cpu_tensors_take_the_plain_twin_and_supported_widths(mlp_case):
     assert fm.scratch_bytes_per_row(768, 3072) == 10_760
     assert not fm.fused_mlp_supported(32, 64) and not fm.fused_mlp_supported(96, 256)
     assert not fm.fused_mlp_supported(1024, 2**17 + 64)  # int32 sums
+
+
+# -- the int8 dense of Int8Linear (haconvdr_torch/ops/int8_dense.py): the plain
+# twin the CUDA kernels are held to, bit for bit
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("prequant", [False, True])
+@pytest.mark.parametrize("out_dtype", [None, "bfloat16"])
+def test_int8_dense_twin_is_the_composition_and_jaxs_dense(mlp_case, out_dtype, prequant,
+                                                            x_dtype):
+    """``int8_dense_plain`` (and ``int8_dense`` on CPU tensors, which takes
+    it) equals the composition it replaces (``quantize_rows``,
+    ``fused_mlp.int8_dense``, the cast) and JAX's ``_dense``, bit for bit,
+    from bf16 rows (the bf16-carry tower) and f32 rows (the f32 carry)."""
+    from haconvdr_torch.ops import int8_dense as idn
+
+    c = mlp_case
+    k1, s1, b1 = c["p1"]
+    p = {"kernel": jnp.asarray(k1), "kernel_scale": jnp.asarray(s1), "bias": jnp.asarray(b1)}
+    jx = c["jx"] if x_dtype == "bfloat16" else jnp.asarray(c["xf"])
+    jdt = None if out_dtype is None else jnp.bfloat16
+    x = _t(c["xf"]).to(getattr(torch, x_dtype))
+    pq = (_t(c["xq"]), _t(c["xs"])) if prequant else None
+    jpq = (jnp.asarray(c["xq"]), jnp.asarray(c["xs"])) if prequant else None
+    ref = np.asarray(_dense(jx, p, jx.dtype, out_dtype=jdt, prequant=jpq), np.float32)
+    tdt = None if out_dtype is None else torch.bfloat16
+    xq, xs = pq if prequant else quantize_rows(x)
+    comp = fm.int8_dense(xq, xs, _t(k1.T), _t(s1), _t(b1))
+    comp = comp if tdt is None else comp.to(tdt)
+    before = dict(idn.COUNTS)
+    twin = idn.int8_dense_plain(x, _t(k1.T), _t(s1), _t(b1), pq, tdt)
+    routed = idn.int8_dense(x, _t(k1.T), _t(s1), _t(b1), pq, tdt)
+    assert idn.COUNTS == {**before, "plain": before["plain"] + 2}
+    assert twin.dtype == (tdt or torch.float32) and twin.shape == (ROWS, I)
+    assert torch.equal(twin, comp) and torch.equal(routed, comp)
+    np.testing.assert_array_equal(twin.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("K, N, ok", [
+    (768, 2304, True), (768, 768, True), (3072, 768, True), (768, 3072, True),
+    (768, 1152, True), (768, 576, True), (64, 64, True), (131_072, 768, True),
+    (96, 768, False), (768, 100, False), (32, 768, False), (768, 0, False),
+    (131_136, 768, False),
+])
+def test_int8_dense_supported_widths(K, N, ok):
+    """The kernels' widths: K % 64 up to exact int32 sums (131,072), N % 64
+    (a tp rank's QKV columns 1,152 and 576 among them), any row count."""
+    from haconvdr_torch.ops import int8_dense as idn
+
+    assert idn.int8_dense_supported(K, N) is ok
+
+
+def test_int8_dense_refuses_a_device_it_has_no_route_for():
+    from haconvdr_torch.ops import int8_dense as idn
+
+    x = torch.zeros(4, 64, device="meta")
+    w = torch.zeros(64, 64, dtype=torch.int8, device="meta")
+    v = torch.zeros(64, device="meta")
+    with pytest.raises(ValueError):
+        idn.int8_dense(x, w, v, v)
