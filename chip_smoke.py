@@ -634,8 +634,8 @@ class DispatchLog:
     ``search`` that follows it on the same thread, patched on the instance),
     so that a check can run each again as it ran.  The tower packs a batch
     to its rows' lengths (ops/pack.py): a row's float32 embedding depends on
-    the token rows it was batched with (the GEMMs' row count), not on its
-    bucket alone, so an answer is held to its own dispatch run again."""
+    the token rows it was batched with (the GEMMs' row count), so an answer
+    is held to its own dispatch run again."""
 
     def __init__(self, retriever):
         self.retriever = retriever
@@ -651,7 +651,7 @@ class DispatchLog:
     def _search(self, queries, k=None):
         batches = self._open.pop(threading.get_ident(), None)
         if batches is not None:
-            self.runs.append((batches, int(np.asarray(queries).shape[0]), k))
+            self.runs.append((batches, k))
         return self.search(queries, k)
 
     def close(self) -> None:
@@ -674,7 +674,7 @@ class DispatchLog:
         check(tower.cfg.dtype == "float32", f"{what}: the padded check takes a float32 tower")
         errs = []
         with torch.inference_mode():
-            for batches, _, _ in self.runs:
+            for batches, _ in self.runs:
                 packed = torch.from_numpy(self.encode(batches)).to(tower.device)
                 padded = torch.cat([_encode(
                     [tower], torch.from_numpy(b["conv_qp"]).to(tower.device),
@@ -692,16 +692,13 @@ class DispatchLog:
 
     def rerun(self):
         """{``key`` of a request's ids: [(embedding, hits), ...]}: each logged
-        call run again, its embeddings padded to the searched Q with copies
-        of the first (as ``BatchingRetriever`` pads a dispatch to its
-        bucket), hits as (id, score) of every rank."""
+        call run again, hits as (id, score) of every rank."""
         from collections import defaultdict
 
         out = defaultdict(list)
-        for batches, n, k in self.runs:
+        for batches, k in self.runs:
             q = self.encode(batches)
-            pad = np.broadcast_to(q[:1], (n - len(q), q.shape[1]))
-            sc, ids = self.search(np.concatenate([q, pad]), k)
+            sc, ids = self.search(q, k)
             rows = [x for b in batches for x, v in zip(b["conv_qp"], b["valid"]) if v]
             for j, x in enumerate(rows):
                 out[self.key(x)].append(
@@ -2825,8 +2822,8 @@ def phase_http(seed: int, dev, params, cfg, served, p_sum: float, card: str):
         check(stats["dispatches"] == len(search_qs), "load and serve: dispatches vs searches")
 
         # ---- every answer against the retriever's own answer for the same
-        # request.  A dispatch embeds its requests in one batch of its bucket
-        # (the power of two >= n), packed to their rows' lengths, so a row's
+        # request.  A dispatch embeds its n requests in one batch of n rows,
+        # packed to their rows' lengths, so a row's
         # embedding depends on the token rows of its batch (the GEMMs' row
         # count).  So each answer must equal, bit for bit, its dispatch run
         # again (``DispatchLog``); and it is held to a sequential

@@ -22,8 +22,8 @@ import logging
 from haconvdr_torch.cli._args import device_mesh, pop_device
 from haconvdr_torch.config import config_from_argv
 from haconvdr_torch.index.build import encode_corpus
-from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
 from haconvdr_torch.index.store import TokenizedCorpus
+from haconvdr_torch.models import build_tower
 from haconvdr_torch.models.hf_import import load_hf_checkpoint
 from haconvdr_torch.utils.io import setup_logging
 
@@ -48,9 +48,7 @@ def main(argv=None):
     params, model_cfg = load_hf_checkpoint(
         cfg.model.pretrained_encoder_path, cfg.model.model_type
     )
-    if cfg.index.compute_int8:
-        params = quantize_encoder_params(params)
-    encoder = AnceEncoder.from_jax_params(params, model_cfg, dev)
+    encoder = build_tower(params, model_cfg, dev, int8=cfg.index.compute_int8)
     logger.info(
         "encoding %d passages on %s (%s tower)", len(corpus), mesh,
         "int8" if encoder.int8 else model_cfg.dtype,

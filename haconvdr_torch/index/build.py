@@ -15,7 +15,6 @@ import json
 import logging
 import os
 import time
-from collections import deque
 from multiprocessing import Pool
 from typing import Callable, Iterable, List, Optional, Tuple
 
@@ -23,10 +22,10 @@ import numpy as np
 import torch
 
 from haconvdr_torch.config import IndexConfig
-from haconvdr_torch.device import DeviceLike, resolve_device, to_numpy
+from haconvdr_torch.device import DeviceLike
 from haconvdr_torch.index.quantize import quantize_int8
 from haconvdr_torch.index.store import EmbeddingBlockStore, TokenizedCorpus, TokenizedCorpusWriter
-from haconvdr_torch.ops.pack import takes_host_mask
+from haconvdr_torch.parallel.sharded_encode import tower_rows
 
 __all__ = [
     "EmbeddingBlockStore",
@@ -38,8 +37,6 @@ __all__ = [
 ]
 
 logger = logging.getLogger(__name__)
-
-PIPELINE_DEPTH = 8  # batches in flight before the oldest is read back
 
 _WORKER_TOK = None
 
@@ -194,12 +191,12 @@ def encode_corpus(
     the passage's offset); an ``encode_fn`` that takes ``host_mask`` also
     gets each batch's mask as numpy (``ops.pack.takes_host_mask``), from
     which the port's tower packs the batch without reading the mask back.
-    As in the JAX package: every batch has the static shape [batch_size,
-    L] (the tail is padded with fully masked rows whose first mask
-    position is set, and dropped on the host), while the tower runs only
-    each row's tokens (its kept span, ``ops.pack``) and attention at the
-    batch's longest row;
-    blocks hold whole batches (``per_block_passage_num // batch_size``
+    The batches run through ``parallel.sharded_encode.tower_rows`` (on
+    CUDA, up to ``PIPELINE_DEPTH`` batches in flight), each as the rows it
+    holds: a short last batch is not padded, and the tower runs only each
+    row's tokens (its kept span, ``ops.pack``) and attention at the
+    batch's longest row.
+    Blocks hold whole batches (``per_block_passage_num // batch_size``
     batches); ``store_dtype`` float32, bfloat16 or int8 (float rows
     quantized per block at flush with the shared ``quantize_int8``);
     ``stride``/``offset`` shard the corpus rank-mod and blocks are numbered
@@ -209,22 +206,7 @@ def encode_corpus(
     its ``dp`` slots (parallel/sharded_encode.dp_encode_fn: a module is
     replicated to each of its devices) and the rows come back on the first
     slot's device.
-
-    On CUDA, up to ``PIPELINE_DEPTH`` batches are in flight: ids and mask
-    go up from pinned memory and embeddings come down into pinned memory
-    without blocking, each batch's copy marked by an event, and the host
-    waits only for the oldest batch when the pipeline is full.
     """
-    dp_fn = None
-    if mesh is not None and mesh.size > 1:
-        from haconvdr_torch.parallel.sharded_encode import dp_encode_fn
-
-        dp_fn = dp_encode_fn(mesh, encode_fn)
-        device = mesh.first
-    elif device is None and isinstance(encode_fn, torch.nn.Module):
-        device = next(encode_fn.parameters()).device
-    take = dp_fn is not None or takes_host_mask(encode_fn)
-    dev = resolve_device(device)
     store = EmbeddingBlockStore(out_dir, fmt=fmt)
     quantize = store_dtype == "int8"
     if quantize:
@@ -265,62 +247,28 @@ def encode_corpus(
         block_id += 1
         emb_buf, id_buf, buffered = [], [], 0
 
-    inflight: deque = deque()
-
-    def drain(limit: int) -> None:
-        nonlocal buffered
-        while len(inflight) > limit:
-            host, done, offs, n = inflight.popleft()
-            if done is not None:
-                done.synchronize()
-            emb = to_numpy(host)[:n]
-            if emb.ndim == 3:
-                # multi-chunk output [B, n_chunks, D]: chunk-major rows, the
-                # offsets tiled per chunk (gen_doc_embeddings.py:115-121)
-                n_chunks = emb.shape[1]
-                emb = np.ascontiguousarray(emb.transpose(1, 0, 2)).reshape(
-                    n_chunks * n, emb.shape[2]
-                )
-                offs = np.tile(offs, n_chunks)
-                n = n_chunks * n
-            if emb.dtype != dtype:
-                emb = emb.astype(dtype)
-            emb_buf.append(emb)
-            id_buf.append(offs)
-            buffered += n
-            if buffered >= block_rows:
-                flush()
-
-    L = corpus.max_seq_length
-    cuda = dev.type == "cuda"
-    with torch.inference_mode():
-        for offsets, ids, mask in corpus.batches(batch_size, stride=stride, offset=offset):
-            n = len(offsets)
-            if n < batch_size:  # pad the tail to the static batch shape
-                pad = batch_size - n
-                ids = np.concatenate([ids, np.zeros((pad, L), np.int32)])
-                mask = np.concatenate([mask, np.zeros((pad, L), np.int32)])
-                mask[n:, 0] = 1  # no fully masked rows
-            ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int32))
-            mask_t = torch.from_numpy(np.ascontiguousarray(mask, np.int32))
-            done: Optional[torch.cuda.Event] = None
-            kw = {"host_mask": mask} if take else {}
-            if dp_fn is not None:
-                kw["valid"] = np.arange(batch_size) < n
-                run = dp_fn
-            else:
-                run = encode_fn
-            if cuda:
-                ids_t = ids_t.pin_memory().to(dev, non_blocking=True)
-                mask_t = mask_t.pin_memory().to(dev, non_blocking=True)
-                host = run(ids_t, mask_t, **kw).to("cpu", non_blocking=True)  # pinned
-                done = torch.cuda.Event()
-                done.record()
-            else:
-                host = run(ids_t.to(dev), mask_t.to(dev), **kw)
-            inflight.append((host, done, np.asarray(offsets, np.int64), n))
-            drain(PIPELINE_DEPTH)
-        drain(0)
+    batches = ({"offsets": offs, "ids": ids, "mask": mask}
+               for offs, ids, mask in corpus.batches(batch_size, stride=stride, offset=offset))
+    dp_mesh = mesh if mesh is not None and mesh.size > 1 else None
+    for emb, batch in tower_rows(encode_fn, batches, "ids", "mask", dp_mesh, device):
+        offs = np.asarray(batch["offsets"], np.int64)
+        n = len(offs)
+        if emb.ndim == 3:
+            # multi-chunk output [B, n_chunks, D]: chunk-major rows, the
+            # offsets tiled per chunk (gen_doc_embeddings.py:115-121)
+            n_chunks = emb.shape[1]
+            emb = np.ascontiguousarray(emb.transpose(1, 0, 2)).reshape(
+                n_chunks * n, emb.shape[2]
+            )
+            offs = np.tile(offs, n_chunks)
+            n = n_chunks * n
+        if emb.dtype != dtype:
+            emb = emb.astype(dtype)
+        emb_buf.append(emb)
+        id_buf.append(offs)
+        buffered += n
+        if buffered >= block_rows:
+            flush()
     flush()
     logger.info("encoded %d passages total", total)
     return store

@@ -3,9 +3,10 @@
 encoder_param_pspecs, shard_params, make_sharded_encode_fn and
 encode_batches).
 
-Batches come from ``haconvdr_torch.data.loader`` (``batch_iter`` /
-``collate(pad_to=...)``, re-exported here): fixed-size int32 arrays plus
-a ``valid`` row mask; padded rows are dropped from the output.
+``tower_rows`` runs every tower over host batches, for ``encode_batches``
+(serving, offline evaluation) and ``index.build.encode_corpus``.  A batch
+is a dict of int32 arrays (``batch_iter`` / ``collate``, re-exported
+here); the rows its ``valid`` mask leaves out are dropped from the output.
 
 On a mesh each batch is cut over the ``dp`` slots as GSPMD shards
 ``P("dp", None)``: ``ceil(B / dp)`` rows a slot (a short last slice is
@@ -26,21 +27,24 @@ dense layers over that row count, and on nothing else of the batch.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
+from collections import deque
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from haconvdr_torch.config import ModelConfig
 from haconvdr_torch.data.loader import batch_iter
-from haconvdr_torch.device import to_numpy, to_torch
+from haconvdr_torch.device import DeviceLike, resolve_device, to_numpy, to_torch
 from haconvdr_torch.models.convert import encoder_param_pspecs, tp_slice
 from haconvdr_torch.ops.pack import takes_host_mask
 from haconvdr_torch.parallel.mesh import Mesh, batch_slices, replicate
 from haconvdr_torch.utils.telemetry import TRACER
 
-__all__ = ["batch_iter", "dp_encode_fn", "encode_batches", "encoder_param_pspecs",
-           "shard_params"]
+__all__ = ["PIPELINE_DEPTH", "batch_iter", "dp_encode_fn", "encode_batches",
+           "encoder_param_pspecs", "shard_params", "tower_rows"]
+
+PIPELINE_DEPTH = 8  # batches in flight on the card before the oldest is read back
 
 EncodeFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -137,6 +141,72 @@ def _row_runner(group: List[EncodeFn]) -> EncodeFn:
     return group[0]
 
 
+@torch.inference_mode()  # entered around each step, left at each yield
+def tower_rows(
+    encoder_or_fn: Union[torch.nn.Module, EncodeFn, Sequence[EncodeFn]],
+    batches: Iterable[dict],
+    key_ids: str,
+    key_mask: str,
+    mesh: Optional[Mesh] = None,
+    device: DeviceLike = None,
+) -> Iterator[Tuple[np.ndarray, dict]]:
+    """The one loop that runs a tower over host batches: yields each
+    batch's embeddings (float32 numpy, the rows of its ``valid`` mask where
+    it has one) with the batch, in order.  The tower runs on ``device``
+    (default: a module's own, else the card), or over a ``mesh``'s dp slots
+    (:func:`dp_encode_fn`), and gets each batch's mask as ``host_mask``
+    where it takes one.  On CUDA, while more than one batch is at hand, up
+    to ``PIPELINE_DEPTH`` batches are in flight: ids and mask go up from
+    pinned memory, the embeddings come down into pinned memory marked by an
+    event, and the host waits only for the oldest batch.  A lone batch (a
+    serving dispatch) overlaps nothing: plain copies, the fewest host calls,
+    each a point where another thread may take the interpreter lock."""
+    if mesh is not None:
+        fn, dev = dp_encode_fn(mesh, encoder_or_fn), mesh.first
+    else:
+        fn = encoder_or_fn
+        dev = resolve_device(device if device is not None else _device_of(fn))
+    take = takes_host_mask(fn)
+    depth = PIPELINE_DEPTH if dev.type == "cuda" else 0
+    inflight: deque = deque()
+    batches = iter(batches)
+    with TRACER.span("tower.collate"):  # a lazy iterator collates here
+        batch = next(batches, None)
+    while batch is not None:
+        with TRACER.span("tower.collate"):  # one batch ahead
+            ahead = next(batches, None)
+        piped = depth > 0 and (ahead is not None or len(inflight) > 0)
+        valid = None if batch.get("valid") is None else np.asarray(batch["valid"]).astype(bool)
+        kw = {"host_mask": np.asarray(batch[key_mask])} if take else {}
+        if mesh is not None:
+            kw["valid"] = valid
+        with TRACER.span("tower.h2d"):  # piped: from pinned memory, not blocking
+            x, m = (to_torch(batch[k], "cpu").pin_memory().to(dev, non_blocking=True) if piped
+                    else to_torch(batch[k], dev) for k in (key_ids, key_mask))
+        with TRACER.span("tower.launch"):
+            e = fn(x, m, **kw)
+            done = None
+            if piped:  # marked on the stream of e's card, which copies e down
+                done = torch.cuda.Event()
+                stream = torch.cuda.current_stream(e.device)
+                e = e.to("cpu", non_blocking=True)  # into pinned memory
+                done.record(stream)
+        inflight.append((e, done, batch, valid))
+        while len(inflight) > depth:
+            yield _read_back(*inflight.popleft())
+        batch = ahead
+    while inflight:
+        yield _read_back(*inflight.popleft())
+
+
+def _read_back(e: torch.Tensor, done, batch: dict, valid) -> Tuple[np.ndarray, dict]:
+    with TRACER.span("tower.wait"):
+        if done is not None:
+            done.synchronize()
+        e = to_numpy(e)
+    return (e if valid is None else e[valid]), batch
+
+
 def encode_batches(
     encoder_or_fn: Union[torch.nn.Module, EncodeFn, Sequence[EncodeFn]],
     batches: Iterable[dict],
@@ -146,32 +216,9 @@ def encode_batches(
 ) -> Tuple[np.ndarray, List]:
     """(embeddings [n_valid, E] float32 numpy, sample ids) over the
     batches: on the encoder's device, or with a ``mesh`` cut over its dp
-    slots (:func:`dp_encode_fn`).  Each batch's host mask goes with it
-    (``host_mask``) where the encoder takes one."""
-    if mesh is not None:
-        fn = dp_encode_fn(mesh, encoder_or_fn)
-        device = mesh.first
-    else:
-        fn = encoder_or_fn
-        device = _device_of(encoder_or_fn)
-    take = takes_host_mask(fn)
+    slots (:func:`tower_rows`)."""
     embs, ids = [], []
-    batches = iter(batches)
-    with torch.inference_mode():
-        while True:
-            with TRACER.span("tower.collate"):  # a lazy iterator collates here
-                batch = next(batches, None)
-            if batch is None:
-                break
-            valid = np.asarray(batch["valid"]).astype(bool)
-            with TRACER.span("tower.h2d"):
-                x = to_torch(batch[key_ids], device)
-                m = to_torch(batch[key_mask], device)
-            kw = {"host_mask": np.asarray(batch[key_mask])} if take else {}
-            with TRACER.span("tower.launch"):
-                e = fn(x, m, valid, **kw) if mesh is not None else fn(x, m, **kw)
-            with TRACER.span("tower.wait"):
-                e = to_numpy(e)
-            embs.append(e[valid])
-            ids.extend(s for s, v in zip(batch["sample_id"], valid) if v)
+    for e, batch in tower_rows(encoder_or_fn, batches, key_ids, key_mask, mesh):
+        embs.append(e)
+        ids.extend(s for s, v in zip(batch["sample_id"], batch["valid"]) if v)
     return np.concatenate(embs, axis=0), ids

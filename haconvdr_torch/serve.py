@@ -6,8 +6,8 @@ streams an EmbeddingBlockStore through ``BlockSearcher``) on a mesh of
 device slots: one device by default, or ``mesh=`` (parallel/mesh.py),
 where the index is sharded over the slots and each batch of queries is
 encoded data-parallel over them.
-``BatchingRetriever`` coalesces concurrent requests into power-of-two
-batches on one worker thread.  Query construction uses the port's
+``BatchingRetriever`` coalesces concurrent requests into batches of at
+most ``max_batch`` on one worker thread.  Query construction uses the port's
 ``data.sequence`` helpers and the two-stage rescore its
 ``index.rescore.StoreRescorer``, copies of the JAX package's.
 """
@@ -27,11 +27,12 @@ import numpy as np
 import torch
 
 from haconvdr_torch.config import DataConfig, ModelConfig, SearchConfig
+from haconvdr_torch.data.loader import collate
 from haconvdr_torch.data.sequence import ConcatBuilder, encode_no_trunc
 from haconvdr_torch.device import DeviceLike, resolve_device
 from haconvdr_torch.index.rescore import StoreRescorer
 from haconvdr_torch.index.store import EmbeddingBlockStore
-from haconvdr_torch.models.encoder import AnceEncoder, quantize_encoder_params
+from haconvdr_torch.models import build_tower
 from haconvdr_torch.models.hf_import import load_checkpoint
 from haconvdr_torch.ops.topk import BlockSearcher
 from haconvdr_torch.parallel.mesh import Mesh, make_mesh, replicate
@@ -83,14 +84,13 @@ class Retriever:
     (``BatchingRetriever`` warns above ``max_batch`` 16).  The float disk
     store stays the exact rescore stage
     (``SearchConfig.rescore_oversample``).
-    ``params`` are the JAX package's nested-dict params (numpy leaves).
-    With ``model_cfg.model_type`` "DEEPSEEK_V2" (a ``DeepseekV2Config``)
-    the tower is ``models.deepseek_v2.DeepseekV2Encoder`` and ``params`` its
-    named weights: torch tensors already on the device in the config's
-    dtype are taken as they are (no host copy), numpy leaves are cast.
-    ``encoder_int8=True`` quantizes them (``quantize_encoder_params``) and
-    serves the int8 tower: with ``model_cfg.dtype="bfloat16"`` it runs the
-    fused LayerNorm-quant and MLP kernels.
+    The tower is the one ``model_cfg`` names (``models.build_tower``):
+    ``params`` are the JAX package's nested-dict params (numpy leaves), or
+    a ``DeepseekV2Config``'s named weights (torch tensors already on the
+    device in the config's dtype are taken as they are, numpy leaves are
+    cast).  ``encoder_int8=True`` quantizes the ANCE tower and serves it
+    int8: with ``model_cfg.dtype="bfloat16"`` it runs the fused
+    LayerNorm-quant and MLP kernels.
     """
 
     def __init__(
@@ -114,13 +114,6 @@ class Retriever:
     ):
         # ivf_nlist, ivf_nprobe and ivf_dir are read only with ivf=True, as
         # in the JAX package
-        decoder = model_cfg.model_type == "DEEPSEEK_V2"
-        if encoder_int8:
-            if decoder:
-                raise ValueError("the DeepSeek-V2 tower has no int8 route")
-            # int8 query tower (haconvdr_tpu/serve.py:92-104); the port's
-            # quantize_encoder_params leaves int8 params as they are
-            params = quantize_encoder_params(params)
         self.mesh = mesh if mesh is not None else make_mesh(devices=[resolve_device(device)])
         self.device = self.mesh.first
         self.tokenizer = tokenizer
@@ -131,12 +124,8 @@ class Retriever:
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg or DataConfig(is_train=False, use_PRL=False)
         self.search_cfg = search_cfg or SearchConfig()
-        if decoder:
-            from haconvdr_torch.models.deepseek_v2 import DeepseekV2Encoder
-
-            self.encoder = DeepseekV2Encoder.from_params(params, model_cfg, self.device)
-        else:
-            self.encoder = AnceEncoder.from_jax_params(params, model_cfg, self.device)
+        # int8 query tower: haconvdr_tpu/serve.py:92-104
+        self.encoder = build_tower(params, model_cfg, self.device, int8=encoder_int8)
         # the replicas a batch's slices run on (the tower itself on one slot)
         self._encoders = replicate(self.mesh, self.encoder)
         self.offset2pid = None if offset2pid is None else np.asarray(offset2pid)
@@ -364,10 +353,8 @@ class BatchingRetriever:
     * One worker thread owns every device dispatch; callers may submit from
       any number of threads.  Query construction runs in the caller's
       thread at :meth:`submit`.
-    * A coalesced batch of n requests runs at the smallest power-of-two
-      bucket >= n, capped at ``max_batch``: ``collate(pad_to=bucket)``
-      pads the encoder batch, and the search pads the query matrix with
-      copies of row 0.
+    * A coalesced batch of n requests runs as it is: n rows through the
+      tower (``collate`` with no padding) and n queries through the search.
     * The worker dispatches once ``max_batch`` requests are queued or the
       oldest has waited ``max_wait_ms``.  A full queue raises
       :class:`BacklogFull`; :meth:`close` drains accepted work first.
@@ -549,20 +536,13 @@ class BatchingRetriever:
 
     def _dispatch(self, batch: List[_Request], waited: Optional[int]) -> None:
         n = len(batch)
-        bucket = 1
-        while bucket < n:
-            bucket *= 2
-        bucket = min(bucket, self.max_batch)
         with self._lock:
             self._n_dispatches += 1
             self._batch_hist[n] = self._batch_hist.get(n, 0) + 1
         with self._dispatch_span(batch, waited):
             try:
                 r = self.retriever
-                embs = r.encode(batch_iter([req.example for req in batch], bucket))
-                if n < bucket:  # fixed search shape: pad queries to the bucket
-                    pad = np.broadcast_to(embs[:1], (bucket - n, embs.shape[1]))
-                    embs = np.concatenate([embs, pad], axis=0)
+                embs = r.encode([collate([req.example for req in batch])])
                 scores, ids = r.search(embs)
                 with TRACER.span("batcher.resolve"):
                     for i, req in enumerate(batch):

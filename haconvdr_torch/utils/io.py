@@ -140,7 +140,7 @@ def rows_to_device(arr: np.ndarray, dtype: torch.dtype, dev: torch.device,
         bufs[b][:m].numpy()[...] = arr[r0 : r0 + m]
         out[row0 + r0 : row0 + r0 + m].copy_(bufs[b][:m].view(dtype), non_blocking=True)
         done[b] = torch.cuda.Event()
-        done[b].record()
+        done[b].record(torch.cuda.current_stream(dev))
     for ev in done:
         ev.synchronize()
     return out

@@ -24,8 +24,9 @@ dispatch's and a request's count are their spans').  Spans are named
   batcher.wait      the worker waiting for the batch's requests (dispatch)
   batcher.dispatch  one dispatch (dispatch, requests); the rows below
                     are its children and take its dispatch id
-  tower.collate     the batch iterator's next() in encode_batches, where
-                    a lazy iterator collates
+  tower.collate     the batch iterator's next() in the tower's loop
+                    (sharded_encode.tower_rows, which encode_corpus runs
+                    too: there the tower rows belong to no dispatch)
   tower.h2d         the ids and mask copied to the device
   tower.launch      the tower's launches, returning before any sync
   tower.route       inside tower.launch, an expert layer's router logits

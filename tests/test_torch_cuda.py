@@ -2264,3 +2264,112 @@ def test_v4_search_bf16_at_d2048_over_a_million_rows(dev, gen):
                      np.abs(np.diff(rs, axis=1, append=-np.inf)))
     clear = gap > 2e-4 * np.abs(rs)
     assert np.array_equal(i[clear], ri[clear]) and clear.mean() > 0.5
+
+
+def test_the_tower_loop_pipelines_on_the_card(dev, tmp_path, monkeypatch):
+    """``parallel.sharded_encode.tower_rows`` with batches in flight: through
+    ``encode_batches`` over 2 x PIPELINE_DEPTH + 3 batches the rows and ids
+    come back in order, each batch's rows equal to that batch run alone and
+    read back at once, each read back behind its own event; a lone batch
+    (a serving dispatch) comes back in a plain copy, with no event, and the
+    same rows; through ``encode_corpus`` with the tracer on, one tower.h2d,
+    tower.launch and tower.wait a batch, a short last batch stored as its
+    own rows."""
+    import numpy as np
+
+    from haconvdr_torch.config import ModelConfig
+    from haconvdr_torch.data.loader import batch_iter
+    from haconvdr_torch.index.build import encode_corpus
+    from haconvdr_torch.index.store import TokenizedCorpus, TokenizedCorpusWriter
+    from haconvdr_torch.models import build_tower
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.parallel.sharded_encode import PIPELINE_DEPTH, encode_batches
+    from haconvdr_torch.utils.telemetry import TRACER
+
+    cfg = ModelConfig.tiny(vocab_size=512, hidden_size=128, num_attention_heads=2,
+                           intermediate_size=256)  # head dim 64, the kernel's
+    enc = build_tower(init_params_numpy(cfg, seed=5), cfg, dev)
+    rng = np.random.default_rng(0)
+    n, L = 2 * (2 * PIPELINE_DEPTH + 3) - 1, 24
+    lens = rng.integers(1, L + 1, n)
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    ids = rng.integers(3, 512, (n, L)).astype(np.int32) * mask
+    examples = [{"sample_id": f"q{i}", "q": ids[i], "q_mask": mask[i]} for i in range(n)]
+    events = []
+    event = torch.cuda.Event
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: events.append(1) or event(*a, **k))
+    embs, got_ids = encode_batches(enc, batch_iter(examples, 2), "q", "q_mask")
+    assert got_ids == [e["sample_id"] for e in examples] and embs.shape == (n, cfg.embedding_dim)
+    assert len(events) == -(-n // 2)
+    lone, lone_ids = encode_batches(enc, batch_iter(examples[:2], 2), "q", "q_mask")
+    assert len(events) == -(-n // 2) and lone_ids == got_ids[:2]
+    np.testing.assert_array_equal(lone, embs[:2])
+    monkeypatch.undo()
+    with torch.inference_mode():
+        for b0, batch in zip(range(0, n, 2), batch_iter(examples, 2)):
+            one = enc(torch.from_numpy(batch["q"]).to(dev), torch.from_numpy(batch["q_mask"]).to(dev),
+                      host_mask=batch["q_mask"]).cpu().numpy()[batch["valid"] == 1]
+            np.testing.assert_array_equal(embs[b0 : b0 + len(one)], one)
+    w = TokenizedCorpusWriter(str(tmp_path / "c"), max_seq_length=L)
+    for i in range(n):
+        w.add(i, ids[i, : lens[i]].tolist())
+    w.finalize()
+    TRACER.start()
+    try:
+        store = encode_corpus(TokenizedCorpus(str(tmp_path / "c")), enc, str(tmp_path / "b"),
+                              batch_size=2)
+    finally:
+        snap = TRACER.stop()
+    batches = -(-n // 2)
+    assert [len(snap.of(s)) for s in ("tower.h2d", "tower.launch", "tower.wait")] == [batches] * 3
+    rows = np.concatenate([np.asarray(store.read_block(b)[0]) for b in range(store.num_blocks())])
+    np.testing.assert_array_equal(rows[: n - 1], embs[: n - 1])
+    assert np.abs(rows[-1] - embs[-1]).max() <= 1e-5 * np.abs(embs[-1]).max()
+
+
+def test_the_tower_loop_reads_back_from_a_card_that_is_not_the_current_one(dev):
+    """A tower on ``cuda:1`` while ``cuda:0`` is the current device: each
+    batch is read back only once its copy off ``cuda:1`` has landed (the
+    event is recorded on that card's stream).  Each batch first holds the
+    card ~10 ms, so a read that did not wait would find the pinned rows
+    unwritten; the rows equal each batch run alone and read back at once."""
+    import numpy as np
+
+    from haconvdr_torch.config import ModelConfig
+    from haconvdr_torch.data.loader import batch_iter
+    from haconvdr_torch.models import build_tower
+    from haconvdr_torch.models.convert import init_params_numpy
+    from haconvdr_torch.parallel.sharded_encode import PIPELINE_DEPTH, encode_batches
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    cfg = ModelConfig.tiny(vocab_size=512, hidden_size=128, num_attention_heads=2,
+                           intermediate_size=256)
+    enc = build_tower(init_params_numpy(cfg, seed=5), cfg, other)
+
+    class Slow(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.enc = enc
+
+        def forward(self, x, m, host_mask=None):
+            with torch.cuda.device(x.device):
+                torch.cuda._sleep(20_000_000)
+            return self.enc(x, m, host_mask=host_mask)
+
+    rng = np.random.default_rng(0)
+    n, L = 2 * (2 * PIPELINE_DEPTH + 3), 24
+    lens = rng.integers(1, L + 1, n)
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    ids = rng.integers(3, 512, (n, L)).astype(np.int32) * mask
+    examples = [{"sample_id": f"q{i}", "q": ids[i], "q_mask": mask[i]} for i in range(n)]
+    with torch.cuda.device(0):
+        embs, got_ids = encode_batches(Slow(), batch_iter(examples, 2), "q", "q_mask")
+    assert got_ids == [e["sample_id"] for e in examples]
+    with torch.inference_mode():
+        for b0, batch in zip(range(0, n, 2), batch_iter(examples, 2)):
+            one = enc(torch.from_numpy(batch["q"]).to(other),
+                      torch.from_numpy(batch["q_mask"]).to(other),
+                      host_mask=batch["q_mask"]).cpu().numpy()[batch["valid"] == 1]
+            np.testing.assert_array_equal(embs[b0 : b0 + len(one)], one)

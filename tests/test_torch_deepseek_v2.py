@@ -24,8 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from haconvdr_torch.config import DataConfig, DeepseekV2Config, ModelConfig, SearchConfig
-from haconvdr_torch.models import hf_import
+from haconvdr_torch.models import build_tower, hf_import
+from haconvdr_torch.models.convert import init_params_numpy
 from haconvdr_torch.models.deepseek_v2 import DeepseekV2Encoder, rope_inv_freq, softmax_scale
+from haconvdr_torch.models.encoder import AnceEncoder
 from haconvdr_torch.ops import moe, pack
 from h100_bench.reference.deepseek_v2 import Reference, inv_freq
 from haconvdr_torch.serve import BatchingRetriever, Retriever
@@ -277,6 +279,21 @@ def test_retriever_takes_tensors_on_the_device_as_they_are():
     with pytest.raises(ValueError, match="int8"):
         Retriever(HashTokenizer(200), params, cfg, torch.randn(50, cfg.hidden_size),
                   device="cpu", encoder_int8=True)
+
+
+def test_build_tower_picks_the_class_by_config_and_refuses_an_int8_decoder():
+    """``models.build_tower``: the DeepSeek-V2 tower for a DeepseekV2Config,
+    which has no int8 route, and the ANCE tower, int8 on request,
+    otherwise."""
+    cfg = _cfg(vocab_size=200)
+    params = _params(cfg)
+    assert type(build_tower(params, cfg, "cpu")) is DeepseekV2Encoder
+    with pytest.raises(ValueError, match="no int8 route"):
+        build_tower(params, cfg, "cpu", int8=True)
+    ance = ModelConfig.tiny()
+    for int8 in (False, True):
+        tower = build_tower(init_params_numpy(ance, seed=1), ance, "cpu", int8=int8)
+        assert type(tower) is AnceEncoder and tower.int8 == int8
 
 
 def test_model_config_keeps_the_ance_defaults():

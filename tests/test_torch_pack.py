@@ -23,7 +23,7 @@ from haconvdr_torch.models import encoder as E
 from haconvdr_torch.models.convert import init_params_numpy
 from haconvdr_torch.ops import fused_ln, fused_mlp, pack
 from haconvdr_torch.parallel.mesh import make_mesh
-from haconvdr_torch.parallel.sharded_encode import encode_batches, shard_params
+from haconvdr_torch.parallel.sharded_encode import PIPELINE_DEPTH, encode_batches, shard_params
 from haconvdr_torch.train import trainer as T
 
 
@@ -182,13 +182,16 @@ def _examples(cfg, n, L, seed=0):
     return [{"sample_id": f"q{i}", "q": ids[i], "q_mask": mask[i]} for i in range(n)]
 
 
-@pytest.mark.parametrize("mesh", [None, (2, 1), (1, 2)])
-def test_encode_batches_plans_from_the_host_mask(mesh):
+@pytest.mark.parametrize("mesh, n", [(None, 11), ((2, 1), 11), ((1, 2), 11),
+                                     (None, 4 * PIPELINE_DEPTH + 3)])
+def test_encode_batches_plans_from_the_host_mask(mesh, n):
     """Through ``encode_batches`` (one device, a dp mesh, a tp group) every
-    forward is planned from the batch's host mask: no mask is read."""
+    forward is planned from the batch's host mask: no mask is read.  Over
+    more batches than ``PIPELINE_DEPTH`` the rows and ids keep their
+    order."""
     cfg = _cfg("bfloat16")
     params = _params(cfg, True)
-    examples = _examples(cfg, 11, 48)
+    examples = _examples(cfg, n, 48)
     if mesh is None:
         fn, m = E.AnceEncoder.from_jax_params(params, cfg, "cpu"), None
     else:
@@ -224,6 +227,45 @@ def test_encode_corpus_plans_from_the_host_mask(tmp_path, mesh):
     assert pack.COUNTS["rows"] < pack.COUNTS["slots"]
     emb, offs = store.read_block(0)
     assert len(offs) == 21 and np.isfinite(np.asarray(emb)).all()
+
+
+@pytest.mark.parametrize("width", [32, 128])
+@pytest.mark.parametrize("dtype, int8", [("float32", False), ("float32", True),
+                                         ("bfloat16", True)], ids=["f32", "int8_f32", "int8_bf16"])
+def test_a_short_last_batch_is_encoded_as_its_own_rows(tmp_path, dtype, int8, width):
+    """21 passages in batches of 8: the last batch runs its 5 rows, with no
+    padding, and stores the rows a batch padded to 8 (fully masked rows
+    whose first position is set) gives them; ``slots`` counts the 21 rows
+    the tower ran.  At the tiny width bit for bit; at width 128 the float
+    head's product over the pooled rows rounds over their count (5 or 8)
+    on the CPU, within 1e-6 of the largest |element|."""
+    cfg = ModelConfig.tiny(vocab_size=512, dtype=dtype) if width == 32 else _cfg(dtype)
+    enc = E.AnceEncoder.from_jax_params(_params(cfg, int8), cfg, "cpu")
+    rng = np.random.default_rng(1)
+    L = 32
+    w = TokenizedCorpusWriter(str(tmp_path / "c"), max_seq_length=L)
+    for i in range(21):
+        w.add(i, rng.integers(3, cfg.vocab_size, int(rng.integers(2, L + 1))).tolist())
+    w.finalize()
+    corpus = TokenizedCorpus(str(tmp_path / "c"))
+    _zero_pack_counts()
+    store = encode_corpus(corpus, enc, str(tmp_path / "b"), batch_size=8, device="cpu")
+    assert pack.COUNTS["forwards"] == 3 and pack.COUNTS["slots"] == 21 * L
+    want = []
+    with torch.inference_mode():
+        for _, ids, mask in corpus.batches(8):
+            n = len(ids)
+            ids = np.concatenate([ids, np.zeros((8 - n, L), np.int32)])
+            mask = np.concatenate([mask, np.zeros((8 - n, L), np.int32)])
+            mask[n:, 0] = 1
+            want.append(enc(torch.from_numpy(ids), torch.from_numpy(mask),
+                            host_mask=mask).float().numpy()[:n])
+    emb, offs = store.read_block(0)
+    want = np.concatenate(want)
+    np.testing.assert_array_equal(np.asarray(offs), np.arange(21))
+    np.testing.assert_array_equal(np.asarray(emb)[:16], want[:16])  # the whole batches
+    tol = 0.0 if width == 32 else 1e-6 * np.abs(want).max()
+    assert np.abs(np.asarray(emb) - want).max() <= tol
 
 
 def _train_batch(cfg, variant, B, seed=0):

@@ -501,7 +501,7 @@ def test_retriever_on_a_mesh_matches_jax(tmp_path):
     JAX's embed batch (max(n_dev, per-device batch x n_dev) rows), a
     sharded resident index in each dtype, the same ranked pids, scores
     within 1e-5; BatchingRetriever answers equal Retriever.search of the
-    same requests encoded at the slot shape of the dispatched bucket."""
+    same requests encoded at the slot shape of their dispatch."""
     from haconvdr_tpu.config import DataConfig, SearchConfig
     from haconvdr_tpu.serve import Retriever as JaxRetriever
     from haconvdr_torch.models.convert import init_params_numpy
@@ -540,7 +540,7 @@ def test_retriever_on_a_mesh_matches_jax(tmp_path):
     with BatchingRetriever(tr, max_batch=4, max_wait_ms=50.0) as br:
         futs = [br.submit(qn, h) for qn, h in queries]
         got = [f.result(timeout=120) for f in futs]
-    for e, hits in zip(exs, got):  # buckets <= 4 over 8 slots: one row a slot
+    for e, hits in zip(exs, got):  # dispatches of <= 4 over 8 slots: one row a slot
         with torch.inference_mode():
             one = tr.encoder(torch.tensor([e["conv_qp"]], dtype=torch.int32),
                              torch.tensor([e["conv_qp_mask"]], dtype=torch.int32)).numpy()

@@ -21,6 +21,7 @@ from haconvdr_tpu.index.store import EmbeddingBlockStore
 from haconvdr_tpu.serve import Retriever as JaxRetriever
 from haconvdr_torch.index.quantize import quantize_queries_int8
 from haconvdr_torch.models.convert import init_params_numpy
+from haconvdr_torch.parallel.sharded_encode import batch_iter
 from haconvdr_torch.serve import BacklogFull, BatchingRetriever, Retriever
 from haconvdr_torch.utils.testing import HashTokenizer, write_tiny_hf_checkpoint
 
@@ -222,6 +223,43 @@ def test_batching_backpressure_and_k_bound(setup):
     finally:
         gate.set()
         b.close()
+
+
+@pytest.mark.parametrize("dtype, int8", [("float32", False), ("float32", True),
+                                         ("bfloat16", True)], ids=["f32", "int8_f32", "int8_bf16"])
+def test_a_dispatch_of_n_requests_runs_n_rows_and_n_queries(setup, dtype, int8):
+    """Five requests coalesced under max_batch 8: the tower gets one batch of
+    five rows, none of them padding, and the search five queries; each
+    answer equals a dispatch padded to 8 (collate(pad_to=8) and the query
+    matrix padded with copies of row 0) bit for bit."""
+    cfg = dataclasses.replace(setup["cfg"], dtype=dtype)
+    tr = Retriever(setup["tok"], setup["params"], cfg, setup["store"],
+                   offset2pid=setup["offset2pid"], data_cfg=setup["data_cfg"],
+                   search_cfg=SearchConfig(top_k=8), encoder_int8=int8, device="cpu")
+    queries = QUERIES + [("how deep is it", [])]
+    exs = [tr.build_query(q, h) for q, h in queries]
+    padded = tr.encode(batch_iter(exs, 8))
+    s, i = tr.search(np.concatenate([padded, np.repeat(padded[:1], 3, 0)]))
+    want = [[(int(p), float(x)) for p, x in zip(i[n], s[n]) if p >= 0] for n in range(5)]
+    seen = {"rows": [], "queries": []}
+    encode, search = tr.encode, tr.search
+
+    def spy_encode(batches):
+        batches = list(batches)
+        seen["rows"] += [(len(b["valid"]), int(b["valid"].sum())) for b in batches]
+        return encode(batches)
+
+    def spy_search(embs, k=None):
+        seen["queries"].append(len(embs))
+        return search(embs, k)
+
+    tr.encode, tr.search = spy_encode, spy_search
+    with BatchingRetriever(tr, max_batch=8, max_wait_ms=1000.0) as b:
+        futs = [b.submit(q, h) for q, h in queries]
+        got = [f.result(timeout=120) for f in futs]
+    assert b.stats()["batch_histogram"] == {5: 1}
+    assert seen == {"rows": [(5, 5)], "queries": [5]}
+    assert got == want
 
 
 def test_ivf_retriever_matches_jax(setup):

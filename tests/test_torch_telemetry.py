@@ -131,6 +131,32 @@ def test_on_every_dispatch_has_the_span_tree(retriever, counted_clock):
     assert snap.counters["ops.fused_attention"]["plain"] == 2 * len(dispatches)  # two layers
 
 
+def test_encode_corpus_opens_the_tower_spans_once_a_batch(retriever, tmp_path):
+    """The index builder runs the serving path's tower loop: 21 passages in
+    batches of 8 give one tower.h2d, tower.launch and tower.wait a batch
+    (and a tower.collate more, the iterator's end), each batch read back
+    after its launch, none inside a dispatch."""
+    from haconvdr_torch.index.build import encode_corpus
+    from haconvdr_torch.index.store import TokenizedCorpus, TokenizedCorpusWriter
+
+    rng = np.random.default_rng(0)
+    w = TokenizedCorpusWriter(str(tmp_path / "c"), max_seq_length=16)
+    for i in range(21):
+        w.add(i, rng.integers(3, 512, int(rng.integers(2, 17))).tolist())
+    w.finalize()
+    TRACER.start()
+    try:
+        encode_corpus(TokenizedCorpus(str(tmp_path / "c")), retriever.encoder,
+                      str(tmp_path / "b"), batch_size=8, device="cpu")
+    finally:
+        snap = TRACER.stop()
+    names = ("tower.collate", "tower.h2d", "tower.launch", "tower.wait")
+    assert {n: len(snap.of(n)) for n in names} == dict(zip(names, (4, 3, 3, 3)))
+    for launch, wait in zip(snap.of("tower.launch"), snap.of("tower.wait")):
+        assert launch.t1 <= wait.t0
+    assert all(s.parent is None and "dispatch" not in s.ids for n in names for s in snap.of(n))
+
+
 def test_a_request_s_spans_share_its_id_and_its_queue_ends_where_its_dispatch_begins(retriever):
     snap, _ = _traced(retriever, max_batch=2)
     builds = {s.ids["request"]: s for s in snap.of("request.build")}
